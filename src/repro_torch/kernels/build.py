@@ -10,6 +10,7 @@ once, and waits for them. Nothing builds at import time; a missing
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("paged_kv_attention",)
+KERNELS = ("paged_kv_attention", "quant_cast", "pack", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -85,3 +86,22 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch function of kernel ``name`` returned a non-zero
+    ``cudaError_t`` (its library exports ``<name>_error_string``)."""
+    if err != 0:
+        fn = getattr(lib, f"{name}_error_string")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{fn(err).decode()}")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (grid-stride
+    kernels launch a few blocks per SM)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

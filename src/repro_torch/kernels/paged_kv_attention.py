@@ -10,6 +10,12 @@ The simple design stages pages in shared memory and multiplies on float32
 FMAs; reuse of a page across query blocks and tensor cores are left for a
 later change.
 
+``block_kv=True`` selects the KV-head-blocked kernel, which replaces
+``_chunk_kernel_kvblock``: one block per (query block, row) stages whole
+pages, all KV heads, so each page is read once per query block. It
+computes the same function, so its plain version is the default route's;
+the two kernels agree to float rounding, not bitwise.
+
 :func:`paged_kv_attention_chunk` keeps the reference's signature and
 layouts. For CUDA tensors it launches the kernel (and counts the launch in
 ``paged_kv_attention_chunk.launches``); for CPU tensors it runs
@@ -35,6 +41,7 @@ _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 _BITS_DTYPES = {8: (torch.int8,), 4: (torch.int32,),
                 0: (torch.float32, torch.bfloat16)}
 _SMEM_BUDGET = 100 * 1024   # bytes of shared memory per block we aim for
+_SMEM_MAX = 232448          # the most one block can have on an H100
 _MAX_TILE_KEYS = 64
 
 
@@ -121,8 +128,37 @@ def _check(q, k_pages, v_pages, k_scale, v_scale, page_table, bits):
         raise ValueError(f"inputs lie on several devices: {devs}")
 
 
+def _tiling(lib, *, block_kv: bool, block_q: int, S: int, G: int, KV: int,
+            ps: int, hd: int):
+    """(query rows per block, pages per tile) for one launch. The default
+    kernel keeps ``block_q`` and takes the largest tile of up to 64 keys
+    within its budget. The blocked kernel holds every KV head at once, so
+    it takes the largest query block (halving ``block_q``), then tile,
+    that fits one block's shared memory; raises if even one query and one
+    page do not."""
+    bq = max(1, min(block_q, S))
+    if not block_kv:
+        for tp in (4, 2):
+            if (tp * ps <= _MAX_TILE_KEYS
+                    and lib.paged_kv_attention_smem_bytes(bq * G, tp * ps, hd)
+                    <= _SMEM_BUDGET):
+                return bq, tp
+        return bq, 1
+    while True:
+        for tp in (4, 2, 1):
+            if (tp * ps <= _MAX_TILE_KEYS
+                    and lib.paged_kv_attention_kvblock_smem_bytes(
+                        bq * G, tp * ps, KV, hd) <= _SMEM_MAX):
+                return bq, tp
+        if bq == 1:
+            raise ValueError(f"block_kv: one page of {KV} KV heads x {ps} "
+                             f"keys x head_dim {hd} does not fit one "
+                             f"block's shared memory")
+        bq = max(1, bq // 2)
+
+
 def _launch(q, k_pages, v_pages, k_scale, v_scale, page_table, qs, lens, *,
-            bits: int, block_q: int) -> torch.Tensor:
+            bits: int, block_q: int, block_kv: bool) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on a failed
     launch."""
     B, S, H, hd = q.shape
@@ -141,15 +177,8 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, page_table, qs, lens, *,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = _library()
-    bq = max(1, min(block_q, S))
-    rows = bq * (H // KV)
-    tile_pages = 1
-    for tp in (4, 2):
-        if (tp * ps <= _MAX_TILE_KEYS
-                and lib.paged_kv_attention_smem_bytes(rows, tp * ps, hd)
-                <= _SMEM_BUDGET):
-            tile_pages = tp
-            break
+    bq, tile_pages = _tiling(lib, block_kv=block_kv, block_q=block_q, S=S,
+                             G=H // KV, KV=KV, ps=ps, hd=hd)
     qs = qs.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
@@ -160,12 +189,13 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, page_table, qs, lens, *,
             k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
             qs.data_ptr(), lens.data_ptr(), out.data_ptr(),
             B, S, H, KV, hd, ps, NP, bits, _Q_DTYPES[q.dtype],
-            _PAGE_DTYPES[k_pages.dtype], bq, tile_pages,
+            _PAGE_DTYPES[k_pages.dtype], bq, tile_pages, int(block_kv),
             float(1.0 / np.sqrt(hd)), stream)
-    if err != 0:
-        msg = lib.paged_kv_attention_error_string(err).decode()
-        raise RuntimeError(f"paged_kv_attention kernel launch failed: {msg}")
-    paged_kv_attention_chunk.launches += 1
+    build.check_launch(lib, "paged_kv_attention", err)
+    if block_kv:
+        paged_kv_attention_chunk.kvblock_launches += 1
+    else:
+        paged_kv_attention_chunk.launches += 1
     return out
 
 
@@ -180,19 +210,20 @@ def _library() -> ctypes.CDLL:
         lib = build.load("paged_kv_attention")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_kv_attention_launch.argtypes = (
-            [vp] * 9 + [i] * 12 + [f, vp])
+            [vp] * 9 + [i] * 13 + [f, vp])
         lib.paged_kv_attention_launch.restype = i
         lib.paged_kv_attention_smem_bytes.argtypes = [i, i, i]
         lib.paged_kv_attention_smem_bytes.restype = ctypes.c_size_t
-        lib.paged_kv_attention_error_string.argtypes = [i]
-        lib.paged_kv_attention_error_string.restype = ctypes.c_char_p
+        lib.paged_kv_attention_kvblock_smem_bytes.argtypes = [i, i, i, i]
+        lib.paged_kv_attention_kvblock_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
 
 def paged_kv_attention_chunk(q, k_pages, v_pages, k_scale, v_scale,
                              page_table, q_start, kv_len, *, bits: int = 8,
-                             block_q: int = 8) -> torch.Tensor:
+                             block_q: int = 8,
+                             block_kv: bool = False) -> torch.Tensor:
     """Variable-length chunk attention over a paged quantized KV pool.
 
     q: (B, S, H, hd) float32/bfloat16 — S chunk queries per row (S == 1:
@@ -203,9 +234,11 @@ def paged_kv_attention_chunk(q, k_pages, v_pages, k_scale, v_scale,
     q_start: scalar or (B,) absolute position of each row's first query;
     query i attends keys causally up to ``q_start + i``. kv_len: scalar or
     (B,) valid history length per row including the chunk's real tokens
-    (>= 1). ``block_q`` queries share one kernel block. Returns
-    (B, S, H, hd) float32; padded query rows past a row's real tokens hold
-    values no caller reads.
+    (>= 1). ``block_q`` queries share one kernel block. ``block_kv``
+    selects the KV-head-blocked kernel (launches counted in
+    ``paged_kv_attention_chunk.kvblock_launches``; the default kernel's in
+    ``.launches``). Returns (B, S, H, hd) float32; padded query rows past a
+    row's real tokens hold values no caller reads.
     """
     _check(q, k_pages, v_pages, k_scale, v_scale, page_table, bits)
     B = q.shape[0]
@@ -218,10 +251,11 @@ def paged_kv_attention_chunk(q, k_pages, v_pages, k_scale, v_scale,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     return _launch(q, k_pages, v_pages, k_scale, v_scale, page_table, qs,
-                   lens, bits=bits, block_q=block_q)
+                   lens, bits=bits, block_q=block_q, block_kv=block_kv)
 
 
 paged_kv_attention_chunk.launches = 0
+paged_kv_attention_chunk.kvblock_launches = 0
 
 
 def paged_kv_attention_decode(q, k_pages, v_pages, k_scale, v_scale,

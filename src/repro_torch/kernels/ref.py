@@ -1,21 +1,54 @@
-"""Full-materialization oracles for the attention kernel, and the shared
-fragmented-pool fixture.
+"""Oracles for every kernel, and the shared fragmented-pool fixture.
 
-The oracles gather a row's pages into the logical dense view, dequantize
-with the per-page scales and run masked softmax attention — no online
-softmax, no page loop — so they check the kernel and its plain version
-from a different direction.
+The oracles are built from the core library where it matters (the
+fake-quant grid is ``core.fixedpoint.fake_quant``, the lane packing is
+``core.qtensor.pack_bits``), so kernel == library == paper. The attention
+oracles gather a row's pages into the logical dense view, dequantize with
+the per-page scales and run masked softmax attention — no online softmax,
+no page loop — so they check the kernels and their plain versions from a
+different direction.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.fixedpoint import fake_quant, format_params
 from ..core.paged_kv import paged_gather, per_row
-from ..core.qtensor import pack_bits
+from ..core.qtensor import pack_bits, unpack_bits
+from .pack import values_per_word
 
 NEG_INF = -1e30
 _CONTAINER = {0: "fp", 8: "int8", 4: "int4"}
+
+
+def quant_cast_ref(x, int_bits: int, frac_bits: int) -> torch.Tensor:
+    """Fake-quant Q(I,F): round half away, clip, rescale (paper §2.1)."""
+    return fake_quant(x, int_bits, frac_bits)
+
+
+def pack_ref(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """q: (..., N) integer-grid values in [-2^(bits-1), 2^(bits-1)-1],
+    N % (32/bits) == 0 (no padding, unlike ``pack_bits``). Returns
+    (..., N // vpw) int32 words."""
+    vpw = values_per_word(bits)
+    if q.shape[-1] % vpw:
+        raise ValueError(f"last dim {q.shape[-1]} is not a multiple of "
+                         f"{vpw} values per word")
+    return pack_bits(q, bits)[0]
+
+
+def unpack_ref(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_ref` (sign-extending): (..., W) int32 ->
+    (..., W * vpw) int32."""
+    return unpack_bits(w, bits, w.shape[-1] * values_per_word(bits))
+
+
+def quant_matmul_ref(a, wq, scales) -> torch.Tensor:
+    """a: (M, K) float; wq: (K, N) int8/int16 grid; scales: (N,) float32.
+    Returns (M, N) float32 = a @ (wq * scales)."""
+    wf = wq.to(torch.float32) * scales.to(torch.float32)[None, :]
+    return a.to(torch.float32) @ wf
 
 
 def masked_decode_attention_ref(q, k, v, kv_len):
@@ -98,3 +131,13 @@ def make_fragmented_pool(rng: np.random.Generator, B, NP, ps, kv, hd, bits,
     rng.shuffle(ids)
     pt = ids[:B * NP].reshape(B, NP).astype(np.int32)
     return kq, vq, ks, vs, pt
+
+
+def kv_attention_ref(q, k_q, v_q, int_bits: int, frac_bits: int, kv_len):
+    """q: (B, H, hd) float; k_q/v_q: (B, T, KV, hd) int8 grid; kv_len:
+    int. GQA decode: one new token attends to the first kv_len cache
+    entries. Returns (B, H, hd) float32."""
+    scale, _, _ = format_params(int_bits, frac_bits)
+    k = k_q.to(torch.float32) / scale
+    v = v_q.to(torch.float32) / scale
+    return masked_decode_attention_ref(q, k, v, kv_len)

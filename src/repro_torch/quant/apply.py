@@ -5,17 +5,19 @@
   container branch: each layer's KV cache inherits the layer's *data*
   format, clipped to the container width.
 * ``kv_profile_key`` — the canonical string of a KV quantization setup.
+* ``quantize_param_tree`` — a dense model's weights as QuantizedTensors.
 
 Per-layer KV containers (``per_layer_kv``), weight and residual-stream
-fake-quant, the traffic model and ``quantize_param_tree`` are still to port
-(ROADMAP queue A items 2 and 8).
+fake-quant and the traffic model are still to port (ROADMAP queue A items
+2 and 8).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 from ..core.policy import PrecisionPolicy
-from ..models.transformer import ModelQuant
+from ..core.qtensor import QuantizedTensor
+from ..models.transformer import ModelQuant, Transformer
 
 # the reference's stand-in format for a layer without a data format
 # (``PrecisionPolicy.stacked_arrays``): Q16.14
@@ -89,3 +91,54 @@ def kv_profile_key(policy: Optional[PrecisionPolicy], *,
     else:
         per = f"uniform{kv_bits}"
     return f"{per}|scale={kv_scale_mode}"
+
+
+def quantize_param_tree(model: Transformer, policy: PrecisionPolicy, *,
+                        pack: bool = True) -> dict:
+    """A dense model's weights on their integer grids, one QuantizedTensor
+    per floating weight of rank >= 2 of every layer; every other leaf
+    (embedding, head, norm scales, biases) passes through as the model's
+    tensor.
+
+    The format is the reference's: a dense model is one segment, and every
+    layer gets the maximum int and frac bits over the segment's weight
+    formats (Q2.6 when no layer has one); grids of at most 8 bits are
+    lane-packed when ``pack``. Returns ``{"embed": {"table"},
+    "final_norm": {"scale"}, "head": {"kernel"} (untied only), "layers":
+    [per layer {"mixer": {wq, wk, wv, wo[, bq, bk, bv]}, "ffn": {w_gate,
+    w_up, w_down}, "norm1": {"scale"}, "norm2": {"scale"}}]}``: the
+    reference's leaf names, with its scan-stacked segment split into one
+    dict per layer.
+
+    Orientation: the port stores every projection as the reference does,
+    ``(d_in, d_out)`` (``x @ w``), so each grid here is the reference's
+    slice for that layer, and an unpacked grid goes to ``ops.qmatmul`` as
+    ``wq (K, N)`` unchanged, with scales ``2^-F``."""
+    cfg = model.cfg
+    if len(policy) != cfg.num_layers:
+        raise ValueError(f"policy has {len(policy)} layers, model has "
+                         f"{cfg.num_layers}")
+    fmts = [lp.weight for lp in policy.layers if lp.weight is not None]
+    ib = max((f.int_bits for f in fmts), default=2)
+    fb = max((f.frac_bits for f in fmts), default=6)
+    packed = pack and ib + fb <= 8
+
+    def q(t):
+        if t.dim() >= 2 and t.is_floating_point():
+            return QuantizedTensor.from_float(t, ib, fb, pack=packed)
+        return t
+
+    attn = ["wq", "wk", "wv", "wo"]
+    if cfg.attention_bias:
+        attn += ["bq", "bk", "bv"]
+    out = {"embed": {"table": model.embed},
+           "final_norm": {"scale": model.final_norm}}
+    if model.head is not None:
+        out["head"] = {"kernel": model.head}
+    out["layers"] = [{
+        "mixer": {n: q(getattr(blk.attn, n)) for n in attn},
+        "ffn": {n: q(getattr(blk.mlp, n))
+                for n in ("w_gate", "w_up", "w_down")},
+        "norm1": {"scale": blk.norm1}, "norm2": {"scale": blk.norm2},
+    } for blk in model.layers]
+    return out

@@ -53,3 +53,32 @@ def test_no_source_names_jax_or_the_jax_package(pattern):
     hits = [str(p.relative_to(ROOT)) for p in _sources()
             if rx.search(p.read_text())]
     assert not hits, hits
+
+
+_SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
+                  "repro_torch.kernels.ref", "repro_torch.kernels.quant_cast",
+                  "repro_torch.kernels.pack",
+                  "repro_torch.kernels.quant_matmul",
+                  "repro_torch.kernels.paged_kv_attention",
+                  "repro_torch.kernels.kv_attention",
+                  "repro_torch.kernels.ops", "repro_torch.kernels.build",
+                  "repro_torch.quant.apply",
+                  "repro_torch.benchmarks.kernel_bench"]
+
+
+def test_kernel_entry_point_modules_import_without_jax():
+    """Each module of the kernel entry point, named one by one, imports
+    with jax and the JAX package blocked."""
+    script = ("import importlib, sys\n"
+              "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+              "sys.path.insert(0, sys.argv[1])\n"
+              "for name in sys.argv[2:]:\n"
+              "    importlib.import_module(name)\n"
+              "print('OK', len(sys.argv) - 2)\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", script, str(ROOT / "src"),
+                          *_SLICE_MODULES], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split() == ["OK", str(len(_SLICE_MODULES))]
