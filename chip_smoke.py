@@ -11,8 +11,9 @@ Phases, each of which raises on failure (no phase is caught):
 2. kernels vs their plain PyTorch versions at the served shapes
    (qwen2-72b attention: 64 query heads, 8 KV heads, head_dim 128, page
    size 16): decode (S = 1, 8 rows, 1-2k keys) and a 32-query prefill
-   chunk, for float (bf16), int8 and int4 pages; max abs error, kernel /
-   plain / bound / library times; then the kernel entry point
+   chunk, for float (bf16), int8 and int4 pages, and at the served
+   contexts (8 rows of 64-544 keys, int8 and int4); max abs error, kernel /
+   plain / bound / library times, the split plan; then the kernel entry point
    (``kernels.ops``) at qwen2-72b's widths: the KV-head-blocked attention
    (``block_kv=True``) on the same six cases, ``qmatmul`` of 8 and 256
    rows by the layer-0 up-projection's int8 grid from
@@ -24,7 +25,16 @@ Phases, each of which raises on failure (no phase is caught):
    int8 and int4 KV, bucketed prefill, 24 requests of 64-512 prompt tokens
    and 32 new tokens at batch 8, through the kernel and through the gather
    route; every request finishes, the kernel ran once per layer per
-   forward, and the two routes' tokens agree.
+   forward, and the two routes' tokens agree; then a ``torch.profiler``
+   window over decode steps of the int8 kernel-route run: B1's share of
+   device time and the device's idle share.
+
+Phase 1 also prints ptxas's registers, shared memory and spills for the
+attention kernels and the count of HMMA (tensor-core) instructions in
+their library. Kernel times are CUDA events around one launch, L2 flushed
+before it and a device-side sleep enqueued ahead of it, so the events
+bracket device work and not the host's enqueue; the attention cases also
+print the wrapper's host time a call.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict, ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -36,6 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,10 +73,15 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+SLEEP_CYCLES = 400_000              # ~0.2 ms of device time at 1.98 GHz
+
+
 def cuda_ms(fn, *, reps: int, flush=None) -> float:
     """Mean device ms of ``fn`` over ``reps`` launches after a warm-up,
     each timed by its own CUDA event pair; ``flush`` runs (untimed) before
-    each launch to evict the inputs from L2."""
+    each launch to evict the inputs from L2, then a device-side sleep keeps
+    the card busy while the host enqueues ``fn``, so the events time the
+    device's work and not the host's."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -73,6 +89,7 @@ def cuda_ms(fn, *, reps: int, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -86,15 +103,16 @@ def cuda_ms(fn, *, reps: int, flush=None) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: kernel vs plain version
 # ---------------------------------------------------------------------------
-def attention_inputs(rng, *, bits: int, S: int, B: int = 8):
+def attention_inputs(rng, *, bits: int, S: int, B: int = 8,
+                     keys=(1024, 2048)):
     """Served-width attention inputs on the card: a fragmented pool at
-    1-2k keys per row, bf16 queries, the chunk's S queries ending at each
-    row's last key. Returns (args, kv_len as numpy)."""
+    ``keys`` (lo, hi) keys per row, bf16 queries, the chunk's S queries
+    ending at each row's last key. Returns (args, kv_len as numpy)."""
     import torch
     from repro_torch.kernels.ref import make_fragmented_pool
 
     dev = torch.device("cuda")
-    kv_len = rng.integers(1024, 2049, B).astype(np.int32)
+    kv_len = rng.integers(keys[0], keys[1] + 1, B).astype(np.int32)
     NP = -(-int(kv_len.max()) // PS)
     kq, vq, ks, vs, pt = make_fragmented_pool(rng, B, NP, PS, KV, HD, bits)
     kp, vp = torch.from_numpy(kq).to(dev), torch.from_numpy(vq).to(dev)
@@ -107,6 +125,20 @@ def attention_inputs(rng, *, bits: int, S: int, B: int = 8):
     lens = torch.from_numpy(kv_len).to(dev)
     qs = lens - S
     return (q, kp, vp, ksc, vsc, ptd, qs, lens), kv_len
+
+
+def host_ms(fn, *, reps: int = 50) -> float:
+    """Host ms a call of ``fn`` takes to return (its enqueue, no sync in
+    the loop), after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def sdpa_yardstick(args, *, bits: int, plain, flush):
@@ -165,7 +197,7 @@ def flush_fn():
 
 
 def kernel_case(rng, *, bits: int, S: int, B: int = 8,
-                block_kv: bool = False):
+                block_kv: bool = False, keys=(1024, 2048)):
     """One kernel-vs-plain comparison at the served attention shapes,
     through ``kernels.ops``. With ``block_kv`` it is B2's: its launch is
     counted in the case and it is also held against B1 (1e-5)."""
@@ -174,10 +206,11 @@ def kernel_case(rng, *, bits: int, S: int, B: int = 8,
     from repro_torch.kernels import paged_kv_attention as pka
 
     chunk = pka.paged_kv_attention_chunk
-    args, kv_len = attention_inputs(rng, bits=bits, S=S, B=B)
+    args, kv_len = attention_inputs(rng, bits=bits, S=S, B=B, keys=keys)
     chunk.kvblock_launches = 0                  # the entry point's launch
     out = ops.paged_kv_attention_chunk(*args, bits=bits, block_kv=block_kv)
     launches = chunk.kvblock_launches
+    plan = dict(chunk.last_plan)
     torch.cuda.synchronize()
     plain = pka.paged_kv_attention_chunk_plain(*args, bits=bits)
     err = float((out - plain).abs().max())
@@ -198,38 +231,88 @@ def kernel_case(rng, *, bits: int, S: int, B: int = 8,
     flush = flush_fn()
     ms = cuda_ms(lambda: chunk(*args, bits=bits, block_kv=block_kv),
                  reps=20, flush=flush)
+    wrapper_ms = host_ms(lambda: chunk(*args, bits=bits, block_kv=block_kv))
     plain_ms = cuda_ms(lambda: pka.paged_kv_attention_chunk_plain(
         *args, bits=bits), reps=5, flush=flush)
     lib_err, library_ms = sdpa_yardstick(args, bits=bits, plain=plain,
                                          flush=flush)
     bound_ms, bound_by, nbytes, flops = attention_bound(args, kv_len, out)
-    return {"bits": bits, "S": S, "B": B, "kv_len_max": int(kv_len.max()),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"bits": bits, "S": S, "B": B, "kv_len_min": int(kv_len.min()),
+            "kv_len_max": int(kv_len.max()), "plan": plan,
+            "max_abs_err": err, "ms": ms, "host_ms": wrapper_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
             "bytes": nbytes, "flops": flops, **extra}
 
 
-def attention_cases(rng, label: str, *, block_kv: bool = False):
-    """The six served-width attention cases (float, int8, int4 pages x
-    decode and a 32-query chunk), one printed line each."""
+def attention_cases(rng, label: str, *, block_kv: bool = False,
+                    bits_list=(0, 8, 4), keys=(1024, 2048)):
+    """The served-width attention cases (pages of ``bits_list`` x decode
+    and a 32-query chunk, 8 rows of ``keys`` keys), one printed line
+    each."""
     cases = []
-    for bits in (0, 8, 4):
+    for bits in bits_list:
         for S in (1, 32):
-            c = kernel_case(rng, bits=bits, S=S, block_kv=block_kv)
+            c = kernel_case(rng, bits=bits, S=S, block_kv=block_kv,
+                            keys=keys)
             cases.append(c)
             vs_b1 = (f", vs B1 {c['max_abs_err_vs_b1']:.2e} (tol 1e-5)"
                      if block_kv else "")
-            print(f"[{label}] bits={bits} S={S:>2}: max_abs_err "
-                  f"{c['max_abs_err']:.2e} (tol {TOL}){vs_b1}, kernel "
-                  f"{c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, sdpa "
-                  f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-                  f"({c['bound_by']})", flush=True)
+            plan = c["plan"]
+            print(f"[{label}] bits={bits} S={S:>2} keys {c['kv_len_min']}-"
+                  f"{c['kv_len_max']}: max_abs_err {c['max_abs_err']:.2e} "
+                  f"(tol {TOL}){vs_b1}, kernel {c['ms']:.4f} ms (host "
+                  f"{c['host_ms']:.4f} ms a call), plain "
+                  f"{c['plain_ms']:.3f} ms, sdpa {c['library_ms']:.4f} ms, "
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}); "
+                  f"{plan['route']} route, block_q {plan['block_q']}, "
+                  f"{plan['splits']} splits, {plan['blocks_per_sm']} "
+                  f"blocks/SM, {plan['smem_bytes']} B shared", flush=True)
     return cases
 
 
 def kernels_phase(seed: int):
-    return attention_cases(np.random.default_rng(seed), "kernel")
+    """B1 on the six 1-2k-key cases, then at the served contexts (64-544
+    keys, the served run's int8 and int4 pools)."""
+    rng = np.random.default_rng(seed)
+    return (attention_cases(rng, "kernel")
+            + attention_cases(rng, "kernel served-ctx", bits_list=(8, 4),
+                              keys=(64, 544)))
+
+
+def kernel_build_report():
+    """ptxas's registers, shared memory and spills for the attention
+    kernels (from the build's -Xptxas=-v), and the HMMA (tensor-core)
+    instructions in their library where cuobjdump exists."""
+    import shutil
+    from repro_torch.kernels import build
+
+    names = [fn for fn, _, _ in build.ptxas_report("paged_kv_attention")]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        names = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    for name, (_, used, spill) in zip(
+            names, build.ptxas_report("paged_kv_attention")):
+        short = re.search(r"(paged_attn_mma_kernel|merge_partials_kernel)"
+                          r"(<[^>]*>)?", name)
+        if short:
+            print(f"[ptxas] {short.group(0)}: {used}; {spill}", flush=True)
+    cuobj = (shutil.which("cuobjdump")
+             or ("/usr/local/cuda/bin/cuobjdump"
+                 if Path("/usr/local/cuda/bin/cuobjdump").exists() else None))
+    if cuobj is None:
+        print("[sass] no cuobjdump in this toolkit", flush=True)
+        return
+    sass = subprocess.run(
+        [cuobj, "-sass",
+         str(build.library_path("paged_kv_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hmma = sum(" HMMA" in line for line in sass.splitlines())
+    print(f"[sass] paged_kv_attention library: {hmma} HMMA instructions",
+          flush=True)
 
 
 def kernel_entry(name, source, replaces, cases, main, launches):
@@ -597,9 +680,10 @@ class DecodeTap:
 
 
 def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
-               forced=None, tap: bool = False):
-    """One served run of the 24 seeded requests. Returns (requests, stats,
-    DecodeTap or None)."""
+               forced=None, tap: bool = False, wrap=None):
+    """One served run of the 24 seeded requests; ``wrap`` (optional) wraps
+    the decode step function. Returns (requests, stats, DecodeTap or
+    None)."""
     import torch
     from repro_torch.launch.serve import BatchedServer, Request
 
@@ -612,7 +696,8 @@ def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
                         prefill="bucketed", prefill_bucket=32,
                         device="cuda")
     taps = DecodeTap(srv, forced) if tap or forced is not None else None
-    srv.decode = StepTimer(taps or srv.decode)
+    step = taps or srv.decode
+    srv.decode = StepTimer(wrap(step) if wrap else step)
     srv._chunk_prefill = StepTimer(srv._chunk_prefill)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -655,6 +740,102 @@ def compare_logits(ref: DecodeTap, test: DecodeTap) -> dict:
     return {"steps": len(diffs), "max_abs_logit_diff": max(diffs),
             "median_max_abs_logit_diff": float(np.median(diffs)),
             "top2_tied_steps": ties}
+
+
+class ProfiledSteps:
+    """Wraps a decode step function: a ``torch.profiler`` window (CUDA
+    activity only, to keep the profiler's host cost out of the steps) over
+    steps ``start`` to ``start + steps - 1``, opened and closed at a device
+    sync, with the window's host wall time."""
+
+    def __init__(self, fn, *, start: int, steps: int):
+        self.fn, self.start, self.steps = fn, start, steps
+        self.n, self.prof, self.t0, self.wall_s = 0, None, None, None
+
+    def __call__(self, *a, **kw):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if self.n == self.start:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        self.n += 1
+        if self.n == self.start + self.steps:
+            torch.cuda.synchronize()
+            self.wall_s = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+        return out
+
+
+def decode_profile(cfg, model, seed: int, *, start: int = 8,
+                   steps: int = 8) -> dict:
+    """The int8 kernel-route served run again, with a profiler window over
+    ``steps`` decode steps: device time by kernel, B1's share (its
+    tensor-core kernel and the merge of its splits) of the device time and
+    of the window, and the device's idle share of the window (1 - the
+    union of kernel and copy intervals over the window's wall time)."""
+    import torch
+
+    prof = {}
+
+    def wrap(fn):
+        prof["steps"] = ProfiledSteps(fn, start=start, steps=steps)
+        return prof["steps"]
+
+    serve_once(cfg, model, kv_bits=8, attn_impl="kernel", seed=seed,
+               wrap=wrap)
+    win = prof["steps"]
+    if win.wall_s is None:
+        raise AssertionError(f"the served run took fewer than "
+                             f"{start + steps} decode steps")
+    evs = [e for e in win.prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    window_us = win.wall_s * 1e6
+    if not evs:
+        print("[profile] torch.profiler recorded no device activity on "
+              "this machine", flush=True)
+        return {"window_us": window_us, "device_events": 0}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in evs:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.end - e.time_range.start
+    kernel_us = sum(t for _, t in by_name.values())
+    b1 = {k: v for k, v in by_name.items()
+          if "paged_attn" in k or "merge_partials" in k}
+    b1_us = sum(t for _, t in b1.values())
+    res = {"steps": steps, "window_us": window_us,
+           "step_us": window_us / steps, "device_busy_us": busy,
+           "device_idle_share": 1.0 - busy / window_us,
+           "device_kernel_us": kernel_us, "b1_us": b1_us,
+           "b1_launches": sum(n for n, _ in b1.values()),
+           "b1_share_of_device_time": b1_us / kernel_us,
+           "b1_share_of_window": b1_us / window_us,
+           "device_events": len(evs),
+           "top": sorted(((t, n, k[:80]) for k, (n, t) in by_name.items()),
+                         reverse=True)[:6]}
+    print(f"[profile] int8 kernel route, decode steps {start}-"
+          f"{start + steps - 1}: {res['step_us'] / 1e3:.2f} ms a step "
+          f"(host clock); device busy {busy / 1e3:.2f} of "
+          f"{window_us / 1e3:.2f} ms, idle share "
+          f"{res['device_idle_share']:.3f}; B1 {b1_us / 1e3:.3f} ms in "
+          f"{res['b1_launches']} launches = "
+          f"{res['b1_share_of_device_time']:.4f} of device time, "
+          f"{res['b1_share_of_window']:.4f} of the window", flush=True)
+    for t, n, k in res["top"]:
+        print(f"[profile]   {t / 1e3:8.3f} ms in {n:4d} x {k}", flush=True)
+    return res
 
 
 def serve_phase(seed: int, num_layers: int):
@@ -726,6 +907,7 @@ def serve_phase(seed: int, num_layers: int):
     print(f"[serve] main path: {launches} kernel launches = "
           f"{cfg.num_layers} layers x "
           f"{expect // cfg.num_layers} programs", flush=True)
+    runs.append({"decode_profile": decode_profile(cfg, model, seed)})
     return launches, runs
 
 
@@ -757,6 +939,7 @@ def main(argv=None) -> int:
     built = build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
+    kernel_build_report()
 
     cases = kernels_phase(SEED)
     more = entry_point_phase(SEED)

@@ -221,8 +221,9 @@ def bench_paged_decode_gap(dev):
     """Decode-step attention (S = 1) on identical fragmented page tables:
     the default chunk kernel, the KV-head-blocked one (``block_kv=True``:
     each page read once per query block, all KV heads) and the gather
-    oracle. ``blocked_vs_default_err`` is float rounding (0.0 for fp
-    pages)."""
+    oracle. ``blocked_vs_default_err`` is 0.0 on int8/int4 pages (the
+    tensor-core kernels take the same tiles and splits) and float rounding
+    on the float32 ``fp`` pages (the FMA kernels)."""
     out = {}
     B, kv, g, hd, ps = 2, 2, 2, 32, 16
     for ctx in (64, 256):

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("paged_kv_attention", "quant_cast", "pack", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -51,7 +51,10 @@ def library_path(name: str) -> Path:
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every kernel in ``names`` whose library is not cached yet,
     one ``nvcc`` process per source, all started together. Returns the
-    wall seconds of each build started (cached libraries are absent)."""
+    wall seconds of each build started (cached libraries are absent).
+    Each library's compiler output (``-Xptxas=-v``: registers, shared
+    memory and spills per kernel) is kept beside it, see
+    :func:`ptxas_report`."""
     todo = [(n, library_path(n)) for n in names]
     todo = [(n, p) for n, p in todo if not p.exists()]
     if not todo:
@@ -73,10 +76,30 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}:\n{log}")
             continue
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's per-kernel lines for kernel ``name``'s cached library:
+    (mangled kernel name, its "Used ..." line with registers and shared
+    memory, and its spill line), from the build's log."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    out, fn, spill = [], None, ""
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "spill stores" in line:
+            spill = line.split("ptxas info    :")[-1].strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            out.append((fn, line.split("ptxas info    :")[-1].strip(), spill))
+            fn, spill = None, ""
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,6 @@
 """On a CUDA card only: the port's CUDA kernels against their plain
-PyTorch versions. Imports no JAX, so it runs on a machine without it:
+PyTorch versions, and the split-KV tensor-core attention's determinism and
+dispatch. Imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -277,3 +278,122 @@ def test_cuda_failed_launches_raise(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         ops.paged_kv_attention_chunk(*args, bits=8, block_kv=True)
     assert pka.paged_kv_attention_chunk.kvblock_launches == before
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2 on tensor cores: page sizes, split-KV, determinism, dispatch
+# ---------------------------------------------------------------------------
+def _long_case(seed, *, b, bits, s, lo, hi, kv=8, g=8, hd=128, ps=16,
+               qdt=torch.bfloat16):
+    """Per-row lengths in [lo, hi]; the chunk's s queries end at each row's
+    last key."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, b).astype(np.int32)
+    kq, vq, ks, vs, pt = make_fragmented_pool(rng, b, -(-int(lens.max()) //
+                                                        ps), ps, kv, hd, bits)
+    q = rng.normal(size=(b, s, kv * g, hd)).astype(np.float32)
+    kp, vp = torch.from_numpy(kq), torch.from_numpy(vq)
+    if bits == 0:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    return [torch.from_numpy(q).to(qdt), kp, vp, torch.from_numpy(ks),
+            torch.from_numpy(vs), torch.from_numpy(pt),
+            torch.from_numpy(lens - s), torch.from_numpy(lens)]
+
+
+@pytest.mark.parametrize("bits", [8, 4, 0])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("s", [1, 7, 40])
+@pytest.mark.parametrize("block_kv", [False, True])
+def test_cuda_mma_matches_plain_at_page_sizes(cuda, bits, ps, s, block_kv):
+    """The tensor-core kernels at page size 8 (one MMA k-chunk spans two
+    pages) and 16, several splits, S past a query block: 1e-4 against the
+    plain version."""
+    args = _long_case(bits * 100 + ps + s, b=3, bits=bits, s=s, lo=150,
+                      hi=400, kv=2, g=4, hd=64, ps=ps)
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits, block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.last_plan["route"] == "mma"
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("block_kv", [False, True])
+def test_cuda_split_kv_at_served_width(cuda, bits, block_kv):
+    """qwen2-72b widths (8 KV heads, G 8, head_dim 128, page size 16) at
+    1-2k keys: decode runs on at least 4 KV splits and holds 1e-4."""
+    args = _long_case(11 + bits, b=4, bits=bits, s=1, lo=1024, hi=2048)
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits, block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.last_plan["splits"] >= 4
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 0])
+def test_cuda_decode_is_bitwise_the_s1_chunk(cuda, bits):
+    """Decode is the S = 1 chunk with block_q = 1, bit for bit, on the
+    split path (the reference's test_paged_decode_is_chunk_special_case)."""
+    args = [a.to(cuda) for a in _long_case(21 + bits, b=4, bits=bits, s=1,
+                                           lo=600, hi=1500)]
+    lens = args[7]
+    d = pka.paged_kv_attention_decode(args[0][:, 0], *args[1:6], lens,
+                                      bits=bits)
+    c = pka.paged_kv_attention_chunk(*args[:6], lens - 1, lens, bits=bits,
+                                     block_q=1)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.last_plan["splits"] > 1
+    assert torch.equal(d, c[:, 0])
+
+
+@pytest.mark.parametrize("s", [1, 32])
+@pytest.mark.parametrize("block_kv", [False, True])
+def test_cuda_identical_calls_are_bitwise_equal(cuda, s, block_kv):
+    """No atomics: the splits and their merge run in a fixed order."""
+    args = [a.to(cuda) for a in _long_case(31 + s, b=4, bits=8, s=s,
+                                           lo=500, hi=1200)]
+    a = pka.paged_kv_attention_chunk(*args, bits=8, block_kv=block_kv)
+    b = pka.paged_kv_attention_chunk(*args, bits=8, block_kv=block_kv)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block_kv", [False, True])
+def test_cuda_float32_pages_take_the_fma_kernel(cuda, block_kv):
+    """Float32 pages reach the float32-FMA kernel by dtype dispatch; bf16
+    pages of the same values the tensor-core one. Both hold 1e-4."""
+    f32 = _case(41, b=2, kv=2, g=4, hd=32, ps=16, s=3, bits=0, start=70,
+                qdt=torch.float32)
+    bf16 = list(f32)
+    bf16[1], bf16[2] = f32[1].to(torch.bfloat16), f32[2].to(torch.bfloat16)
+    for args, route in ((f32, "fma"), (bf16, "mma")):
+        plain = pka.paged_kv_attention_chunk(*args, bits=0)
+        got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                           bits=0, block_kv=block_kv)
+        torch.cuda.synchronize()
+        assert pka.paged_kv_attention_chunk.last_plan["route"] == route
+        np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+def test_cuda_mma_refused_launch_raises(cuda, monkeypatch):
+    """On the tensor-core route a launch the C side refuses raises without
+    counting a launch, and pages off a 16-byte boundary are refused."""
+    args = [a.to(cuda) for a in _case(2, b=2, kv=2, g=4, hd=32, ps=8, s=2,
+                                      bits=8, start=30, qdt=torch.bfloat16)]
+    pka.paged_kv_attention_chunk(*args, bits=8)
+    assert pka.paged_kv_attention_chunk.last_plan["route"] == "mma"
+    with monkeypatch.context() as mp:
+        mp.setitem(pka._PAGE_DTYPES, torch.int8, 9)
+        pka._occupancy.cache_clear()
+        before = pka.paged_kv_attention_chunk.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pka.paged_kv_attention_chunk(*args, bits=8)
+        assert pka.paged_kv_attention_chunk.launches == before
+    pka._occupancy.cache_clear()
+    flat = torch.zeros(args[1].numel() + 1, dtype=torch.int8, device=cuda)
+    off = flat[1:].view(args[1].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pka.paged_kv_attention_chunk(args[0], off, args[2], *args[3:],
+                                     bits=8)
