@@ -16,10 +16,13 @@ Phases, each of which raises on failure (no phase is caught):
    plain / bound / library times, the split plan; then the kernel entry point
    (``kernels.ops``) at qwen2-72b's widths: the KV-head-blocked attention
    (``block_kv=True``) on the same six cases, ``qmatmul`` of 8 and 256
-   rows by the layer-0 up-projection's int8 grid from
-   ``quantize_param_tree``, ``quant_cast`` of a prefill residual and that
-   weight at four formats, and ``pack``/``unpack`` of its grid at 2-16
-   bits, each against its plain version; and the port's kernel bench;
+   rows (bf16 and float32) by the layer-0 up-projection's int8 grid from
+   ``quantize_param_tree`` and of 8 rows by a down-projection-shaped
+   (29568, 8192) int8 grid, each on the tensor-core route (its tile,
+   splits, blocks per SM and shared memory printed), ``quant_cast`` of a
+   prefill residual and that weight at four formats, and
+   ``pack``/``unpack`` of its grid at 2-16 bits, each against its plain
+   version; and the port's kernel bench;
 3. the served main path: ``BatchedServer`` with qwen2-72b at full width
    cut to 8 layers (bf16, random weights from a seeded generator), paged
    int8 and int4 KV, bucketed prefill, 24 requests of 64-512 prompt tokens
@@ -30,11 +33,12 @@ Phases, each of which raises on failure (no phase is caught):
    device time and the device's idle share.
 
 Phase 1 also prints ptxas's registers, shared memory and spills for the
-attention kernels and the count of HMMA (tensor-core) instructions in
-their library. Kernel times are CUDA events around one launch, L2 flushed
-before it and a device-side sleep enqueued ahead of it, so the events
-bracket device work and not the host's enqueue; the attention cases also
-print the wrapper's host time a call.
+tensor-core kernels (attention and B3) and the count of HMMA
+(tensor-core) instructions in each library; it fails if B3's library has
+none or its tensor-core kernel spills. Kernel times are CUDA events
+around one launch, L2 flushed before it and a device-side sleep enqueued
+ahead of it, so the events bracket device work and not the host's
+enqueue; the attention cases also print the wrapper's host time a call.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict, ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -282,37 +286,52 @@ def kernels_phase(seed: int):
 
 
 def kernel_build_report():
-    """ptxas's registers, shared memory and spills for the attention
-    kernels (from the build's -Xptxas=-v), and the HMMA (tensor-core)
-    instructions in their library where cuobjdump exists."""
+    """ptxas's registers, shared memory and spills for the tensor-core
+    kernels (from the build's -Xptxas=-v) and the HMMA (tensor-core)
+    instructions in their libraries where cuobjdump exists. Fails if B3's
+    library holds no HMMA or its tensor-core kernel spills. Returns
+    {library: HMMA count or None}."""
     import shutil
     from repro_torch.kernels import build
 
-    names = [fn for fn, _, _ in build.ptxas_report("paged_kv_attention")]
     filt = shutil.which("c++filt")
-    if filt and names:
-        names = subprocess.run([filt], input="\n".join(names),
-                               capture_output=True, text=True,
-                               check=True).stdout.splitlines()
-    for name, (_, used, spill) in zip(
-            names, build.ptxas_report("paged_kv_attention")):
-        short = re.search(r"(paged_attn_mma_kernel|merge_partials_kernel)"
-                          r"(<[^>]*>)?", name)
-        if short:
-            print(f"[ptxas] {short.group(0)}: {used}; {spill}", flush=True)
+    pattern = (r"(paged_attn_mma_kernel|merge_partials_kernel|qmm_mma_kernel"
+               r"|qmm_merge_kernel)(<.*>)?")
+    spills = []
+    for lib in ("paged_kv_attention", "quant_matmul"):
+        report = build.ptxas_report(lib)
+        names = [fn for fn, _, _ in report]
+        if filt and names:
+            names = subprocess.run([filt], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+        for name, (_, used, spill) in zip(names, report):
+            short = re.search(pattern, name)
+            if short:
+                print(f"[ptxas] {short.group(0)}: {used}; {spill}",
+                      flush=True)
+                if (short.group(1) == "qmm_mma_kernel"
+                        and "0 bytes spill stores" not in spill):
+                    spills.append(short.group(0))
+    if spills:
+        raise AssertionError(f"B3's tensor-core kernel spills: {spills}")
     cuobj = (shutil.which("cuobjdump")
              or ("/usr/local/cuda/bin/cuobjdump"
                  if Path("/usr/local/cuda/bin/cuobjdump").exists() else None))
     if cuobj is None:
         print("[sass] no cuobjdump in this toolkit", flush=True)
-        return
-    sass = subprocess.run(
-        [cuobj, "-sass",
-         str(build.library_path("paged_kv_attention"))],
-        capture_output=True, text=True, check=True).stdout
-    hmma = sum(" HMMA" in line for line in sass.splitlines())
-    print(f"[sass] paged_kv_attention library: {hmma} HMMA instructions",
-          flush=True)
+        return {"paged_kv_attention": None, "quant_matmul": None}
+    counts = {}
+    for lib in ("paged_kv_attention", "quant_matmul"):
+        sass = subprocess.run([cuobj, "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[lib] = sum(" HMMA" in line for line in sass.splitlines())
+        print(f"[sass] {lib} library: {counts[lib]} HMMA instructions",
+              flush=True)
+    if not counts["quant_matmul"]:
+        raise AssertionError("B3's library holds no HMMA instruction")
+    return counts
 
 
 def kernel_entry(name, source, replaces, cases, main, launches):
@@ -344,64 +363,93 @@ def kvblock_cases(rng):
                         cases, main, sum(c["launches"] for c in cases))
 
 
-def qmatmul_cases(wq, scales):
-    """B3: decode (8 rows) and prefill (256 rows) activations, bf16 and
-    f32, times the served model's layer-0 up-projection grid."""
+def qmatmul_case(a, wq, scales, flush, *, tol):
+    """One B3 case through ``kernels.ops``: its launches (the entry
+    point's call alone), the route and plan it took, its error against the
+    plain version relative to max|ref|, and kernel / plain /
+    ``torch.matmul`` (on the dequantized weight in ``a``'s type) / bound
+    times. The bound is the function's work whatever ``a``'s type: its
+    bytes, or 2 M N K operations at the bf16 tensor-core rate if larger
+    (a float32 ``a``'s second bf16 part is the kernel's own cost, part of
+    its gap to the bound)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_plain)
 
+    (M, K), N = a.shape, wq.shape[1]
+    name = str(a.dtype).split(".")[-1]
+    quant_matmul.launches = 0               # the entry point's launch
+    out = ops.qmatmul(a, wq, scales)
+    launches = quant_matmul.launches
+    plan = dict(quant_matmul.last_plan)
+    torch.cuda.synchronize()
+    if plan["route"] != "mma":
+        raise AssertionError(f"qmatmul ({M}, {K}) {name} x ({K}, {N}): took "
+                             f"the {plan['route']} route, not the tensor "
+                             f"cores")
+    plain = quant_matmul_plain(a, wq, scales)
+    err = float((out - plain).abs().max())
+    rel = err / float(plain.abs().max())
+    if not (torch.isfinite(out).all() and rel <= tol):
+        raise AssertionError(f"qmatmul ({M}, {K}) {name}: error {rel:.3e} "
+                             f"of max|ref| > {tol}")
+    ms = cuda_ms(lambda: quant_matmul(a, wq, scales), reps=10, flush=flush)
+    plain_ms = cuda_ms(lambda: quant_matmul_plain(a, wq, scales), reps=3,
+                       flush=flush)
+    w_deq = (wq.float() * scales[None, :]).to(a.dtype)   # not timed
+    library_ms = cuda_ms(lambda: torch.matmul(a, w_deq), reps=10,
+                         flush=flush)
+    del w_deq
+    nbytes = (a.numel() * a.element_size() + wq.numel() * wq.element_size()
+              + N * 4 + M * N * 4)
+    flops = 2.0 * M * N * K
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    c = {"M": M, "K": K, "N": N, "a_dtype": name, "launches": launches,
+         "plan": plan, "max_abs_err": err, "rel_err": rel, "tol": tol,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": library_ms, "bytes": nbytes,
+         "flops": flops}
+    print(f"[B3 qmatmul] a ({M}, {K}) {name} x wq ({K}, {N}) int8: error "
+          f"{rel:.2e} of max|ref| (tol {tol}), kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, torch.matmul {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {plan['route']} route, "
+          f"{plan['tile']} tile {plan['tile_shape']}, {plan['a_parts']} bf16 "
+          f"part(s) of a, {plan['splits']} "
+          f"splits, {plan['blocks_per_sm']} blocks/SM, {plan['smem_bytes']} "
+          f"B shared", flush=True)
+    return c
+
+
+def qmatmul_cases(wq, scales):
+    """B3: decode (8 rows) and prefill (256 rows) activations, bf16 and
+    f32, times the served model's layer-0 up-projection grid; then a decode
+    activation times a down-projection-shaped (29568, 8192) int8 grid made
+    on the card from the seed (K deep and N narrow: the case split-K is
+    for)."""
+    import torch
+
     K, N = wq.shape
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     flush = flush_fn()
-    cases, launches = [], 0
-    for dt, tol, rate in ((torch.bfloat16, 2e-2, BF16_FLOP_PER_S),
-                          (torch.float32, 1e-4, FP32_FLOP_PER_S)):
-        # yardstick weight, dequantized once (not timed)
-        w_deq = (wq.float() * scales[None, :]).to(dt)
+    cases = []
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for M in (8, 256):
             a = torch.randn((M, K), generator=g, device="cuda").to(dt)
-            quant_matmul.launches = 0           # the entry point's launch
-            out = ops.qmatmul(a, wq, scales)
-            launches += quant_matmul.launches
-            torch.cuda.synchronize()
-            plain = quant_matmul_plain(a, wq, scales)
-            err = float((out - plain).abs().max())
-            rel = err / float(plain.abs().max())
-            if not (torch.isfinite(out).all() and rel <= tol):
-                raise AssertionError(f"qmatmul M={M} {dt}: error {rel:.3e} "
-                                     f"of max|ref| > {tol}")
-            ms = cuda_ms(lambda: quant_matmul(a, wq, scales), reps=10,
-                         flush=flush)
-            plain_ms = cuda_ms(lambda: quant_matmul_plain(a, wq, scales),
-                               reps=3, flush=flush)
-            library_ms = cuda_ms(lambda: torch.matmul(a, w_deq), reps=10,
-                                 flush=flush)
-            nbytes = (a.numel() * a.element_size() + wq.numel()
-                      * wq.element_size() + N * 4 + M * N * 4)
-            flops = 2.0 * M * N * K
-            bound_ms, bound_by = bound(nbytes, flops, rate)
-            name = str(dt).split(".")[-1]
-            c = {"M": M, "K": K, "N": N, "a_dtype": name,
-                 "max_abs_err": err, "rel_err": rel, "tol": tol, "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms,
-                 "bytes": nbytes, "flops": flops}
-            cases.append(c)
-            print(f"[B3 qmatmul] a ({M}, {K}) {name} x wq ({K}, {N}) int8: "
-                  f"error {rel:.2e} of max|ref| (tol {tol}), kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, torch.matmul "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})", flush=True)
-        del w_deq
+            cases.append(qmatmul_case(a, wq, scales, flush, tol=tol))
+    w_down = torch.randint(-128, 128, (N, K), generator=g, device="cuda",
+                           dtype=torch.int8)
+    s_down = torch.full((K,), 2.0 ** -6, dtype=torch.float32, device="cuda")
+    a = torch.randn((8, N), generator=g, device="cuda").to(torch.bfloat16)
+    cases.append(qmatmul_case(a, w_down, s_down, flush, tol=2e-2))
+    del w_down
     main = next(c for c in cases if c["M"] == 8 and c["a_dtype"] ==
-                "bfloat16")
+                "bfloat16" and c["K"] == K)
     return kernel_entry("quant_matmul",
                         "src/repro_torch/kernels/csrc/quant_matmul.cu",
                         "src/repro/kernels/quant_matmul.py:24", cases, main,
-                        launches)
+                        sum(c["launches"] for c in cases))
 
 
 def quant_cast_cases(w_up):
@@ -939,7 +987,7 @@ def main(argv=None) -> int:
     built = build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
-    kernel_build_report()
+    hmma = kernel_build_report()
 
     cases = kernels_phase(SEED)
     more = entry_point_phase(SEED)
@@ -949,7 +997,8 @@ def main(argv=None) -> int:
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,
                             main_case, launches)] + more
-    record = {"card": card, "kernels": entries, "served": runs}
+    record = {"card": card, "hmma": hmma, "kernels": entries,
+              "served": runs}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

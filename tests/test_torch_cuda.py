@@ -219,9 +219,72 @@ def test_cuda_qmatmul_matches_plain(cuda, m, k, n, adt, wdt):
     got = ops.qmatmul(a.to(cuda), wq.to(cuda), s.to(cuda))
     torch.cuda.synchronize()
     assert qmm.quant_matmul.launches == before + 1
+    # ragged N or K, or an int16 grid: the FMA kernel by the route rule
+    assert qmm.quant_matmul.last_plan["route"] == "fma"
     tol = 1e-4 if adt == torch.float32 else 2e-2
     err = float((got.cpu() - plain).abs().max())
     assert err <= tol * float(plain.abs().max()), err
+
+
+@pytest.mark.parametrize("m,k,n,split", [
+    (1, 8192, 1024, True), (8, 8192, 4096, True), (17, 4096, 2048, True),
+    (33, 1024, 512, True), (256, 1024, 512, True), (129, 520, 528, True),
+    (5, 256, 4096, False), (200, 256, 1024, False)])
+@pytest.mark.parametrize("adt", [torch.float32, torch.bfloat16])
+def test_cuda_qmatmul_tensor_core_route(cuda, m, k, n, split, adt):
+    """Int8 grids with aligned rows take the tensor-core kernel, at decode
+    (M <= 32) and prefill, with and without split-K, M at the tiles'
+    edges: error relative to max|ref| <= 1e-4 (f32) / 2e-2 (bf16), two
+    calls bitwise equal (the split-K merge is in fixed order), one launch
+    counted a call whatever its splits; the plan is the planner's for the
+    tile shape and a parts the library reports, and covers K."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(adt)
+    wq = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    s = torch.from_numpy(rng.uniform(0.001, 0.05, n).astype(np.float32))
+    plain = qmm.quant_matmul_plain(a, wq, s)
+    args = (a.to(cuda), wq.to(cuda), s.to(cuda))
+    before = qmm.quant_matmul.launches
+    got = ops.qmatmul(*args)
+    plan = dict(qmm.quant_matmul.last_plan)
+    again = ops.qmatmul(*args)
+    torch.cuda.synchronize()
+    assert qmm.quant_matmul.launches == before + 2
+    assert plan["route"] == "mma"
+    assert plan["tile"] == ("decode" if m <= 32 else "prefill")
+    assert (plan["splits"] > 1) == split, plan
+    assert plan["blocks_per_sm"] >= 1 and plan["smem_bytes"] > 0
+    assert plan["a_parts"] == qmm.A_PARTS[adt]
+    want = qmm.plan_qmm(m, n, k, plan["tile_shape"],
+                        sms=torch.cuda.get_device_properties(cuda)
+                        .multi_processor_count,
+                        blocks_per_sm=plan["blocks_per_sm"])
+    assert (want.splits, want.steps_per_split) == (plan["splits"],
+                                                  plan["steps_per_split"])
+    assert want.k_ranges(k)[-1][1] == k
+    assert torch.equal(got, again)
+    tol = 1e-4 if adt == torch.float32 else 2e-2
+    err = float((got.cpu() - plain).abs().max())
+    assert err <= tol * float(plain.abs().max()), err
+
+
+def test_cuda_qmatmul_unaligned_rows_take_fma(cuda):
+    """The same int8 grid through a view whose data pointer is not 16-byte
+    aligned takes the FMA kernel, and both routes agree with the plain
+    version."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.normal(size=(8, 513)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-128, 128, (512, 64)).astype(np.int8))
+    s = torch.from_numpy(rng.uniform(0.001, 0.05, 64).astype(np.float32))
+    da = a.to(cuda)
+    for view, route in ((da[:, 1:].contiguous(), "mma"),
+                        (da.flatten()[1:4097].view(8, 512), "fma")):
+        got = ops.qmatmul(view, wq.to(cuda), s.to(cuda))
+        torch.cuda.synchronize()
+        assert qmm.quant_matmul.last_plan["route"] == route
+        plain = qmm.quant_matmul_plain(view.cpu(), wq, s)
+        err = float((got.cpu() - plain).abs().max())
+        assert err <= 1e-4 * float(plain.abs().max()), err
 
 
 def test_cuda_entry_point_bad_inputs_raise(cuda):
