@@ -28,9 +28,18 @@ Phases, each of which raises on failure (no phase is caught):
    int8 and int4 KV, bucketed prefill, 24 requests of 64-512 prompt tokens
    and 32 new tokens at batch 8, through the kernel and through the gather
    route; every request finishes, the kernel ran once per layer per
-   forward, and the two routes' tokens agree; then a ``torch.profiler``
-   window over decode steps of the int8 kernel-route run: B1's share of
-   device time and the device's idle share.
+   forward, and the two routes' tokens agree; the same requests with
+   ``fused="on"`` (one ragged program per cycle, B1 once per layer per
+   program, programs == cycles, the fused kernel route fed the gather
+   route's tokens passes the gate; decode-step ms, tok/s and cycles beside
+   the separate run's); a ``torch.profiler`` window over decode steps of
+   the int8 kernel-route run: B1's share of device time and the device's
+   idle share; dense int8 slabs (``page_size=0``, stepwise prefill) on 8
+   requests of 16-48 prompt tokens and 16 new tokens against the paged
+   gather route (the gate, KV bytes and peak memory of each); and one
+   forward under weights Q2.6 / data Q4.12 (logits finite, weights on the
+   grid, equal to a data-only forward on pre-quantized weights) with
+   ``policy_footprint_report`` for the full 80-layer config.
 
 Phase 1 also prints ptxas's registers, shared memory and spills for the
 tensor-core kernels (attention and B3) and the count of HMMA
@@ -677,10 +686,12 @@ def accuracy_gate(ref_outs, test_outs, *, min_agreement=0.9,
 
 class StepTimer:
     """Wraps a step function with CUDA event pairs (no synchronization),
-    so per-step device times can be read after the run."""
+    so per-step device times can be read after the run. ``tag`` (optional)
+    labels each call from its arguments; ``ms(tag)`` is the median over
+    the calls of that label."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, fn, tag=None):
+        self.fn, self.tag = fn, tag
         self.pairs = []
 
     def __call__(self, *a, **kw):
@@ -690,12 +701,16 @@ class StepTimer:
         s.record()
         out = self.fn(*a, **kw)
         e.record()
-        self.pairs.append((s, e))
+        self.pairs.append((s, e, self.tag(*a) if self.tag else None))
         return out
 
-    def ms(self):
-        xs = [a.elapsed_time(b) for a, b in self.pairs]
+    def ms(self, tag=None):
+        xs = [a.elapsed_time(b) for a, b, t in self.pairs
+              if tag is None or t == tag]
         return float(np.median(xs)) if xs else None
+
+    def count(self, tag=None):
+        return sum(1 for _, _, t in self.pairs if tag is None or t == tag)
 
 
 class DecodeTap:
@@ -727,26 +742,101 @@ class DecodeTap:
         return nxt, logits, caches
 
 
-def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
-               forced=None, tap: bool = False, wrap=None):
-    """One served run of the 24 seeded requests; ``wrap`` (optional) wraps
-    the decode step function. Returns (requests, stats, DecodeTap or
-    None)."""
-    import torch
-    from repro_torch.launch.serve import BatchedServer, Request
+class FusedTap:
+    """:class:`DecodeTap` for the fused step (``fused="on"``): its decode
+    rows are the live slots whose prompt is consumed (a prefilling slot
+    still has prompt tokens to feed). It forces their tokens as
+    :class:`DecodeTap` does and records each one's logits: row i's in the
+    steady state (every row emits), the k-th emitted row's in an admission
+    round."""
 
+    def __init__(self, srv, forced=None):
+        self.srv, self.fn, self.forced = srv, srv._fused, forced
+        self.logits = {}
+
+    def __call__(self, model, tokens, start, valid, caches, page_table,
+                 emit):
+        import torch
+        srv = self.srv
+        dec = [(i, r) for i, r in enumerate(srv.slots) if r is not None
+               and srv.pos[i] >= len(r.prompt) - 1]
+        if self.forced is not None:
+            idx = [i for i, _ in dec if srv.slot_gen[i] > 0]
+            if idx:
+                tokens = tokens.clone()
+                tokens[idx, 0] = torch.tensor(
+                    [self.forced[srv.slots[i].rid][srv.slot_gen[i] - 1]
+                     for i in idx], dtype=tokens.dtype, device=tokens.device)
+        nxt, logits, caches = self.fn(model, tokens, start, valid, caches,
+                                      page_table, emit)
+        steady = emit is srv._arange_dev
+        for k, (i, r) in enumerate(dec):
+            self.logits[(r.rid, srv.slot_gen[i])] = logits[i if steady
+                                                           else k]
+        return nxt, logits, caches
+
+
+def served_requests(cfg, seed: int, *, n: int = 24, lo: int = 64,
+                    hi: int = 512, max_new: int = 32):
+    """``n`` seeded requests of ``lo``-``hi`` prompt tokens."""
+    from repro_torch.launch.serve import Request
     rng = np.random.default_rng(seed)
-    lens = rng.integers(64, 513, 24)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(L)).astype(
-        np.int32), 32) for i, L in enumerate(lens)]
-    srv = BatchedServer(cfg, model, batch_size=8, max_len=576,
-                        kv_bits=kv_bits, page_size=PS, attn_impl=attn_impl,
-                        prefill="bucketed", prefill_bucket=32,
-                        device="cuda")
-    taps = DecodeTap(srv, forced) if tap or forced is not None else None
-    step = taps or srv.decode
-    srv.decode = StepTimer(wrap(step) if wrap else step)
-    srv._chunk_prefill = StepTimer(srv._chunk_prefill)
+    lens = rng.integers(lo, hi + 1, n)
+    return [Request(i, rng.integers(0, cfg.vocab_size, int(L)).astype(
+        np.int32), max_new) for i, L in enumerate(lens)]
+
+
+def kv_cache_bytes(srv, peak_pages: int) -> int:
+    """Device bytes of the KV the run needed: a dense server's slabs, or
+    a paged server's ``peak_pages`` pages (and their scales) in every
+    layer's pool."""
+    if not srv.paged:
+        return sum(t.numel() * t.element_size() for c in srv.caches
+                   for t in c.values())
+    per_page = sum(t[0].numel() * t.element_size() for c in srv.caches
+                   for t in c.values())
+    return peak_pages * per_page
+
+
+def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
+               forced=None, tap: bool = False, wrap=None, fused="off",
+               page_size: int = PS, batch_size: int = 8, max_len: int = 576,
+               trace=None):
+    """One served run of ``trace`` (default: the 24 seeded requests of
+    :func:`served_requests`); ``wrap`` (optional) wraps the decode step
+    function. ``fused="on"`` times and taps the fused step instead;
+    ``page_size=0`` serves from dense slabs (stepwise prefill through the
+    decode step). Returns (requests, stats, tap or None)."""
+    import torch
+    from repro_torch.launch.serve import BatchedServer
+
+    reqs = (trace or served_requests)(cfg, seed)
+    srv = BatchedServer(cfg, model, batch_size=batch_size, max_len=max_len,
+                        kv_bits=kv_bits, page_size=page_size,
+                        attn_impl=attn_impl, prefill_bucket=32,
+                        fused=fused, device="cuda")
+    peak = {"pages": 0}
+    if srv.paged:
+        alloc = srv.allocator.alloc
+
+        def counting_alloc():
+            page = alloc()
+            used = srv.allocator.num_usable - srv.allocator.num_free
+            peak["pages"] = max(peak["pages"], used)
+            return page
+        srv.allocator.alloc = counting_alloc
+    if srv.fused:
+        taps = FusedTap(srv, forced) if tap or forced is not None else None
+        srv._fused = StepTimer(taps or srv._fused,
+                               tag=lambda *a: "decode" if a[1].shape[1] == 1
+                               else "round")
+    else:
+        taps = (DecodeTap(srv, forced) if tap or forced is not None
+                else None)
+        step = taps or srv.decode
+        srv.decode = StepTimer(wrap(step) if wrap else step)
+        if srv._chunk_prefill is not None:
+            srv._chunk_prefill = StepTimer(srv._chunk_prefill)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -755,21 +845,35 @@ def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
     wall = time.perf_counter() - t0
     assert all(r.done and r.error is None and len(r.out) == r.max_new
                for r in reqs), "a request did not finish with its tokens"
-    for pool in srv.caches:
-        assert all(t.is_cuda for t in pool.values()), "a KV pool left the card"
+    for cache in srv.caches:
+        assert all(t.is_cuda for t in cache.values()), \
+            "a KV cache left the card"
     assert all(p.is_cuda for p in model.parameters())
-    assert srv.allocator.num_free == srv.allocator.num_usable
+    if srv.paged:
+        assert srv.allocator.num_free == srv.allocator.num_usable
     gen = sum(len(r.out) for r in reqs)
-    return reqs, {
-        "kv_bits": kv_bits, "attn_impl": attn_impl, "requests": len(reqs),
+    stats = {
+        "kv_bits": kv_bits, "attn_impl": attn_impl, "fused": fused,
+        "page_size": page_size, "requests": len(reqs),
         "generated_tokens": gen, "wall_s": wall, "tok_per_s": gen / wall,
         "prefill_forwards": srv.prefill_forwards,
         "decode_steps": srv.decode_steps,
-        "program_launches": srv.program_launches,
-        "prefill_forward_ms": srv._chunk_prefill.ms(),
-        "decode_step_ms": srv.decode.ms(),
+        "program_launches": srv.program_launches, "cycles": srv.cycles,
+        "kv_bytes": kv_cache_bytes(srv, peak["pages"]),
+        "peak_pages": peak["pages"] if srv.paged else None,
         "max_memory_allocated_gib":
-            torch.cuda.max_memory_allocated() / 2 ** 30}, taps
+            torch.cuda.max_memory_allocated() / 2 ** 30}
+    if srv.fused:
+        stats.update(decode_step_ms=srv._fused.ms("decode"),
+                     fused_round_ms=srv._fused.ms("round"),
+                     fused_rounds=srv._fused.count("round"),
+                     fused_decode_calls=srv._fused.count("decode"),
+                     prefill_forward_ms=None)
+    else:
+        stats.update(decode_step_ms=srv.decode.ms(),
+                     prefill_forward_ms=(srv._chunk_prefill.ms()
+                                         if srv._chunk_prefill else None))
+    return reqs, stats, taps
 
 
 def compare_logits(ref: DecodeTap, test: DecodeTap) -> dict:
@@ -955,8 +1059,206 @@ def serve_phase(seed: int, num_layers: int):
     print(f"[serve] main path: {launches} kernel launches = "
           f"{cfg.num_layers} layers x "
           f"{expect // cfg.num_layers} programs", flush=True)
+    fused_launches, fused_runs = fused_phase(cfg, model, seed, gather,
+                                             kernel, bits_list)
+    runs += fused_runs
     runs.append({"decode_profile": decode_profile(cfg, model, seed)})
+    runs.append(dense_phase(cfg, model, seed))
+    runs.append(quant_forward_phase(cfg, model, seed))
+    return launches + fused_launches, runs
+
+
+def fused_phase(cfg, model, seed: int, gather, separate, bits_list):
+    """The same 24 requests with ``fused="on"`` through the kernel route:
+    one ragged program per scheduler cycle, B1 once per layer per program
+    (counts zeroed just before, read just after); then the fused kernel
+    route fed the separate gather route's tokens, held to the accuracy
+    gate. Returns (B1 launches, run records)."""
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+
+    paged_kv_attention_chunk.launches = 0
+    fused = {b: serve_once(cfg, model, kv_bits=b, attn_impl="kernel",
+                           seed=seed, fused="on") for b in bits_list}
+    launches = paged_kv_attention_chunk.launches
+    expect = sum(cfg.num_layers * fused[b][1]["program_launches"]
+                 for b in bits_list)
+    if launches != expect:
+        raise AssertionError(f"fused: kernel launches {launches} != "
+                             f"layers x programs {expect}")
+    for b in bits_list:
+        st = fused[b][1]
+        if st["program_launches"] != st["cycles"]:
+            raise AssertionError(f"fused kv_bits={b}: {st['program_launches']}"
+                                 f" programs for {st['cycles']} cycles")
+    forced = {b: serve_once(cfg, model, kv_bits=b, attn_impl="kernel",
+                            seed=seed, fused="on",
+                            forced={r.rid: r.out for r in gather[b][0]})
+              for b in bits_list}
+    runs = []
+    for b in bits_list:
+        st, sep = fused[b][1], separate[b][1]
+        ref_out = [r.out for r in gather[b][0]]
+        gate = accuracy_gate(ref_out, [r.out for r in forced[b][0]])
+        free = accuracy_gate(ref_out, [r.out for r in fused[b][0]])
+        cmp = compare_logits(gather[b][2], forced[b][2])
+        st.update(teacher_forced_agreement=gate["agreement"],
+                  teacher_forced_below_floor=gate["below_floor"],
+                  free_running_agreement=free["agreement"], **cmp)
+        runs.append(st)
+        print(f"[fused] kv_bits={b} kernel: {st['tok_per_s']:.1f} tok/s "
+              f"(separate {sep['tok_per_s']:.1f}), decode step "
+              f"{st['decode_step_ms']:.2f} ms x {st['fused_decode_calls']} "
+              f"(separate {sep['decode_step_ms']:.2f} ms x "
+              f"{sep['decode_steps']}), fused round "
+              f"{st['fused_round_ms']:.2f} ms x {st['fused_rounds']}, "
+              f"{st['program_launches']} programs = {st['cycles']} cycles "
+              f"(separate {sep['program_launches']} programs, "
+              f"{sep['cycles']} cycles), peak "
+              f"{st['max_memory_allocated_gib']:.2f} GiB", flush=True)
+        print(f"[fused] kv_bits={b} fused kernel vs separate gather tokens: "
+              f"teacher-forced agreement {gate['agreement']:.4f} "
+              f"({gate['below_floor']} below 0.5), free-running "
+              f"{free['agreement']:.4f}; logits differ by at most "
+              f"{cmp['max_abs_logit_diff']:.4g} (median "
+              f"{cmp['median_max_abs_logit_diff']:.4g}) over "
+              f"{cmp['steps']} steps", flush=True)
+        if not gate["passed"]:
+            raise AssertionError(f"fused kv_bits={b}: fused kernel vs "
+                                 f"gather tokens fail the gate: {gate}")
+    print(f"[fused] main path: {launches} kernel launches = "
+          f"{cfg.num_layers} layers x {expect // cfg.num_layers} programs",
+          flush=True)
     return launches, runs
+
+
+def dense_trace(cfg, seed: int):
+    """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
+    prefill through the decode step stays short at full width."""
+    return served_requests(cfg, seed + 1, n=8, lo=16, hi=48, max_new=16)
+
+
+def dense_phase(cfg, model, seed: int) -> dict:
+    """Dense KV slabs (``page_size=0``, int8 grid, stepwise prefill), on
+    the short trace, against the paged gather route on the same trace:
+    every request finishes, the slabs stay on the card, and the dense
+    route fed the paged route's tokens passes the gate. Prints the KV
+    bytes (max_len slabs against the pages the paged run allocated) and
+    the peak memory of each."""
+    kw = dict(kv_bits=8, attn_impl="gather", seed=seed, max_len=64,
+              trace=dense_trace)
+    paged = serve_once(cfg, model, tap=True, **kw)
+    dense = serve_once(cfg, model, page_size=0, **kw)
+    forced = serve_once(cfg, model, page_size=0,
+                        forced={r.rid: r.out for r in paged[0]}, **kw)
+    ref_out = [r.out for r in paged[0]]
+    gate = accuracy_gate(ref_out, [r.out for r in forced[0]])
+    free = accuracy_gate(ref_out, [r.out for r in dense[0]])
+    cmp = compare_logits(paged[2], forced[2])
+    st, pst = dense[1], paged[1]
+    st.update(teacher_forced_agreement=gate["agreement"],
+              teacher_forced_below_floor=gate["below_floor"],
+              free_running_agreement=free["agreement"],
+              paged_kv_bytes=pst["kv_bytes"],
+              paged_peak_pages=pst["peak_pages"],
+              paged_max_memory_allocated_gib=pst["max_memory_allocated_gib"],
+              paged_tok_per_s=pst["tok_per_s"], **cmp)
+    print(f"[dense] kv_bits=8 page_size=0: {st['tok_per_s']:.1f} tok/s "
+          f"(paged {pst['tok_per_s']:.1f}), {st['prefill_forwards']} "
+          f"stepwise prefill forwards (paged {pst['prefill_forwards']} "
+          f"bucketed), decode step {st['decode_step_ms']:.2f} ms x "
+          f"{dense[1]['decode_steps']}; KV {st['kv_bytes'] / 2 ** 20:.2f} "
+          f"MiB of max_len slabs against {pst['kv_bytes'] / 2 ** 20:.2f} "
+          f"MiB in {pst['peak_pages']} allocated pages a pool; peak "
+          f"{st['max_memory_allocated_gib']:.2f} GiB (paged "
+          f"{pst['max_memory_allocated_gib']:.2f} GiB)", flush=True)
+    print(f"[dense] dense vs paged gather tokens: teacher-forced agreement "
+          f"{gate['agreement']:.4f} ({gate['below_floor']} below 0.5), "
+          f"free-running {free['agreement']:.4f}; logits differ by at most "
+          f"{cmp['max_abs_logit_diff']:.4g} over {cmp['steps']} steps",
+          flush=True)
+    if not gate["passed"]:
+        raise AssertionError(f"dense vs paged tokens fail the gate: {gate}")
+    return {"dense": st}
+
+
+def quant_forward_phase(cfg, model, seed: int) -> dict:
+    """One forward of the served model under a uniform policy, weights
+    Q2.6 and residual data Q4.12 (``build_model_quant``): the logits are
+    finite, and equal bitwise a forward with only the data quant after
+    every weight was fake-quantized in place (so the forward used the
+    grid values); each weight fake-quantized again is unchanged. Then
+    the policy's traffic and footprint report for the full 80-layer
+    config (host arithmetic). Runs last: it overwrites the weights."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fixedpoint import FixedPointFormat, fake_quant
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models.transformer import forward
+    from repro_torch.quant.apply import (build_model_quant,
+                                         policy_footprint_report,
+                                         transformer_layer_names)
+
+    w_fmt, d_fmt = FixedPointFormat(2, 6), FixedPointFormat(4, 12)
+    names = transformer_layer_names(cfg)
+    quant = build_model_quant(PrecisionPolicy.uniform(names, w_fmt, d_fmt),
+                              cfg, quantize_kv=False)
+    data_only = build_model_quant(PrecisionPolicy.uniform(names, None,
+                                                          d_fmt),
+                                  cfg, quantize_kv=False)
+    rng = np.random.default_rng(seed + 2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)).astype(
+        np.int32)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, logits, _ = forward(model, tokens, cfg, quant=quant)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        if logits.shape != (2, 64, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("quantized forward: bad logits")
+        moved, n_w = 0, 0
+        for blk in model.layers:
+            for mod in (blk.attn, blk.mlp):
+                for _, w in mod.named_parameters(recurse=False):
+                    if w.dim() < 2:
+                        continue
+                    q = fake_quant(w, w_fmt.int_bits, w_fmt.frac_bits)
+                    moved += int((q != w).sum())
+                    w.copy_(q)
+                    n_w += 1
+                    if not torch.equal(fake_quant(w, w_fmt.int_bits,
+                                                  w_fmt.frac_bits), w):
+                        raise AssertionError("a fake-quantized weight is "
+                                             "off the grid")
+        _, again, _ = forward(model, tokens, cfg, quant=data_only)
+    if not torch.equal(again, logits):
+        raise AssertionError("the quantized forward did not use the "
+                             "weights' grid values")
+    full = get_config("qwen2-72b")
+    report = policy_footprint_report(
+        PrecisionPolicy.uniform(transformer_layer_names(full), w_fmt,
+                                d_fmt), full, batch=8, seq_len=576)
+    out = {"quant_forward_ms": ms, "weights_checked": n_w,
+           "weight_values_moved": moved,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "footprint_report_qwen2_72b_80_layers": report}
+    print(f"[quant] weights {w_fmt.short()}, data {d_fmt.short()}: forward "
+          f"of 2 x 64 tokens {ms:.2f} ms ({cfg.num_layers} layers, "
+          f"{cfg.dtype}), logits finite "
+          f"and equal to the data-only forward on pre-quantized weights; "
+          f"{n_w} weights on the grid ({moved} values moved); peak "
+          f"{out['max_memory_allocated_gib']:.2f} GiB", flush=True)
+    print(f"[quant] policy_footprint_report, full qwen2-72b (80 layers), "
+          f"batch 8, seq 576 (the port's count, host arithmetic): "
+          f"{json.dumps(report)}", flush=True)
+    return out
 
 
 def main(argv=None) -> int:

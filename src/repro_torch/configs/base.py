@@ -111,3 +111,12 @@ class ModelConfig:
         if idx < self.first_k_dense:
             return False
         return (idx - self.first_k_dense - self.moe_offset) % self.moe_every == 0
+
+    # --- parameter counting (configs/counting.py) ---------------------------
+    def param_count(self) -> int:
+        from .counting import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from .counting import count_params
+        return count_params(self, active_only=True)

@@ -1,12 +1,16 @@
-"""Batched serving launcher: continuous-batching prefill + decode over the
-paged quantized KV pool.
+"""Batched serving launcher: continuous-batching prefill + decode over a
+dense or paged quantized KV cache.
 
 A REQUEST = (prompt token ids, max_new_tokens). The server packs up to
 ``batch_size`` requests into fixed slots and decodes step by step with
 per-slot positions; finished slots are refilled from the queue, idle slots
-write to the scratch page.
+write harmlessly (their own dense row, or the scratch page).
 
-* Paged pools (``page_size``): one pool per layer plus a per-slot page
+* Dense caches (``page_size=0``, the default): one (batch, max_len) slab
+  per layer; ``kv_bits`` > 0 stores the int8 grid of Q(2, kv_bits - 2) at
+  every width, 0 keeps float K/V in the compute dtype. Admission prefills
+  token at a time (stepwise) through the shared decode step.
+* Paged pools (``page_size`` > 0): one pool per layer plus a per-slot page
   table; pages are allocated as a request grows and freed when it ends.
   ``kv_bits`` 8 stores int8 pages, 4 packs a 4-bit grid 8 per int32 word,
   0 keeps float pages in the compute dtype.
@@ -17,9 +21,13 @@ write to the scratch page.
   (``prefill_bucket`` caps it), and same-bucket chunks of several
   admissions stack into one [rows, bucket] forward. ``prefill="stepwise"``
   keeps the token-at-a-time reference path.
-* Attention (``attn_impl``): ``"kernel"`` routes prefill chunks AND decode
-  through the CUDA paged-attention kernel; ``"gather"`` reads the pool
-  through the dense gather (the reference route).
+* Fused rounds (``fused="on"``, paged and bucketed only): ONE ragged
+  [batch, bucket] program per scheduler cycle, in which prefill chunks
+  and the other slots' decode tokens share one forward; the steady state
+  runs the same program at S = 1.
+* Attention (``attn_impl``, paged only): ``"kernel"`` routes prefill
+  chunks AND decode through the CUDA paged-attention kernel; ``"gather"``
+  reads the pool through the dense gather (the reference route).
 * Decode runs in spans between slot events; next-token ids stay on the
   device within a span and come to the host once, at its end.
 
@@ -28,8 +36,10 @@ Options of the reference that are not ported yet raise
 
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
+  python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
+      --kv-bits 8                                    # dense cache
   python -m repro_torch.launch.serve --arch qwen2-72b --num-layers 8 \\
-      --page-size 16 --kv-bits 8 --attn-impl kernel
+      --page-size 16 --kv-bits 8 --attn-impl kernel --fused on
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ from ..models.transformer import init_cache, init_model
 from ..quant.apply import build_model_quant, transformer_layer_names
 from ..runtime.telemetry import (MetricsRegistry, SLOMonitor, make_tracer,
                                  metric_attr)
-from .steps import make_chunk_prefill_step, make_decode_step
+from .steps import make_chunk_prefill_step, make_decode_step, \
+    make_fused_step
 
 
 @dataclasses.dataclass
@@ -114,10 +125,13 @@ class BatchedServer:
     scratch page, so the shared decode step runs them harmlessly.
 
     ``model`` is a ``models.transformer.Transformer`` on ``device``; the
-    pools are allocated there. ``prefill``: "auto"/"bucketed" = bucketed
-    chunked prefill, "stepwise" = the token-at-a-time reference.
-    ``prefill_batch`` caps how many same-bucket prompts stack into one
-    prefill forward (0 = the batch size).
+    caches are allocated there. ``page_size`` 0 = dense caches, > 0 =
+    paged pools. ``prefill``: "auto" = bucketed when paged, stepwise when
+    dense; "bucketed" = bucketed chunked prefill (paged only);
+    "stepwise" = the token-at-a-time reference. ``prefill_batch`` caps
+    how many same-bucket prompts stack into one prefill forward (0 = the
+    batch size). ``fused="on"`` runs one ragged program per scheduler
+    cycle (needs bucketed prefill).
     """
 
     prefill_forwards = metric_attr("serve.prefill_forwards")
@@ -127,9 +141,10 @@ class BatchedServer:
     program_launches = metric_attr("serve.program_launches")
     cycles = metric_attr("serve.cycles")
     _gen_tokens = metric_attr("serve.gen_tokens")
+    prefill_forwards_saved = metric_attr("serve.prefill_forwards_saved")
 
     def __init__(self, cfg, model, *, batch_size: int, max_len: int,
-                 kv_bits: int = 0, page_size: int = 16,
+                 kv_bits: int = 0, page_size: int = 0,
                  num_pages: Optional[int] = None,
                  attn_impl: str = "gather", prefill: str = "auto",
                  prefill_bucket: int = 32, prefill_batch: int = 0,
@@ -142,10 +157,6 @@ class BatchedServer:
         if model.device != self.device:
             raise ValueError(f"model lies on {model.device}, server asked "
                              f"for {self.device}")
-        if page_size <= 0:
-            raise _not_ported("the dense KV cache (--page-size 0)", "6")
-        if fused != "off":
-            raise _not_ported("--fused on", "5")
         if prefix_cache != "off":
             raise _not_ported("--prefix-cache on", "8")
         if kv_scale != "static":
@@ -160,12 +171,30 @@ class BatchedServer:
             raise _not_ported("--kv-adapt on", "9")
         if tp != 1:
             raise _not_ported("tensor-parallel serving (--tp)", "13")
+        self.paged = page_size > 0
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                              f"got {attn_impl!r}")
+        if attn_impl == "kernel" and not self.paged:
+            raise ValueError("--attn-impl kernel routes the paged attention "
+                             "kernel; it needs --page-size > 0")
         if prefill not in ("auto", "bucketed", "stepwise"):
             raise ValueError(f"prefill must be auto|bucketed|stepwise, "
                              f"got {prefill!r}")
+        # the port serves only dense attention-only decoders, where the
+        # bucketed path is output-equivalent to the stepwise reference
+        # whenever the cache is paged
+        if prefill == "bucketed" and not self.paged:
+            raise ValueError("bucketed prefill needs a paged cache "
+                             "(--page-size > 0); use prefill='stepwise'")
+        self.prefill_mode = ("bucketed" if self.paged and prefill != "stepwise"
+                             else "stepwise")
+        if fused not in ("on", "off"):
+            raise ValueError(f"fused must be 'on' or 'off', got {fused!r}")
+        if fused == "on" and self.prefill_mode != "bucketed":
+            raise ValueError("--fused on runs ONE ragged prefill+decode "
+                             "program per scheduler cycle; it needs the "
+                             "bucketed prefill path (a paged cache)")
         if prefill_bucket < 1:
             raise ValueError("prefill_bucket must be >= 1")
         if prefill_batch < 0:
@@ -178,16 +207,13 @@ class BatchedServer:
         self.B = batch_size
         self.max_len = max_len
         self.attn_impl = attn_impl
-        # the port serves only dense attention-only decoders, where the
-        # bucketed path is output-equivalent to the stepwise reference
-        self.prefill_mode = "stepwise" if prefill == "stepwise" \
-            else "bucketed"
         self.prefill_bucket = prefill_bucket
         self.prefill_batch = prefill_batch
         self.slo_monitor = SLOMonitor(self.metrics)
         self.quant = None
         if kv_bits:
-            container = "int4" if kv_bits <= 4 else "int8"
+            # dense slabs store int8 at every width; pages pack <= 4 bits
+            container = "int4" if (self.paged and kv_bits <= 4) else "int8"
             pol = PrecisionPolicy.uniform(transformer_layer_names(cfg), None,
                                           FixedPointFormat(2, kv_bits - 2))
             self.quant = build_model_quant(pol, cfg, quantize_kv=True,
@@ -196,22 +222,39 @@ class BatchedServer:
                                            kv_scale_mode=kv_scale)
         self.decode = make_decode_step(cfg, quant=self.quant,
                                        attn_impl=attn_impl)
-        self._chunk_prefill = make_chunk_prefill_step(cfg, quant=self.quant,
-                                                      attn_impl=attn_impl)
+        self._chunk_prefill = (
+            make_chunk_prefill_step(cfg, quant=self.quant,
+                                    attn_impl=attn_impl)
+            if self.prefill_mode == "bucketed" else None)
+        self.fused = fused == "on"
+        self._fused = (make_fused_step(cfg, quant=self.quant,
+                                       attn_impl=attn_impl)
+                       if self.fused else None)
+        if self.fused:
+            # steady-state span constants: every row decodes (valid_len 1)
+            # and every row emits
+            self._ones_dev = torch.ones((batch_size,), dtype=torch.int32,
+                                        device=self.device)
+            self._arange_dev = torch.arange(batch_size, dtype=torch.int32,
+                                            device=self.device)
 
-        self.np_max = max_pages_per_seq(max_len, page_size)
-        if num_pages is None:
-            num_pages = 1 + batch_size * self.np_max  # full capacity
-        spec = PagedCacheSpec(page_size=page_size, num_pages=num_pages)
-        self.allocator = PageAllocator(num_pages, metrics=self.metrics)
         self.page_size = page_size
-        self.page_table = np.full((batch_size, self.np_max), SCRATCH_PAGE,
-                                  np.int32)
-        self.slot_pages: List[List[int]] = [[] for _ in range(batch_size)]
-        self.slot_reserved = [0] * batch_size  # worst-case page demand
-        self._pt_dev = _upload(self.page_table, self.device)
-        self._pt_dirty = False
-        self.caches = init_cache(cfg, self.quant, spec, self.device)
+        spec = None
+        if self.paged:
+            self.np_max = max_pages_per_seq(max_len, page_size)
+            if num_pages is None:
+                num_pages = 1 + batch_size * self.np_max  # full capacity
+            spec = PagedCacheSpec(page_size=page_size, num_pages=num_pages)
+            self.allocator = PageAllocator(num_pages, metrics=self.metrics)
+            self.page_table = np.full((batch_size, self.np_max),
+                                      SCRATCH_PAGE, np.int32)
+            self.slot_pages: List[List[int]] = [[] for _ in
+                                                range(batch_size)]
+            self.slot_reserved = [0] * batch_size  # worst-case page demand
+            self._pt_dev = _upload(self.page_table, self.device)
+            self._pt_dirty = False
+        self.caches = init_cache(cfg, self.quant, spec, self.device,
+                                 batch=batch_size, max_len=max_len)
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.pos = np.zeros((batch_size,), np.int32)     # host-side lengths
         self.tokens = np.zeros((batch_size,), np.int32)  # host-side tokens
@@ -223,12 +266,14 @@ class BatchedServer:
         self.program_launches = 0   # every forward executed
         self.cycles = 0             # scheduler cycles (decode span steps)
         self._gen_tokens = 0        # generated tokens (all run() calls)
+        self.prefill_forwards_saved = 0   # forwards a shorter suffix saved
         self.rejected: List[Request] = []
-        reg = self.metrics.register_gauge
-        reg("kv.device_bytes",
-            lambda: sum(caches_kv_bytes(self.caches).values()))
-        reg("kv.device_pages_free", lambda: self.allocator.num_free)
-        reg("kv.device_pages_usable", lambda: self.allocator.num_usable)
+        if self.paged:
+            reg = self.metrics.register_gauge
+            reg("kv.device_bytes",
+                lambda: sum(caches_kv_bytes(self.caches).values()))
+            reg("kv.device_pages_free", lambda: self.allocator.num_free)
+            reg("kv.device_pages_usable", lambda: self.allocator.num_usable)
 
     # -- page bookkeeping ---------------------------------------------------
     def _ensure_page(self, slot: int, position: int):
@@ -241,12 +286,13 @@ class BatchedServer:
             self._pt_dirty = True
 
     def _release_slot(self, slot: int):
-        if self.slot_pages[slot]:
-            self.allocator.free(self.slot_pages[slot])
-            self.slot_pages[slot] = []
-            self.page_table[slot, :] = SCRATCH_PAGE
-            self._pt_dirty = True
-        self.slot_reserved[slot] = 0
+        if self.paged:
+            if self.slot_pages[slot]:
+                self.allocator.free(self.slot_pages[slot])
+                self.slot_pages[slot] = []
+                self.page_table[slot, :] = SCRATCH_PAGE
+                self._pt_dirty = True
+            self.slot_reserved[slot] = 0
         self.pos[slot] = 0
         self.slot_gen[slot] = 0
 
@@ -272,9 +318,9 @@ class BatchedServer:
     def _sync_step(self):
         """One whole-batch decode step from the host-side state (the
         token-at-a-time prefill path; output tokens are discarded)."""
+        pt = self._page_table_dev() if self.paged else None
         self.decode(self.model, _upload(self.tokens, self.device),
-                    _upload(self.pos, self.device), self.caches,
-                    self._page_table_dev())
+                    _upload(self.pos, self.device), self.caches, pt)
         self.prefill_forwards += 1
         self.program_launches += 1
 
@@ -285,7 +331,8 @@ class BatchedServer:
         t0 = time.perf_counter()
         self.pos[slot] = 0
         for t in req.prompt[:-1]:
-            self._ensure_page(slot, int(self.pos[slot]))
+            if self.paged:
+                self._ensure_page(slot, int(self.pos[slot]))
             self.tokens[slot] = int(t)
             self._sync_step()
             self.pos[slot] += 1
@@ -293,6 +340,14 @@ class BatchedServer:
         self.prefill_s += time.perf_counter() - t0
         self.prefill_tokens += len(req.prompt)
         self.slot_gen[slot] = 0
+
+    def _n_chunks(self, n: int) -> int:
+        """Bucketed-prefill forwards needed for ``n`` prompt tokens."""
+        c, done = 0, 0
+        while done < n:
+            done += min(_pow2_bucket(n - done, self.prefill_bucket), n - done)
+            c += 1
+        return c
 
     # -- batched bucketed prefill -------------------------------------------
     def _prefill_group_cap(self) -> int:
@@ -362,13 +417,7 @@ class BatchedServer:
         t0 = time.perf_counter()
         cap = self._prefill_group_cap()
         try:
-            pending = []
-            for job in jobs:
-                self.prefill_tokens += len(job.req.prompt)
-                if job.total == 0:
-                    self._finish_job(job)   # 1-token prompt
-                else:
-                    pending.append(job)
+            pending = self._start_jobs(jobs)
             while pending:
                 groups = {}
                 for job in pending:
@@ -394,6 +443,114 @@ class BatchedServer:
         finally:
             self.prefill_s += time.perf_counter() - t0
 
+    def _start_jobs(self, jobs: List[_PrefillJob]) -> List[_PrefillJob]:
+        """Count an admission cycle's prompts, seal 1-token prompts, and
+        return the jobs that still need forwards."""
+        pending = []
+        for job in jobs:
+            self.prefill_tokens += len(job.req.prompt)
+            self.prefill_forwards_saved += (
+                self._n_chunks(len(job.req.prompt) - 1)
+                - self._n_chunks(job.total))
+            if job.total == 0:
+                self._finish_job(job)   # 1-token prompt
+            else:
+                pending.append(job)
+        return pending
+
+    # -- fused ragged cycles (fused="on") ------------------------------------
+    def _fused_round(self, pending: List[_PrefillJob]) -> List[_PrefillJob]:
+        """ONE ragged [B, bucket] program: every unfinished prefill job
+        contributes its next prompt chunk (padded to the round's shared
+        bucket, tail masked through valid_len) and every OTHER live slot
+        decodes one token in the same launch. Returns the jobs still
+        pending after the round."""
+        bucket = max(_pow2_bucket(j.total - j.done, self.prefill_bucket)
+                     for j in pending)
+        prefilling = {j.slot for j in pending}
+        decode = [i for i in range(self.B) if self.slots[i] is not None
+                  and i not in prefilling]
+        tokens = np.zeros((self.B, bucket), np.int32)
+        starts = np.zeros((self.B,), np.int32)
+        valids = np.ones((self.B,), np.int32)
+        emit = np.zeros((self.B,), np.int32)   # fixed shape; the host
+        #                                        discards padding entries
+        for j in pending:
+            off = j.start + j.done
+            toks = j.req.prompt[off:len(j.req.prompt) - 1]
+            valid = min(bucket, len(toks))
+            self._ensure_page(j.slot, off + valid - 1)
+            tokens[j.slot, :valid] = toks[:valid]
+            starts[j.slot] = off
+            valids[j.slot] = valid
+        for k, i in enumerate(decode):
+            self._ensure_page(i, int(self.pos[i]))
+            tokens[i, 0] = self.tokens[i]
+            starts[i] = self.pos[i]
+            emit[k] = i
+        pt = self._page_table_dev()
+        dev = self.device
+        # private host arrays nobody mutates later: plain blocking copies
+        with self.tracer.span("fused_round"):
+            nxt, _, self.caches = self._fused(
+                self.model, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(starts).to(dev),
+                torch.from_numpy(valids).to(dev), self.caches, pt,
+                torch.from_numpy(emit).to(dev))
+        self.program_launches += 1
+        self.cycles += 1
+        self.prefill_forwards += 1
+        for j in pending:
+            j.done += int(valids[j.slot])
+            self.pos[j.slot] = j.start + j.done
+        still = []
+        for j in pending:
+            if j.done >= j.total:
+                self._finish_job(j)     # decode-eligible next round
+            else:
+                still.append(j)
+        if decode:
+            arr = nxt.cpu().numpy()
+            self.decode_steps += 1
+            self._gen_tokens += len(decode)
+            for k, i in enumerate(decode):
+                tok = int(arr[k])
+                req = self.slots[i]
+                if not req.out:
+                    self.tracer.req_first_token(req.rid)
+                    self.slo_monitor.note_first_token(req.rid)
+                req.out.append(tok)
+                self.tokens[i] = tok
+                self.pos[i] += 1
+                self.slot_gen[i] += 1
+                if (self.slot_gen[i] >= req.max_new
+                        or self.pos[i] >= self.max_len - 1):
+                    req.done = True
+                    self.slots[i] = None
+                    self._release_slot(i)
+                    # fused admission rounds decode without advancing the
+                    # run clock; the cycle's clock is the finish step
+                    self._note_finish(req, self._clock)
+        return still
+
+    def _run_fused_rounds(self, jobs: List[_PrefillJob]):
+        """Fused-mode admission: ``_run_prefills``'s accounting and
+        rollback, but every round is one ragged fused program that also
+        advances all non-prefilling decode slots, so admitting prompts
+        costs no extra program launch per cycle."""
+        t0 = time.perf_counter()
+        try:
+            pending = self._start_jobs(jobs)
+            while pending:
+                pending = self._fused_round(pending)
+        except OutOfPagesError as err:
+            for job in jobs:
+                if not job.finished:
+                    self._rollback_admission(job, err)
+            raise
+        finally:
+            self.prefill_s += time.perf_counter() - t0
+
     # -- admission ----------------------------------------------------------
     def _admission_plan(self, req: Request):
         """Preflight one request against the pool: ``(verdict, info)`` with
@@ -405,6 +562,8 @@ class BatchedServer:
         if len(req.prompt) >= self.max_len:
             raise ValueError(f"request {req.rid} prompt length "
                              f"{len(req.prompt)} >= max_len {self.max_len}")
+        if not self.paged:
+            return "admit", {"total": 0}
         total = self._pages_needed(req)
         avail = self.allocator.num_free - self._outstanding_reservation()
         if total <= avail:
@@ -422,16 +581,21 @@ class BatchedServer:
     def _do_admit(self, i: int, req: Request, info: dict,
                   jobs: List[_PrefillJob]):
         """Claim free slot ``i`` for ``req`` and stage its prefill: bucketed
-        prefills are appended to ``jobs`` and run batched at the end of the
-        admission cycle (or at once with ``prefill_batch=1``)."""
+        prefills are appended to ``jobs`` and run batched (or fused) at the
+        end of the admission cycle (or at once with ``prefill_batch=1``);
+        a dense cache prefills the slot stepwise, here."""
         self.tracer.req_admit(req.rid, self._clock)
+        if not self.paged:
+            self._prefill_slot(i, req)
+            self.slots[i] = req
+            return
         self.slot_reserved[i] = info["total"]
         self.slots[i] = req
         self.pos[i] = 0
         self.slot_gen[i] = 0
         if self.prefill_mode == "bucketed":
             job = _PrefillJob(i, req, 0)
-            if self._prefill_group_cap() > 1:
+            if self.fused or self._prefill_group_cap() > 1:
                 jobs.append(job)
             else:
                 self._run_prefills([job])
@@ -478,7 +642,10 @@ class BatchedServer:
         jobs: List[_PrefillJob] = []
         self._admit_fifo(queue, jobs)
         if jobs:
-            self._run_prefills(jobs)
+            if self.fused:
+                self._run_fused_rounds(jobs)
+            else:
+                self._run_prefills(jobs)
 
     # -- decode -------------------------------------------------------------
     def _run_span(self) -> int:
@@ -511,12 +678,15 @@ class BatchedServer:
         dt = time.perf_counter() - t0
         if verbose:
             steps = self.decode_steps - steps0
+            cache = (f"paged ps={self.page_size} "
+                     f"free={self.allocator.num_free}" if self.paged
+                     else f"dense max_len={self.max_len}")
             print(f"[serve] {steps} decode steps, "
                   f"{self.prefill_forwards - pf0} prefill forwards "
                   f"({self.prefill_mode}), {len(requests)} requests, "
                   f"{(self._gen_tokens - gen0) / max(dt, 1e-9):,.1f} tok/s "
-                  f"(paged ps={self.page_size} "
-                  f"free={self.allocator.num_free}, attn={self.attn_impl}, "
+                  f"({cache}, attn={self.attn_impl}, "
+                  f"fused={'on' if self.fused else 'off'}, "
                   f"{self.program_launches} programs / {self.cycles} "
                   f"cycles, device={self.device})")
         new_rejects = self.rejected[rejected0:]
@@ -582,11 +752,19 @@ class ServeLoop:
         fetches, owners = [], []
         with srv.tracer.span("decode_span"):
             for _ in range(span):
-                for i in live:
-                    srv._ensure_page(i, int(srv.pos[i]))
-                nxt, _, srv.caches = srv.decode(
-                    srv.model, tokens_dev, pos_dev, srv.caches,
-                    srv._page_table_dev())
+                if srv.paged:
+                    for i in live:
+                        srv._ensure_page(i, int(srv.pos[i]))
+                pt = srv._page_table_dev() if srv.paged else None
+                if srv.fused:
+                    # steady state: the fused program of the admission
+                    # rounds at S = 1, every row decoding and emitting
+                    nxt, _, srv.caches = srv._fused(
+                        srv.model, tokens_dev[:, None], pos_dev,
+                        srv._ones_dev, srv.caches, pt, srv._arange_dev)
+                else:
+                    nxt, _, srv.caches = srv.decode(
+                        srv.model, tokens_dev, pos_dev, srv.caches, pt)
                 srv.program_launches += 1
                 srv.cycles += 1
                 fetches.append(nxt)
@@ -639,19 +817,24 @@ def main(argv=None):
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 4, 8],
                     help="0 = float pages, 8 = int8 pages, 4 = 4-bit grid "
                          "packed 8 per int32 word")
-    ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page (0 = dense cache, not ported)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="tokens per KV page; 0 = dense max_len cache")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="shared pool pages (0 = full capacity)")
     ap.add_argument("--attn-impl", choices=list(ATTN_IMPLS),
                     default="gather",
                     help="paged attention route: the dense gather reference "
-                         "or the CUDA kernel (its plain version on CPU)")
+                         "or the CUDA kernel (its plain version on CPU); "
+                         "kernel needs --page-size > 0")
     ap.add_argument("--prefill", choices=["auto", "bucketed", "stepwise"],
                     default="auto")
     ap.add_argument("--prefill-bucket", type=int, default=32)
     ap.add_argument("--prefill-batch", type=int, default=0)
-    ap.add_argument("--fused", choices=["on", "off"], default="off")
+    ap.add_argument("--fused", choices=["on", "off"], default="off",
+                    help="on = ONE ragged [batch, bucket] program per "
+                         "scheduler cycle (prefill chunks and decode tokens "
+                         "in one forward); needs --page-size > 0 and "
+                         "bucketed prefill")
     ap.add_argument("--kv-profile", default="")
     ap.add_argument("--kv-scale", choices=["static", "page"],
                     default="static")

@@ -1,17 +1,35 @@
-"""Serving step functions: bucketed chunk prefill and decode.
+"""Serving step functions: whole-prompt prefill into dense caches,
+bucketed chunk prefill, decode, and the fused ragged step.
 
 Plain functions on tensors (PyTorch runs eagerly; the reference wraps the
-same bodies in ``jax.jit``). Caches are the per-layer pool list of
-``models.transformer.init_cache`` and are updated in place. The fused
-ragged step and the training/dense-prefill steps are still to port
-(ROADMAP queue A items 5 and 12).
+same bodies in ``jax.jit``). Caches are the per-layer list of
+``models.transformer.init_cache`` and are updated in place. The training
+step is still to port (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.common import lm_head
-from ..models.transformer import forward_hidden
+from ..models.transformer import forward_hidden, init_cache
+
+
+def make_prefill_step(cfg, *, max_len: int, quant=None):
+    """fn(model, tokens (B, S)) -> (last logits (B, V), caches).
+
+    The whole-prompt prefill against fresh DENSE ``max_len`` caches; the
+    server prefills incrementally into its caches through
+    :func:`make_chunk_prefill_step` (paged) or decode steps (dense)."""
+
+    @torch.no_grad()
+    def step(model, tokens):
+        caches = init_cache(cfg, quant, None, model.device,
+                            batch=tokens.shape[0], max_len=max_len)
+        x, caches = forward_hidden(model, tokens, cfg, quant=quant,
+                                   caches=caches, cache_pos=0)
+        return lm_head(model.head_weight(), x)[:, -1], caches
+
+    return step
 
 
 def make_chunk_prefill_step(cfg, *, quant=None, attn_impl: str = "gather"):
@@ -50,6 +68,47 @@ def make_decode_step(cfg, *, quant=None, attn_impl: str = "gather"):
                                    page_table=page_table,
                                    attn_impl=attn_impl)
         logits = lm_head(model.head_weight(), x)[:, 0]
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt, logits, caches
+
+    return step
+
+
+def make_fused_step(cfg, *, quant=None, attn_impl: str = "gather"):
+    """fn(model, tokens (R, S), start_pos (R,), valid_len (R,), caches,
+    page_table (R, NP), emit_idx (R,)) -> (next_tokens (R,) int32,
+    logits (R, V), caches).
+
+    ONE ragged program per scheduler cycle: every row is a decode row (its
+    single next token, ``valid_len == 1``) or a prefill chunk row
+    (``valid_len`` real prompt tokens padded to the shared bucket S), each
+    with its own page table and start position. Padded tails write to the
+    scratch page and their outputs are never read: every real query's
+    causal bound lies below the padded keys. Attention goes through
+    ``route_paged_attention`` (the CUDA kernel on the card with
+    ``attn_impl="kernel"``, which takes per-row ``q_start``/``kv_len``).
+
+    The LM head runs only on the ``emit_idx`` rows, each at its LAST real
+    position (``valid_len - 1``); callers keep ``emit_idx`` a fixed (R,)
+    shape, padded with row 0, and discard the padding on the host. At
+    S == 1 with ``emit_idx == arange(R)`` and ``valid_len == 1`` (the
+    steady state) the gathers are identity copies and the head GEMM has
+    :func:`make_decode_step`'s shape and operands."""
+
+    @torch.no_grad()
+    def step(model, tokens, start_pos, valid_len, caches, page_table,
+             emit_idx):
+        x, caches = forward_hidden(model, tokens, cfg, quant=quant,
+                                   caches=caches, cache_pos=start_pos,
+                                   page_table=page_table,
+                                   attn_impl=attn_impl,
+                                   kv_valid_len=valid_len)
+        emit = emit_idx.to(torch.int64)
+        h = x[emit]                                          # (E, S, D)
+        last = valid_len.to(torch.int64)[emit] - 1           # (E,)
+        h = torch.gather(h, 1, last[:, None, None].expand(
+            -1, 1, h.shape[-1]))                             # (E, 1, D)
+        logits = lm_head(model.head_weight(), h)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
 

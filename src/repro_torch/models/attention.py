@@ -1,7 +1,15 @@
-"""GQA attention (with optional QKV bias) over the paged quantized KV pool.
+"""GQA attention (with optional QKV bias) over dense or paged KV caches.
 
-* ``gqa_apply`` — the paged branch of the reference's ``gqa_apply``: QKV
-  projections + bias, RoPE, the pool write, attention, output projection.
+* ``gqa_apply`` — QKV projections + bias, RoPE, the cache write, attention
+  and the output projection, for the reference's three cache kinds: a
+  paged pool (``route_paged_attention``), a dense ``max_len`` slab
+  (``cache_update`` + ``attend_chunked``), and no cache at all (training
+  and whole-prompt forwards: ``attend_full`` or ``attend_chunked`` by the
+  reference's ``use_chunked`` rule).
+* ``init_kv_cache`` / ``cache_update`` — the dense slab: a float cache in
+  the compute dtype, or an int8 grid of the layer's Q(I,F) format
+  (``KVQuantSpec``; stored with ``torch.round``, half to even, as the
+  reference's ``jnp.round``).
 * ``paged_cache_update`` — the pool write (quantize, pack, scatter).
 * ``route_paged_attention`` — ONE entry point for every paged attention
   read, chunked prefill (S > 1) and decode (S == 1) alike:
@@ -10,8 +18,7 @@
   ``"gather"`` reads the pool through the dense gather and
   ``attend_chunked``'s online softmax.
 
-The dense-cache and cache-free (training) branches, M-RoPE and MLA are
-still to port (ROADMAP queue A items 4 and 11).
+M-RoPE and MLA are still to port (ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.fixedpoint import format_params
 from ..core.paged_kv import paged_gather, paged_update, per_row, \
     pool_container
 from ..kernels.paged_kv_attention import (paged_kv_attention_chunk,
@@ -41,6 +49,68 @@ class KVQuantSpec:
     frac_bits: int
     container: str = "int8"
     scale_mode: str = "static"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dense cache's storage dtype (paged pools keep their own
+        containers; int4 exists only lane-packed in pages)."""
+        if self.container == "int4":
+            raise ValueError("int4 KV container requires a paged cache "
+                             "(lane-packed pages); dense caches support "
+                             "int8/int16")
+        return {"int8": torch.int8, "int16": torch.int16}[self.container]
+
+
+# ---------------------------------------------------------------------------
+# Dense KV cache: one (B, max_len, KV, hd) slab per layer
+# ---------------------------------------------------------------------------
+def init_kv_cache(batch, max_len, n_kv, head_dim, dtype,
+                  quant: Optional[KVQuantSpec], device):
+    store = quant.dtype if quant is not None else dtype
+    shape = (batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=store, device=device),
+            "v": torch.zeros(shape, dtype=store, device=device)}
+
+
+def _q_store(x, quant: Optional[KVQuantSpec]):
+    """Float K/V -> the stored grid. ``torch.round`` rounds half to even,
+    as the reference's ``jnp.round`` at this call site."""
+    if quant is None:
+        return x
+    scale, qmin, qmax = format_params(quant.int_bits, quant.frac_bits)
+    q = torch.clamp(torch.round(x.to(torch.float32) * scale), qmin, qmax)
+    return q.to(quant.dtype)
+
+
+def _q_load(x, quant: Optional[KVQuantSpec], dtype):
+    if quant is None:
+        return x.to(dtype)
+    scale, _, _ = format_params(quant.int_bits, quant.frac_bits)
+    return (x.to(torch.float32) / scale).to(dtype)
+
+
+def seq_update(buf, new, pos):
+    """Write ``new`` (B, S, ...) into ``buf`` (B, T, ...) at token offset
+    ``pos``, a scalar (shared clock) or (B,) per-row offsets, in place. As
+    ``lax.dynamic_update_slice``, a start past ``T - S`` is clamped to it
+    so the S tokens stay inside the slab. Returns ``buf``."""
+    B, S, T = new.shape[0], new.shape[1], buf.shape[1]
+    if not torch.is_tensor(pos) or pos.numel() == 1:
+        s0 = min(max(int(pos), 0), T - S)
+        buf[:, s0:s0 + S] = new
+        return buf
+    start = torch.clamp(per_row(pos, B, buf.device), 0, T - S)
+    rows = torch.arange(B, device=buf.device)[:, None]
+    cols = start[:, None] + torch.arange(S, device=buf.device)[None, :]
+    buf[rows, cols] = new
+    return buf
+
+
+def cache_update(cache, k_new, v_new, pos, quant=None):
+    """Write S new tokens at offset ``pos`` (scalar or (B,)), in place."""
+    seq_update(cache["k"], _q_store(k_new, quant).to(cache["k"].dtype), pos)
+    seq_update(cache["v"], _q_store(v_new, quant).to(cache["v"].dtype), pos)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -108,14 +178,38 @@ def _len_col(kv_len, ndim: int, device) -> torch.Tensor:
         (-1,) + (1,) * (ndim - 1))
 
 
+def attend_full(q, k, v, q_pos, kv_pos, *, causal=True):
+    """Full-materialization attention (small shapes, the cache-free
+    forward). q: (B, S, H, hd); k, v: (B, T, KV, hd); q_pos: (B, S);
+    kv_pos: (T,). Scores and products accumulate in float32; the softmax
+    is the reference's ``jax.nn.softmax`` over masked float32 scores."""
+    B, S, H, hd = q.shape
+    KV, vd = k.shape[2], v.shape[-1]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
+                     k.to(torch.float32)) / np.sqrt(hd)
+    mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
+    s = torch.where(mask[:, None, None, :, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+    return o.reshape(B, S, H, vd).to(q.dtype)
+
+
 def attend_chunked(q, k, v, q_pos, kv_start, *, causal=True, kv_len=None,
-                   chunk=1024, scale=None, operand_dtype=torch.float32):
+                   chunk=1024, kv_quant: Optional[KVQuantSpec] = None,
+                   scale=None, operand_dtype=torch.float32):
     """Flash-style online-softmax attention, scanning KV in ``chunk``s.
 
-    q: (B, S, H, hd); k/v: (B, T, KV, hd) float; q_pos: (B, S) absolute
-    query positions. S == 1 runs grouped (B, KV, G) math and never expands
-    K/V across the group; S > 1 works in expanded H-head space, as the
-    reference does. Softmax state and products are float32."""
+    q: (B, S, H, hd); k/v: (B, T, KV, hd), float or a dense cache's integer
+    grid under ``kv_quant`` (each chunk dequantized as it is read); q_pos:
+    (B, S) absolute query positions. S == 1 runs grouped (B, KV, G) math
+    and never expands K/V across the group; S > 1 works in expanded H-head
+    space, as the reference does. Softmax state and products are
+    float32."""
     B, S, H, hd = q.shape
     KV, T = k.shape[2], k.shape[1]
     G = H // KV
@@ -132,7 +226,8 @@ def attend_chunked(q, k, v, q_pos, kv_start, *, causal=True, kv_len=None,
     if S == 1:
         return _attend_chunked_grouped(q, k, v, q_pos, kv_start,
                                        causal=causal, kv_len=kv_len,
-                                       chunk=chunk, scale=scale, nc=nc)
+                                       chunk=chunk, kv_quant=kv_quant,
+                                       scale=scale, nc=nc)
     dev = q.device
     qh = (q.to(torch.float32) * scale).to(operand_dtype)
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=dev)
@@ -140,8 +235,10 @@ def attend_chunked(q, k, v, q_pos, kv_start, *, causal=True, kv_len=None,
     acc = torch.zeros((B, S, H, v.shape[-1]), dtype=torch.float32,
                       device=dev)
     for idx in range(nc):
-        kc = k[:, idx * chunk:(idx + 1) * chunk].to(operand_dtype)
-        vc = v[:, idx * chunk:(idx + 1) * chunk].to(operand_dtype)
+        kc = _q_load(k[:, idx * chunk:(idx + 1) * chunk], kv_quant,
+                     operand_dtype)
+        vc = _q_load(v[:, idx * chunk:(idx + 1) * chunk], kv_quant,
+                     operand_dtype)
         if G > 1:
             kc = torch.repeat_interleave(kc, G, dim=2)
             vc = torch.repeat_interleave(vc, G, dim=2)
@@ -166,7 +263,7 @@ def attend_chunked(q, k, v, q_pos, kv_start, *, causal=True, kv_len=None,
 
 
 def _attend_chunked_grouped(q, k, v, q_pos, kv_start, *, causal, kv_len,
-                            chunk, scale, nc):
+                            chunk, kv_quant, scale, nc):
     """Online-softmax decode attention in grouped (B, KV, G) layout; S is 1.
     (Like the reference, the causal bound is always applied here.)"""
     B, S, H, hd = q.shape
@@ -178,8 +275,10 @@ def _attend_chunked_grouped(q, k, v, q_pos, kv_start, *, causal, kv_len,
     l = torch.zeros((B, KV, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, vd), dtype=torch.float32, device=dev)
     for idx in range(nc):
-        kc = k[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
-        vc = v[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
+        kc = _q_load(k[:, idx * chunk:(idx + 1) * chunk], kv_quant,
+                     torch.float32)
+        vc = _q_load(v[:, idx * chunk:(idx + 1) * chunk], kv_quant,
+                     torch.float32)
         s = torch.einsum("bkgh,btkh->bkgt", qg, kc)
         pos = kv_start + idx * chunk + torch.arange(chunk, device=dev)
         valid = pos[None, :] <= q_pos[:, -1:]
@@ -238,22 +337,19 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
               cache_pos=None, kv_quant: Optional[KVQuantSpec] = None,
               page_table=None, attn_impl: str = "gather",
               kv_valid_len=None):
-    """Returns (y, cache). ``positions``: (B, S) absolute positions;
-    ``cache``: this layer's paged pool (updated in place); ``page_table``:
-    (B, NP) int32; ``attn_impl``: "gather" | "kernel" (see
-    :func:`route_paged_attention`); ``kv_valid_len`` (scalar or (B,)) marks
-    only the first tokens of a padded prefill chunk as real."""
+    """Returns (y, cache). ``positions``: (B, S) absolute positions.
+
+    ``cache`` is None (attend within the sequence, causal per cfg), a dense
+    slab of :func:`init_kv_cache` (written at ``cache_pos``, scalar or
+    (B,)), or a paged pool (needs ``page_table`` (B, NP) int32; attention
+    by ``attn_impl``, "gather" | "kernel", see
+    :func:`route_paged_attention`). Caches are updated in place.
+    ``kv_valid_len`` (scalar or (B,)) marks only the first tokens of a
+    padded prefill chunk as real (paged pools). Without a cache, the
+    reference's ``use_chunked`` rule takes the online softmax once S^2
+    exceeds ``cfg.attn_chunk``^2, else :func:`attend_full`."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if cache is None or "k_pages" not in cache:
-        raise NotImplementedError(
-            "only the paged-cache attention path is ported; dense caches "
-            "and cache-free attention are ROADMAP queue A item 4")
-    if page_table is None:
-        raise ValueError("paged KV cache needs a page_table")
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
-                         f"got {attn_impl!r}")
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
@@ -264,11 +360,30 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
     q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
     v = v.reshape(B, S, KV, hd)
-    cache = paged_cache_update(cache, k, v, page_table, cache_pos, kv_quant,
-                               valid_len=kv_valid_len)
     odt = torch.bfloat16 if cfg.attn_bf16 else torch.float32
-    o = route_paged_attention(q, cache, page_table, positions, cache_pos,
-                              cfg=cfg, attn_impl=attn_impl,
-                              operand_dtype=odt)
+    if cache is not None and "k_pages" in cache:
+        if page_table is None:
+            raise ValueError("paged KV cache needs a page_table")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
+                             f"got {attn_impl!r}")
+        cache = paged_cache_update(cache, k, v, page_table, cache_pos,
+                                   kv_quant, valid_len=kv_valid_len)
+        o = route_paged_attention(q, cache, page_table, positions,
+                                  cache_pos, cfg=cfg, attn_impl=attn_impl,
+                                  operand_dtype=odt)
+    elif cache is not None:
+        cache = cache_update(cache, k, v, cache_pos, kv_quant)
+        kv_len = per_row(cache_pos, B, x.device) + S
+        o = attend_chunked(q, cache["k"], cache["v"], positions, 0,
+                           causal=cfg.causal, kv_len=kv_len,
+                           chunk=cfg.attn_chunk, kv_quant=kv_quant,
+                           operand_dtype=odt)
+    elif S * S > cfg.attn_chunk ** 2:
+        o = attend_chunked(q, k, v, positions, 0, causal=cfg.causal,
+                           chunk=cfg.attn_chunk, operand_dtype=odt)
+    else:
+        o = attend_full(q, k, v, positions,
+                        torch.arange(S, device=x.device), causal=cfg.causal)
     y = o.reshape(B, S, H * hd) @ p.wo
     return y, cache

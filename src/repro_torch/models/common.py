@@ -3,7 +3,7 @@ LM head.
 
 Weights keep the reference's ``(in, out)`` layout, so ``x @ w`` is the same
 product on both sides. LayerNorm, M-RoPE and the loss helpers are still to
-port (ROADMAP queue A items 4, 11 and 12).
+port (ROADMAP queue A items 11 and 12).
 """
 from __future__ import annotations
 

@@ -1,17 +1,26 @@
-"""Dense GQA decoder: blocks, the model module, paged caches, forward, and
-the converter from the JAX package's parameter tree.
+"""Dense GQA decoder: blocks, the model module, dense and paged caches,
+the forward with the paper's per-layer fake-quant, and the converter from
+the JAX package's parameter tree.
 
 The reference stacks each segment's layers and runs them under
 ``lax.scan``; here the model is an ``nn.ModuleList`` of one
 :class:`DecoderBlock` per layer and the forward is a Python loop, with one
-paged pool per layer (the layout of the reference's
-``_segment_unrolled``). Other families (MoE, SSM, hybrid, encoder, VLM),
-weight/residual fake-quant and the training losses are still to port
-(ROADMAP queue A items 2, 4, 11 and 12).
+cache per layer (the layout of the reference's ``_segment_unrolled``).
+
+Per-layer quantization (all optional, driven by :class:`ModelQuant`):
+  * weights: fake-quant of every >= 2-D float tensor of a block before use
+    (the paper's "weights"; :func:`_quant_weights`),
+  * residual stream: fake-quant of the embedding output and of each
+    block's output (the paper's "data"),
+  * KV: integer-grid storage in dense slabs or paged pools.
+
+Other families (MoE, SSM, hybrid, encoder, VLM) and the training losses
+are still to port (ROADMAP queue A items 11 and 12).
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -19,9 +28,11 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core.fixedpoint import fake_quant
 from ..core.paged_kv import (PagedCacheSpec, PagedKVLayout, init_paged_pool,
                              per_row)
-from .attention import GQAttention, KVQuantSpec, gqa_apply, init_gqa
+from .attention import (GQAttention, KVQuantSpec, gqa_apply, init_gqa,
+                        init_kv_cache)
 from .common import (dense_init, embed_init, embed_tokens, frozen, lm_head,
                      rmsnorm)
 from .mlp import SwiGLU, init_swiglu, swiglu_apply
@@ -32,23 +43,55 @@ from .mlp import SwiGLU, init_swiglu, swiglu_apply
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ModelQuant:
-    """Per-layer KV Q(I,F) formats and the uniform storage container.
+    """Per-layer Q(I,F) formats: one python int per layer in each tuple.
 
-    ``kv_int``/``kv_frac`` hold one python int per layer (None: float KV
-    pages). Built from a PrecisionPolicy by
+    ``w_int``/``w_frac`` fake-quantize the weights and ``a_int``/``a_frac``
+    the residual stream (None: off); ``kv_int``/``kv_frac`` give each
+    layer's KV grid (None: float KV) in the uniform ``kv_container``.
+    Built from a PrecisionPolicy by
     ``repro_torch.quant.apply.build_model_quant``."""
 
+    w_int: Optional[Tuple[int, ...]] = None
+    w_frac: Optional[Tuple[int, ...]] = None
+    a_int: Optional[Tuple[int, ...]] = None
+    a_frac: Optional[Tuple[int, ...]] = None
     kv_int: Optional[Tuple[int, ...]] = None
     kv_frac: Optional[Tuple[int, ...]] = None
     kv_container: str = "int8"
     kv_scale_mode: str = "static"
 
     def layer_kv(self, li: int) -> Optional[KVQuantSpec]:
-        """Layer ``li``'s KV spec (None: the layer stores float pages)."""
+        """Layer ``li``'s KV spec (None: the layer stores float K/V)."""
         if self.kv_int is None:
             return None
         return KVQuantSpec(self.kv_int[li], self.kv_frac[li],
                            self.kv_container, scale_mode=self.kv_scale_mode)
+
+    def layer_weight(self, li: int) -> Optional[Tuple[int, int]]:
+        """Layer ``li``'s weight (I, F), or None when weights stay float."""
+        return None if self.w_int is None else (self.w_int[li],
+                                                self.w_frac[li])
+
+    def layer_data(self, li: int) -> Optional[Tuple[int, int]]:
+        """Layer ``li``'s residual-stream (I, F), or None."""
+        return None if self.a_int is None else (self.a_int[li],
+                                                self.a_frac[li])
+
+
+def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
+    """``mod`` with every >= 2-D float tensor fake-quantized to ``fmt``
+    (the paper's weight quantization; 1-D tensors, biases and norm scales,
+    stay full precision). Returns a namespace read like the module, or
+    ``mod`` itself when ``fmt`` is None."""
+    if fmt is None:
+        return mod
+    view = types.SimpleNamespace(**{k: v for k, v in vars(mod).items()
+                                    if not k.startswith("_")})
+    for name, t in mod.named_parameters(recurse=False):
+        if t.dim() >= 2 and t.is_floating_point():
+            t = fake_quant(t, *fmt)
+        setattr(view, name, t)
+    return view
 
 
 # ---------------------------------------------------------------------------
@@ -174,33 +217,59 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *,
 # ---------------------------------------------------------------------------
 # Caches / forward
 # ---------------------------------------------------------------------------
-def init_cache(cfg, quant: Optional[ModelQuant], paged: PagedCacheSpec,
-               device) -> List[Dict[str, torch.Tensor]]:
-    """One paged pool per layer (all layers share one page table)."""
-    caches = []
-    for li in range(cfg.num_layers):
-        kvq = quant.layer_kv(li) if quant is not None else None
+def init_block_cache(cfg, batch, max_len, dtype,
+                     kv_quant: Optional[KVQuantSpec],
+                     paged: Optional[PagedCacheSpec], device):
+    """One attention layer's cache: a paged pool when ``paged`` is given
+    (``kv_quant`` picks its container), else a dense (batch, max_len, KV,
+    hd) slab of :func:`models.attention.init_kv_cache`."""
+    if paged is not None:
         layout = PagedKVLayout(
             num_pages=paged.num_pages, page_size=paged.page_size,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            container="fp" if kvq is None else kvq.container,
-            dtype=cfg.torch_dtype)
-        caches.append(init_paged_pool(layout, device))
-    return caches
+            container="fp" if kv_quant is None else kv_quant.container,
+            dtype=dtype)
+        return init_paged_pool(layout, device)
+    return init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                         dtype, kv_quant, device)
+
+
+def init_cache(cfg, quant: Optional[ModelQuant] = None,
+               paged: Optional[PagedCacheSpec] = None, device="cuda", *,
+               batch: int = 0, max_len: int = 0
+               ) -> List[Dict[str, torch.Tensor]]:
+    """One cache per layer: paged pools sharing one page table when
+    ``paged`` is given, else dense ``(batch, max_len)`` slabs. A quantized
+    dense slab stores the int8/int16 grid of ``quant.kv_container`` (int4
+    raises: it exists only lane-packed in pages)."""
+    if paged is None and (batch <= 0 or max_len <= 0):
+        raise ValueError("a dense cache needs batch and max_len")
+    dev = resolve_device(device)
+    return [init_block_cache(cfg, batch, max_len, cfg.torch_dtype,
+                             quant.layer_kv(li) if quant is not None
+                             else None, paged, dev)
+            for li in range(cfg.num_layers)]
 
 
 def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
-                kv_quant=None, page_table=None, attn_impl="gather",
-                kv_valid_len=None):
-    """One pre-norm block. Returns (x, cache)."""
+                kv_quant=None, w_fmt=None, a_fmt=None, page_table=None,
+                attn_impl="gather", kv_valid_len=None):
+    """One pre-norm block. Returns (x, cache). ``w_fmt``/``a_fmt`` (I, F)
+    fake-quantize the block's weights before use and its output (the
+    residual stream) after it."""
+    attn = _quant_weights(blk.attn, w_fmt)
+    mlp = _quant_weights(blk.mlp, w_fmt)
     h = rmsnorm(blk.norm1, x, cfg.norm_eps)
-    y, cache = gqa_apply(blk.attn, h, positions, cfg=cfg, cache=cache,
+    y, cache = gqa_apply(attn, h, positions, cfg=cfg, cache=cache,
                          cache_pos=cache_pos, kv_quant=kv_quant,
                          page_table=page_table, attn_impl=attn_impl,
                          kv_valid_len=kv_valid_len)
     x = x + y
     h = rmsnorm(blk.norm2, x, cfg.norm_eps)
-    return x + swiglu_apply(blk.mlp, h), cache
+    x = x + swiglu_apply(mlp, h)
+    if a_fmt is not None:
+        x = fake_quant(x, *a_fmt)          # the paper's "data" bits
+    return x, cache
 
 
 def forward_hidden(model: Transformer, tokens, cfg, *,
@@ -209,25 +278,33 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
                    kv_valid_len=None):
     """Backbone only: returns (hidden after the final norm, caches).
 
-    tokens: (B, S) ids; ``cache_pos``: scalar or (B,) position of each
-    row's first token; ``page_table`` (B, NP) int32 drives the paged
-    caches (one pool per layer, updated in place); ``attn_impl``
-    ("gather" | "kernel") picks the paged attention route for every chunk
-    shape; ``kv_valid_len`` masks padded prefill chunk tails."""
-    if caches is None:
-        raise NotImplementedError(
-            "the cache-free forward (training, whole-prompt prefill) is "
-            "ROADMAP queue A item 4")
+    tokens: (B, S) ids; ``caches``: None (attend within the sequence: the
+    training / whole-prompt forward) or :func:`init_cache`'s per-layer
+    list, updated in place; ``cache_pos``: scalar or (B,) position of each
+    row's first token; ``page_table`` (B, NP) int32 drives paged caches;
+    ``attn_impl`` ("gather" | "kernel") picks the paged attention route
+    for every chunk shape; ``kv_valid_len`` masks padded prefill chunk
+    tails. ``quant`` fake-quantizes the embedding output with layer 0's
+    data format, then each block as :func:`block_apply`."""
     x = embed_tokens(model.embed, tokens)
     B, S = x.shape[0], x.shape[1]
     base = per_row(0 if cache_pos is None else cache_pos, B, x.device)
     positions = base[:, None] + torch.arange(S, device=x.device)[None, :]
+    if quant is not None and quant.a_int is not None:
+        x = fake_quant(x, *quant.layer_data(0))    # the embedding output
     for li, blk in enumerate(model.layers):
-        kvq = quant.layer_kv(li) if quant is not None else None
-        x, caches[li] = block_apply(
-            blk, x, positions, cfg=cfg, cache=caches[li],
-            cache_pos=cache_pos, kv_quant=kvq, page_table=page_table,
-            attn_impl=attn_impl, kv_valid_len=kv_valid_len)
+        kvq = wf = af = None
+        if quant is not None:
+            kvq, wf, af = (quant.layer_kv(li), quant.layer_weight(li),
+                           quant.layer_data(li))
+        x, cache = block_apply(
+            blk, x, positions, cfg=cfg,
+            cache=None if caches is None else caches[li],
+            cache_pos=cache_pos, kv_quant=kvq, w_fmt=wf, a_fmt=af,
+            page_table=page_table, attn_impl=attn_impl,
+            kv_valid_len=kv_valid_len)
+        if caches is not None:
+            caches[li] = cache
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return x, caches
 
@@ -237,3 +314,27 @@ def forward(model: Transformer, tokens, cfg, **kw):
     :func:`forward_hidden`."""
     x, caches = forward_hidden(model, tokens, cfg, **kw)
     return x, lm_head(model.head_weight(), x), caches
+
+
+def prefill(model: Transformer, tokens, cfg, *,
+            quant: Optional[ModelQuant] = None, max_len: int):
+    """Run the prompt (B, S) through the model into fresh dense
+    ``max_len`` caches. Returns (logits at the last position (B, V),
+    caches, next position S)."""
+    B, S = tokens.shape
+    caches = init_cache(cfg, quant, None, model.device, batch=B,
+                        max_len=max_len)
+    _, logits, caches = forward(model, tokens, cfg, quant=quant,
+                                caches=caches, cache_pos=0)
+    return logits[:, -1], caches, S
+
+
+def decode_step(model: Transformer, tokens, pos, caches, cfg, *,
+                quant: Optional[ModelQuant] = None, page_table=None,
+                attn_impl="gather"):
+    """One decode step. tokens: (B,) int32; pos: scalar or (B,) current
+    lengths. Returns (logits (B, V), caches)."""
+    _, logits, caches = forward(model, tokens[:, None], cfg, quant=quant,
+                                caches=caches, cache_pos=pos,
+                                page_table=page_table, attn_impl=attn_impl)
+    return logits[:, 0], caches

@@ -1,31 +1,37 @@
 """Glue between the paper's PrecisionPolicy and the transformer stack.
 
 * ``transformer_layer_names`` — the policy's layer-name space for an arch.
-* ``build_model_quant`` — policy -> :class:`ModelQuant`, uniform KV
-  container branch: each layer's KV cache inherits the layer's *data*
-  format, clipped to the container width.
+* ``build_model_quant`` — policy -> :class:`ModelQuant`: per-layer weight,
+  residual-data and KV formats (uniform KV container).
+* ``transformer_traffic_model`` — the paper's §2.4 access counting applied
+  to a transformer workload (train / prefill / decode);
+  ``policy_footprint_report`` prices a policy with it.
 * ``kv_profile_key`` — the canonical string of a KV quantization setup.
 * ``quantize_param_tree`` — a dense model's weights as QuantizedTensors.
 
-Per-layer KV containers (``per_layer_kv``), weight and residual-stream
-fake-quant and the traffic model are still to port (ROADMAP queue A items
-2 and 8).
+Per-layer KV containers (``per_layer_kv``, ``--kv-profile``) are still to
+port (ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
+
+from ..configs.counting import (kv_bytes_per_token, layer_param_count,
+                                layer_signatures)
 from ..core.policy import PrecisionPolicy
 from ..core.qtensor import QuantizedTensor
+from ..core.traffic import LayerTraffic, TrafficModel
 from ..models.transformer import ModelQuant, Transformer
-
-# the reference's stand-in format for a layer without a data format
-# (``PrecisionPolicy.stacked_arrays``): Q16.14
-_NO_FORMAT = (16, 14)
 
 
 def transformer_layer_names(cfg) -> Tuple[str, ...]:
     return tuple(f"layer_{i:03d}" for i in range(cfg.num_layers))
+
+
+def _ints(t) -> Tuple[int, ...]:
+    return tuple(int(v) for v in t.tolist())
 
 
 def build_model_quant(policy: Optional[PrecisionPolicy], cfg,
@@ -36,10 +42,15 @@ def build_model_quant(policy: Optional[PrecisionPolicy], cfg,
                       kv_scale_mode: str = "static") -> Optional[ModelQuant]:
     """PrecisionPolicy -> ModelQuant. Policy layer i == transformer layer i.
 
-    The KV cache of layer i stores on the grid of the layer's data format
-    clipped to the container width: ``tot = clip(I + F, 2, cap)``,
-    ``I' = min(I, tot - 1)``, ``F' = tot - I'`` (the reference's arithmetic,
-    on python ints)."""
+    Formats come from ``policy.stacked_arrays``, so a layer without a
+    format holds the Q16.14 sentinel. Weight fake-quant is on when ANY
+    layer has a weight format, and then covers every layer, sentinel ones
+    included; so does residual-stream fake-quant with data formats (off
+    with ``quantize_activations=False``, which leaves the data bits to the
+    KV cache alone). The KV cache of layer i stores on the grid of the
+    layer's data format clipped to the container width:
+    ``tot = clip(I + F, 2, cap)``, ``I' = min(I, tot - 1)``,
+    ``F' = tot - I'`` (the reference's arithmetic, on python ints)."""
     if policy is None:
         return None
     if len(policy) != cfg.num_layers:
@@ -49,27 +60,26 @@ def build_model_quant(policy: Optional[PrecisionPolicy], cfg,
         raise NotImplementedError(
             "per-layer KV containers (--kv-profile) are not ported yet: "
             "ROADMAP queue A item 8")
-    if any(lp.weight is not None for lp in policy.layers):
-        raise NotImplementedError(
-            "weight fake-quant is not ported yet: ROADMAP queue A item 2")
-    if quantize_activations and any(lp.data is not None
-                                    for lp in policy.layers):
-        raise NotImplementedError(
-            "residual-stream fake-quant is not ported yet: ROADMAP queue A "
-            "item 2")
-    if not quantize_kv:
-        return ModelQuant()
-    cap = {"int4": 4, "int8": 8, "int16": 16}[kv_container]
-    kv_int, kv_frac = [], []
-    for lp in policy.layers:
-        a_i, a_f = ((lp.data.int_bits, lp.data.frac_bits)
-                    if lp.data is not None else _NO_FORMAT)
-        tot = min(max(a_i + a_f, 2), cap)
-        i = min(a_i, tot - 1)
-        kv_int.append(i)
-        kv_frac.append(tot - i)
-    return ModelQuant(kv_int=tuple(kv_int), kv_frac=tuple(kv_frac),
-                      kv_container=kv_container, kv_scale_mode=kv_scale_mode)
+    w_i, w_f, w_en = policy.stacked_arrays("weight")
+    a_i, a_f, a_en = policy.stacked_arrays("data")
+    w_on = bool(w_en.any())
+    act_on = quantize_activations and bool(a_en.any())
+    kv_int = kv_frac = None
+    if quantize_kv:
+        cap = {"int4": 4, "int8": 8, "int16": 16}[kv_container]
+        kv_int, kv_frac = [], []
+        for i, f in zip(_ints(a_i), _ints(a_f)):
+            tot = min(max(i + f, 2), cap)
+            kv_int.append(min(i, tot - 1))
+            kv_frac.append(tot - kv_int[-1])
+        kv_int, kv_frac = tuple(kv_int), tuple(kv_frac)
+    return ModelQuant(
+        w_int=_ints(w_i) if w_on else None,
+        w_frac=_ints(w_f) if w_on else None,
+        a_int=_ints(a_i) if act_on else None,
+        a_frac=_ints(a_f) if act_on else None,
+        kv_int=kv_int, kv_frac=kv_frac, kv_container=kv_container,
+        kv_scale_mode=kv_scale_mode)
 
 
 def kv_layer_container(data_fmt) -> str:
@@ -91,6 +101,61 @@ def kv_profile_key(policy: Optional[PrecisionPolicy], *,
     else:
         per = f"uniform{kv_bits}"
     return f"{per}|scale={kv_scale_mode}"
+
+
+def transformer_traffic_model(cfg, *, batch: int, seq_len: int,
+                              mode: str = "train") -> TrafficModel:
+    """Access counts per layer for the paper's traffic accounting.
+
+    train/prefill: weights once per batch; data = residual in+out per
+    token. decode: per generated token, weights once and the KV history
+    read once (the dominant term the paper's 'batch' analysis predicts)."""
+    names = transformer_layer_names(cfg)
+    sigs = layer_signatures(cfg)
+    layers = []
+    tok = batch * seq_len
+    D = cfg.d_model
+    for i, n in enumerate(names):
+        w = layer_param_count(cfg, i, active_only=True)
+        if mode in ("train", "prefill"):
+            d_in = tok * D
+            d_out = tok * D
+        elif mode == "decode":
+            kind, _ = sigs[i]
+            kv_hist = 0
+            if kind == "attn":
+                kv_hist = (seq_len * (cfg.kv_lora_rank
+                                      + cfg.qk_rope_head_dim)
+                           if cfg.attention_type == "mla"
+                           else seq_len * 2 * cfg.num_kv_heads
+                           * cfg.head_dim)
+            d_in = batch * (D + kv_hist)
+            d_out = batch * D
+        else:
+            raise ValueError(mode)
+        layers.append(LayerTraffic(n, w, d_in, d_out))
+    return TrafficModel(tuple(layers))
+
+
+def policy_footprint_report(policy: PrecisionPolicy, cfg, *, batch: int,
+                            seq_len: int) -> dict:
+    """Bytes summary: weights / KV / residual data under the policy
+    against float32 and 16-bit baselines (decode traffic)."""
+    tm = transformer_traffic_model(cfg, batch=batch, seq_len=seq_len,
+                                   mode="decode")
+    tr = tm.traffic_ratio(policy, batch_size=1)
+    w_bits = [lp.weight.total_bits if lp.weight else 32
+              for lp in policy.layers]
+    d_bits = [lp.data.total_bits if lp.data else 32 for lp in policy.layers]
+    return {
+        "traffic_ratio_vs_fp32": tr,
+        "traffic_ratio_vs_16b": tr * 2.0,
+        "mean_weight_bits": float(np.mean(w_bits)),
+        "mean_data_bits": float(np.mean(d_bits)),
+        "kv_bytes_per_token_fp32": kv_bytes_per_token(cfg, 4.0),
+        "kv_bytes_per_token_policy": kv_bytes_per_token(
+            cfg, float(np.mean(d_bits)) / 8.0),
+    }
 
 
 def quantize_param_tree(model: Transformer, policy: PrecisionPolicy, *,

@@ -460,3 +460,104 @@ def test_cuda_mma_refused_launch_raises(cuda, monkeypatch):
     with pytest.raises(ValueError, match="16-byte"):
         pka.paged_kv_attention_chunk(args[0], off, args[2], *args[3:],
                                      bits=8)
+
+
+def _fused_rows(seed, *, bits, qdt, hd=128, kv=8, g=8, ps=16, s=32):
+    """A fused round's attention inputs: rows with mixed ``valid_len``
+    (prefill chunks, decode rows of one real query, a row padded from 1
+    to the shared bucket ``s``) at per-row starts over a fragmented
+    pool."""
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    rng = np.random.default_rng(seed)
+    starts = np.array([0, 37, 300, 5, 129, 16], np.int32)
+    valid = np.array([s, 1, 1, 7, s - 3, 1], np.int32)
+    b = len(starts)
+    np_pages = -(-int(starts.max() + s) // ps)
+    kq, vq, ks, vs, pt = make_fragmented_pool(rng, b, np_pages, ps, kv, hd,
+                                              bits)
+    cache = {"k_pages": torch.from_numpy(kq), "v_pages": torch.from_numpy(vq),
+             "k_scale": torch.from_numpy(ks), "v_scale": torch.from_numpy(vs)}
+    if bits == 0:
+        cache = {k: v.to(qdt) if k.endswith("pages") else v
+                 for k, v in cache.items()}
+    q = torch.from_numpy(rng.normal(size=(b, s, kv * g, hd)).astype(
+        np.float32)).to(qdt)
+    cfg = dataclasses.replace(get_smoke_config("qwen2-72b"),
+                              num_heads=kv * g, num_kv_heads=kv, head_dim=hd,
+                              d_model=kv * g * hd)
+    return cfg, q, cache, torch.from_numpy(pt), torch.from_numpy(starts), \
+        valid
+
+
+@pytest.mark.parametrize("bits", [8, 4, 0])
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_cuda_fused_rows_with_mixed_valid_len(cuda, bits, qdt):
+    """The fused step's attention: one [rows, bucket] chunk whose rows are
+    prefill chunks and decode rows of one real query (``valid_len``
+    mixed), per-row ``q_start``/``kv_len`` through
+    ``route_paged_attention``. B1 on the card equals the plain route on
+    every real query, in one launch."""
+    from repro_torch.models.attention import route_paged_attention
+    cfg, q, cache, pt, starts, valid = _fused_rows(3 + bits, bits=bits,
+                                                   qdt=qdt)
+    S = q.shape[1]
+    pos = starts[:, None].to(torch.int64) + torch.arange(S)[None, :]
+    plain = route_paged_attention(q, cache, pt, pos, starts, cfg=cfg,
+                                  attn_impl="kernel")
+    before = pka.paged_kv_attention_chunk.launches
+    got = route_paged_attention(q.to(cuda), {k: v.to(cuda)
+                                             for k, v in cache.items()},
+                                pt.to(cuda), pos.to(cuda), starts.to(cuda),
+                                cfg=cfg, attn_impl="kernel")
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.launches == before + 1
+    for r, n in enumerate(valid):
+        np.testing.assert_allclose(got[r, :n].float().cpu().numpy(),
+                                   plain[r, :n].float().numpy(),
+                                   **(TOL if qdt == torch.float32
+                                      else dict(rtol=2e-2, atol=2e-2)))
+
+
+def test_cuda_fused_step_launches_b1_once_per_layer(cuda):
+    """The fused step on the card, kernel route: a mixed admission round
+    and an S = 1 steady-state step each launch B1 once per layer, and the
+    emitted rows' logits equal the plain route's on the CPU (float32)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.paged_kv import PagedCacheSpec
+    from repro_torch.launch.steps import make_fused_step
+    from repro_torch.models.transformer import init_cache, init_model
+    cfg = dataclasses.replace(get_smoke_config("qwen2-72b"), d_model=256,
+                              num_heads=4, num_kv_heads=2, d_ff=384)
+    step = make_fused_step(cfg, attn_impl="kernel")
+    spec = PagedCacheSpec(page_size=8, num_pages=1 + 4 * 4)
+    pt = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
+    rng = np.random.default_rng(0)
+    rounds = [  # (tokens (4, S), starts, valid, emit)
+        (rng.integers(0, 256, (4, 8)), [0, 0, 0, 0], [8, 5, 1, 3],
+         [0, 1, 2, 3]),
+        (rng.integers(0, 256, (4, 8)), [8, 5, 1, 3], [1, 8, 1, 2],
+         [0, 2, 0, 0]),
+        (rng.integers(0, 256, (4, 1)), [9, 13, 2, 5], [1, 1, 1, 1],
+         [0, 1, 2, 3])]
+    outs = {}
+    for dev in ("cpu", cuda):
+        model = init_model(cfg, seed=1, device="cpu").to(dev)
+        caches = init_cache(cfg, None, spec, dev)
+        outs[str(dev)] = []
+        for tok, st, vl, em in rounds:
+            before = pka.paged_kv_attention_chunk.launches
+            nxt, logits, caches = step(
+                model, torch.tensor(tok, dtype=torch.int32, device=dev),
+                torch.tensor(st, dtype=torch.int32, device=dev),
+                torch.tensor(vl, dtype=torch.int32, device=dev), caches,
+                pt.to(dev), torch.tensor(em, dtype=torch.int32, device=dev))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert (pka.paged_kv_attention_chunk.launches
+                        == before + cfg.num_layers)
+            outs[str(dev)].append(logits.float().cpu())
+    for (_, _, _, em), a, b in zip(rounds, outs["cpu"], outs[str(cuda)]):
+        n = len(set(em))
+        np.testing.assert_allclose(b[:n].numpy(), a[:n].numpy(), **TOL)

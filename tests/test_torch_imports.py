@@ -63,7 +63,11 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.kernels.kv_attention",
                   "repro_torch.kernels.ops", "repro_torch.kernels.build",
                   "repro_torch.quant.apply",
-                  "repro_torch.benchmarks.kernel_bench"]
+                  "repro_torch.benchmarks.kernel_bench",
+                  "repro_torch.core.policy", "repro_torch.core.traffic",
+                  "repro_torch.configs.counting",
+                  "repro_torch.models.transformer",
+                  "repro_torch.launch.steps", "repro_torch.launch.serve"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():

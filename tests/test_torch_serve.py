@@ -2,8 +2,9 @@
 converted to the port, the port's ``BatchedServer`` (paged, page size 16,
 bucketed batched prefill) counts the same prefill forwards, programs,
 decode steps and page allocations as the reference server at kv-bits
-{0, 8, 4}, and its tokens pass the reference benches' accuracy gate —
-through the gather route and the kernel route (plain version on the CPU).
+{0, 8, 4} on the qwen2-72b, deepseek-7b and yi-34b smoke configs, and its
+tokens pass the reference benches' accuracy gate — through the gather
+route and the kernel route (plain version on the CPU).
 Inside the port, bucketed == stepwise and batched == sequential prefill
 give identical tokens."""
 import numpy as np
@@ -27,10 +28,19 @@ LENS = [9, 9, 1, 21, 5, 8, 13, 3]
 GATE = dict(min_agreement=0.9, request_floor=0.5, allowed_below_floor=0.15)
 
 
+_MODELS = {}
+
+
+def _arch_models(arch):
+    if arch not in _MODELS:
+        jcfg, tcfg, jparams, tree = perturbed_jax_params(arch, seed=2)
+        _MODELS[arch] = jcfg, tcfg, jparams, torch_model(tree, tcfg)
+    return _MODELS[arch]
+
+
 @pytest.fixture(scope="module")
 def models():
-    jcfg, tcfg, jparams, tree = perturbed_jax_params("qwen2-72b", seed=2)
-    return jcfg, tcfg, jparams, torch_model(tree, tcfg)
+    return _arch_models("qwen2-72b")
 
 
 def _requests(cls, vocab, lens=LENS, seed=7):
@@ -47,14 +57,22 @@ def _counters(srv):
             "program_launches": srv.program_launches,
             "decode_steps": srv.decode_steps, "cycles": srv.cycles,
             "prefill_tokens": srv.prefill_tokens,
+            "prefill_forwards_saved": srv.prefill_forwards_saved,
             "allocs": srv.metrics.value("alloc.allocs"),
             "free": srv.allocator.num_free,
             "usable": srv.allocator.num_usable}
 
 
-@pytest.mark.parametrize("kv_bits", [0, 8, 4])
-def test_serving_matches_reference(models, kv_bits):
-    jcfg, tcfg, jparams, model = models
+_ARCH_BITS = [(a, b) for a in ("qwen2-72b", "deepseek-7b", "yi-34b")
+              for b in (0, 8, 4)]
+
+
+@pytest.mark.parametrize(
+    "arch,kv_bits", _ARCH_BITS,
+    ids=[str(b) if a == "qwen2-72b" else f"{a}-{b}" for a, b in _ARCH_BITS])
+def test_serving_matches_reference(arch, kv_bits):
+    """qwen2-72b has a QKV bias; deepseek-7b and yi-34b have none."""
+    jcfg, tcfg, jparams, model = _arch_models(arch)
     jsrv = JServer(jcfg, jparams, kv_bits=kv_bits, prefill="bucketed",
                    **_KW)
     jreqs = jsrv.run(_requests(JRequest, jcfg.vocab_size))
@@ -126,7 +144,6 @@ def test_admission_rejects_and_defers(models):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(page_size=0), "6"), (dict(fused="on"), "5"),
     (dict(prefix_cache="on"), "8"), (dict(kv_scale="page"), "8"),
     (dict(kv_offload="host"), "9"), (dict(sched="slo"), "9"),
     (dict(kv_adapt="on"), "9"), (dict(metrics="on"), "8"),
