@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phase kernels
+    python3 chip_smoke.py --phase cnn    # phase 4 alone, no kernel build
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -39,7 +40,20 @@ Phases, each of which raises on failure (no phase is caught):
    gather route (the gate, KV bytes and peak memory of each); and one
    forward under weights Q2.6 / data Q4.12 (logits finite, weights on the
    grid, equal to a data-only forward on pre-quantized weights) with
-   ``policy_footprint_report`` for the full 80-layer config.
+   ``policy_footprint_report`` for the full 80-layer config;
+4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
+   reference runs jnp there): LeNet, Convnet and AlexNet-small at the
+   paper's widths trained with the reference's recipe from a seeded
+   generator (LeNet's top-1 at least 0.85); the card held against the
+   port on the CPU (logits of 64 images within 1e-4, top-1 counts of 1024
+   under 8 policies within one sample, one policy twice identical); the
+   Fig. 2 and Fig. 3 sweeps, the Fig. 4 accounting, and the greedy and
+   sensitivity searches of Fig. 5 / Table 2 on the 1024-image eval set
+   (each net has a point within 10%, each selected point re-evaluates
+   within its tolerance, LeNet's TR at 1% below 1); LeNet's greedy
+   trajectory replayed on the CPU (each point within one sample, the same
+   1% point); evaluations, ms an evaluation, TR and bits per layer, peak
+   memory.
 
 Phase 1 also prints ptxas's registers, shared memory and spills for the
 tensor-core kernels (attention and B3) and the count of HMMA
@@ -1261,9 +1275,253 @@ def quant_forward_phase(cfg, model, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the paper's CNN experiment (no kernel: torch ops, as the
+# reference runs jnp there)
+# ---------------------------------------------------------------------------
+CNN_POLICIES = (    # (weight I.F or None, data I.F or None), first layer
+    (None, None, False), ((1, 8), (6, 4), False), ((1, 6), (4, 2), False),
+    ((1, 4), (3, 1), False), ((1, 2), (2, 1), False), ((1, 3), None, False),
+    (None, (4, 0), False), ((1, 5), (5, 2), True))  # True: layer 1 float32
+
+
+def cnn_policy(spec, w, d, first_float):
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.policy import LayerPolicy, PrecisionPolicy
+    if w is None and d is None:
+        return None
+    lp = LayerPolicy(w and FixedPointFormat(*w), d and FixedPointFormat(*d))
+    layers = [lp] * len(spec.layers)
+    if first_float:
+        layers[0] = LayerPolicy(None, None)
+    return PrecisionPolicy(spec.layer_names, tuple(layers))
+
+
+def cnn_flops(spec, n: int) -> float:
+    """2 x the multiply-adds of one forward of ``n`` images, from the
+    spec's shapes: each conv at its output positions before the pool, each
+    fc product."""
+    h, w, c = spec.input_shape
+    macs, flat = 0, None
+    for l in spec.layers:
+        if l.kind == "conv":
+            if l.padding == "VALID":
+                h, w = h - l.kernel + 1, w - l.kernel + 1
+            macs += h * w * l.kernel * l.kernel * c * l.features
+            c = l.features
+            if l.pool:
+                h, w = h // l.pool, w // l.pool
+        else:
+            flat = flat or h * w * c
+            macs += flat * l.features
+            flat = l.features
+    return 2.0 * macs * n
+
+
+def eval_device_ms(params, xv, spec, policy) -> float:
+    """Device ms of one evaluation's forward (1024 images): CUDA events
+    behind a ~5 ms device-side sleep, so the host's enqueue of the eager
+    ops is not timed."""
+    import torch
+    from repro_torch.models import cnn
+    wb, db = cnn.policy_bit_arrays(spec, policy)
+    fn = lambda: cnn.cnn_forward_bits(params, xv, spec, wb, db)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(5):
+        torch.cuda._sleep(10_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return sorted(out)[len(out) // 2]
+
+
+def cnn_phase() -> dict:
+    """The paper's experiment through the port's benches on the card:
+    train the three CNNs with the reference's recipe (cached under
+    ``results/torch_cnn``), hold the card against the port on the CPU
+    (logits, top-1 counts under 8 policies, a repeated evaluation), run the
+    Fig. 2/3 sweeps, the Fig. 4 accounting, the greedy and sensitivity
+    searches (Fig. 5 / Table 2) with their gates, and replay LeNet's greedy
+    trajectory on the CPU."""
+    import torch
+    from repro_torch.benchmarks import (common, pareto_search,
+                                        perlayer_sweep, traffic,
+                                        uniform_sweep)
+    from repro_torch.core.search import SearchResult
+    from repro_torch.models import cnn
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    torch.cuda.synchronize()
+    start_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    nets, out = common.cnn_nets(), {}
+    trained = {}
+    for net in nets:
+        t0 = time.perf_counter()
+        spec, params, (xv, yv), base = common.get_cnn(net, device=dev,
+                                                      retrain=True,
+                                                      verbose=False)
+        secs = time.perf_counter() - t0
+        trained[net] = (spec, params, xv, yv, base)
+        out[net] = {"baseline": base, "train_s": secs,
+                    "train_steps": common._TRAIN_STEPS[net]}
+        print(f"[cnn] {net}: trained {common._TRAIN_STEPS[net]} steps of "
+              f"batch 64 and cached in {secs:.2f} s (with data and the "
+              f"baseline eval); baseline top-1 {base:.4f} of 1024",
+              flush=True)
+    if trained["lenet"][4] < 0.85:
+        raise RuntimeError(f"LeNet's baseline {trained['lenet'][4]} < 0.85")
+
+    # card against the port on the CPU, on the card-trained weights
+    n_off = 0
+    for net in nets:
+        spec, params, xv, yv, base = trained[net]
+        cparams = {k: {kk: v.cpu() for kk, v in d.items()}
+                   for k, d in params.items()}
+        xc, yc = xv.cpu(), yv.cpu()
+        lg = cnn.cnn_forward(params, xv[:64], spec).cpu()
+        lc = cnn.cnn_forward(cparams, xc[:64], spec)
+        err = float((lg - lc).abs().max())
+        if not torch.allclose(lg, lc, rtol=TOL, atol=TOL):
+            raise RuntimeError(f"{net}: card logits off the CPU's by {err}")
+        counts = []
+        for w, d, first in CNN_POLICIES:
+            pol = cnn_policy(spec, w, d, first)
+            cg = round(cnn.cnn_accuracy(params, xv, yv, spec, pol) * 1024)
+            cc = round(cnn.cnn_accuracy(cparams, xc, yc, spec, pol) * 1024)
+            if abs(cg - cc) > 1:
+                raise RuntimeError(f"{net} {w} {d}: {cg} on the card, {cc} "
+                                   "on the CPU")
+            n_off += cg != cc
+            counts.append((cg, cc))
+        pol = cnn_policy(spec, *CNN_POLICIES[2])
+        twice = [cnn.cnn_accuracy(params, xv, yv, spec, pol)
+                 for _ in range(2)]
+        if twice[0] != twice[1]:
+            raise RuntimeError(f"{net}: one policy gave {twice}")
+        out[net].update(logits_max_abs_err=err, counts=counts)
+        print(f"[cnn] {net}: card vs CPU logits of 64 images max abs err "
+              f"{err:.3g} (tol {TOL}); top-1 counts of 1024 under 8 "
+              f"policies (card, CPU): {counts}; repeat {twice[0]:.4f} == "
+              f"{twice[1]:.4f}", flush=True)
+    print(f"[cnn] card vs CPU: {n_off} of {8 * len(nets)} policy counts "
+          f"one sample apart", flush=True)
+
+    # the paper's experiment: Fig. 2, Fig. 3, Fig. 4, Fig. 5 / Table 2
+    t0 = time.perf_counter()
+    uni = uniform_sweep.run(device=dev, verbose=False)
+    t_uni = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per = perlayer_sweep.run(device=dev, verbose=False)
+    t_per = time.perf_counter() - t0
+    acct = traffic.run_accounting(verbose=False)["cnn"]
+    print(f"[cnn] uniform sweep (Fig. 2) {t_uni:.2f} s, per-layer sweep "
+          f"(Fig. 3) {t_per:.2f} s, 3 nets", flush=True)
+    results, greedy = {}, {}
+    for net in nets:
+        spec, params, xv, yv, base = trained[net]
+        u, p = uni[net], per[net]
+        print(f"[cnn] {net}: min bits at 1% (uniform): weight frac "
+              f"{u['min_weight_frac@1%']}, data int {u['min_data_int@1%']}, "
+              f"data frac {u['min_data_frac@1%']}; per layer weight frac "
+              f"{[r['min_weight_frac@1%'] for r in p['per_layer'].values()]}"
+              f" (spread {p['weight_bits_spread']}), data int "
+              f"{[r['min_data_int@1%'] for r in p['per_layer'].values()]}; "
+              f"Fig. 4 accesses (M, batch 50) single W/D "
+              f"{acct[net]['single']['weights_M']:.2f}/"
+              f"{acct[net]['single']['data_M']:.2f}, batch W/D "
+              f"{acct[net]['batch']['weights_M']:.2f}/"
+              f"{acct[net]['batch']['data_M']:.2f}", flush=True)
+        eval_fn = common.make_eval_fn(spec, params, xv, yv)
+        init = pareto_search._init_policy(net, spec.layer_names, uni)
+        res, res2 = pareto_search.searches(spec, eval_fn, base, init)
+        results[net] = pareto_search.summarize(res, res2, base)
+        greedy[net] = res
+        if res.select(0.10) is None:
+            raise RuntimeError(f"{net}: no point within 10%")
+        for t in pareto_search.TOLERANCES:
+            sel = res.select(t)
+            if sel is not None and eval_fn(sel.policy) < base * (1 - t):
+                raise RuntimeError(f"{net}: the {t:.0%} point re-evaluates "
+                                   "below its tolerance")
+        dev_ms = eval_device_ms(params, xv, spec, init)
+        flops = cnn_flops(spec, len(xv))
+        bound_ms = flops / FP32_FLOP_PER_S * 1e3
+        host_ms = res.wall_seconds / res.evaluations * 1e3
+        tr1 = res.select(0.01)
+        s2 = results[net]["sensitivity_search"]
+        out[net].update(
+            evaluations=res.evaluations, search_s=res.wall_seconds,
+            ms_per_eval=host_ms, device_ms_per_eval=dev_ms, flops=flops,
+            bound_ms=bound_ms,
+            tr=results[net]["tolerances"],
+            cut_at_1pct=None if tr1 is None else 1 - tr1.traffic_ratio,
+            sensitivity=s2)
+        print(f"[cnn] {net}: greedy search {res.evaluations} evaluations in "
+              f"{res.wall_seconds:.2f} s = {host_ms:.3f} ms an evaluation "
+              f"(its forward {dev_ms:.3f} ms of device time, an idle share "
+              f"of {1 - dev_ms / host_ms:.3f}; {flops / 1e9:.2f} GFLOP = "
+              f"{flops / dev_ms / 1e9:.1f} TFLOP/s, its float32 bound "
+              f"{bound_ms:.3f} ms is {bound_ms / dev_ms:.3f} of it); "
+              f"{len(res.trajectory)} points", flush=True)
+        for tol, r in results[net]["tolerances"].items():
+            print(f"[cnn] {net}:   tol {tol:>3}: TR {r['traffic_ratio']:.4f} "
+                  f"acc {r['accuracy']:.4f} bits (W.D) "
+                  f"{'-'.join(r['bits_per_layer(W.D)'])}", flush=True)
+        cut, paper = out[net]["cut_at_1pct"], pareto_search.PAPER_TR_1PCT[net]
+        print(f"[cnn] {net}: 1 - TR at 1% = "
+              f"{'none' if cut is None else f'{cut:.4f}'} (paper Table 2 "
+              f"TR@1% {paper}, a cut of {1 - paper:.2f}; abstract: 74% "
+              f"average, 92% best); sensitivity search {s2['evaluations']} "
+              f"evaluations, TR@1% {s2['tr@1%']}", flush=True)
+    common.save_json("pareto_search.json", results)
+    sel = greedy["lenet"].select(0.01)
+    if sel is None or sel.traffic_ratio >= 1.0:
+        raise RuntimeError("LeNet's greedy search did not move at 1%")
+
+    # LeNet's greedy trajectory replayed on the CPU
+    spec, params, xv, yv, base = trained["lenet"]
+    cparams = {k: {kk: v.cpu() for kk, v in d.items()}
+               for k, d in params.items()}
+    xc, yc, res = xv.cpu(), yv.cpu(), greedy["lenet"]
+    replay, off = [], 0
+    for p in res.trajectory:
+        acc = cnn.cnn_accuracy(cparams, xc, yc, spec, p.policy)
+        if abs(acc - p.accuracy) * 1024 > 1 + 1e-9:
+            raise RuntimeError(f"replay: {acc} on the CPU, {p.accuracy} on "
+                               "the card")
+        off += acc != p.accuracy
+        replay.append(dataclasses.replace(p, accuracy=acc))
+    cbase = cnn.cnn_accuracy(cparams, xc, yc, spec)
+    csel = SearchResult(cbase, replay, 0, 0.0).select(0.01)
+    if csel is None or csel.policy != sel.policy:
+        raise RuntimeError("the CPU replay selects another 1% point")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = time.perf_counter() - t_phase
+    print(f"[cnn] LeNet's {len(replay)} trajectory points replayed on the "
+          f"CPU: {off} one sample apart, the same 1% point; peak device "
+          f"memory {peak:.3f} GiB ({start_gib:.3f} GiB held before the "
+          f"phase); phase {wall:.1f} s", flush=True)
+    cuts = [out[n]["cut_at_1pct"] for n in nets
+            if out[n]["cut_at_1pct"] is not None]
+    print(f"[cnn] mean cut at 1% over the {len(cuts)} nets with a 1% point "
+          f"{np.mean(cuts):.4f} (paper abstract: 74% average, 92% best)",
+          flush=True)
+    return {"nets": out, "peak_gib": peak, "phase_s": wall,
+            "replay_off": off, "card_cpu_counts_off": n_off}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels"], default="all")
+    ap.add_argument("--phase", choices=["all", "kernels", "cnn"],
+                    default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
@@ -1285,6 +1543,12 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if args.phase == "cnn":
+        cnn_phase()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
@@ -1293,14 +1557,15 @@ def main(argv=None) -> int:
 
     cases = kernels_phase(SEED)
     more = entry_point_phase(SEED)
-    launches, runs = None, []
+    launches, runs, cnn_record = None, [], None
     if args.phase == "all":
         launches, runs = serve_phase(SEED, NUM_LAYERS)
+        cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,
                             main_case, launches)] + more
     record = {"card": card, "hmma": hmma, "kernels": entries,
-              "served": runs}
+              "served": runs, "cnn": cnn_record}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ``repro`` (the JAX package stays the reference).
 
 The subpackages mirror ``repro``'s (``configs``, ``core``, ``quant``,
-``models``, ``kernels``, ``launch``, ``runtime``), one port module per
-reference module of the same name. Nothing here imports ``jax`` or
+``models``, ``kernels``, ``launch``, ``runtime``, ``data``), and
+``benchmarks`` and ``examples`` mirror the repository's, one port module
+per reference module of the same name. Nothing here imports ``jax`` or
 ``repro``. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; they never fall back to the CPU on their own.
 """

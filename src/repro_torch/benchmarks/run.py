@@ -1,0 +1,72 @@
+"""Benchmark orchestrator of the port: one module per paper table/figure,
+plus the kernel bench.
+
+  uniform_sweep   — paper Fig. 2 (accuracy vs uniform bits, per network)
+  perlayer_sweep  — paper Fig. 3 (per-layer tolerance; the key observation)
+  traffic         — paper Fig. 4 accounting (single vs batch; + LM analogue)
+  pareto_search   — paper Fig. 5 / Table 2 (greedy search, TR@1/2/5/10%,
+                    and the sensitivity search)
+  kernel_bench    — the CUDA kernels against their plain versions
+
+    python -m repro_torch.benchmarks.run [--only a,b] [--fast] [--device D]
+
+``--fast`` restricts the CNNs to lenet + convnet. Without ``--only``, a
+sweep or search whose result file exists is printed, not recomputed. A
+stage that fails raises: nothing here catches it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+from . import (common, kernel_bench, pareto_search, perlayer_sweep,
+               traffic, uniform_sweep)
+
+# expensive searches reuse their saved results unless named in --only
+_CACHED = {"uniform_sweep": "uniform_sweep.json",
+           "perlayer_sweep": "perlayer_sweep.json",
+           "pareto_search": "pareto_search.json"}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="")
+    ap.add_argument("--fast", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = args.device
+    nets = ["lenet", "convnet"] if args.fast else None
+    stages = {
+        "uniform_sweep": lambda: uniform_sweep.run(device=dev, nets=nets),
+        "perlayer_sweep": lambda: perlayer_sweep.run(device=dev, nets=nets),
+        "traffic": traffic.run_accounting,
+        "pareto_search": lambda: pareto_search.run(device=dev, nets=nets),
+        "kernel_bench": lambda: kernel_bench.run(device=dev),
+    }
+    only = [s for s in args.only.split(",") if s]
+    unknown = set(only) - set(stages)
+    if unknown:
+        raise SystemExit(f"unknown stages: {sorted(unknown)}")
+    t00 = time.time()
+    for name, fn in stages.items():
+        if only and name not in only:
+            continue
+        t0 = time.time()
+        print(f"\n===== {name} =====")
+        cached = _CACHED.get(name)
+        if cached and not only and (common.RESULTS
+                                    / f"torch_{cached}").exists():
+            print(f"[cached] results/torch_{cached} "
+                  f"(pass --only {name} to recompute). Summary:")
+            print(json.dumps(common.load_json(cached), indent=1)[:2500])
+        else:
+            fn()
+        print(f"===== {name} done in {time.time() - t0:.0f}s =====")
+    print(f"\nall benchmarks done in {time.time() - t00:.0f}s")
+
+
+if __name__ == "__main__":
+    main()

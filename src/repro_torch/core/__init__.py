@@ -1,2 +1,3 @@
-"""Numerics core: fixed-point formats, bit packing, precision policies
-and the paged quantized KV pool."""
+"""Numerics core: fixed-point formats, bit packing, precision policies,
+range calibration and the precision searches, and the paged quantized KV
+pool."""

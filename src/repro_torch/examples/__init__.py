@@ -1,0 +1,1 @@
+"""End-user examples of the port (``python -m repro_torch.examples.<name>``)."""

@@ -1,1 +1,2 @@
-"""Model layers: norms, RoPE, embeddings, attention, MLP, the decoder."""
+"""Model layers: norms, RoPE, embeddings, attention, MLP, the decoder, and
+the paper's CNNs."""

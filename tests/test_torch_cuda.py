@@ -561,3 +561,65 @@ def test_cuda_fused_step_launches_b1_once_per_layer(cuda):
     for (_, _, _, em), a, b in zip(rounds, outs["cpu"], outs[str(cuda)]):
         n = len(set(em))
         np.testing.assert_allclose(b[:n].numpy(), a[:n].numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the paper's CNNs (torch ops, no kernel): TF32 and cuDNN determinism
+# ---------------------------------------------------------------------------
+def _cnn_case(net, n):
+    from repro_torch.data.synthetic import digits_dataset, shapes32_dataset
+    from repro_torch.models import cnn
+    spec = cnn.SPECS[net]
+    params = cnn.init_cnn(torch.Generator().manual_seed(0), spec,
+                          device="cpu")
+    make = digits_dataset if net == "lenet" else shapes32_dataset
+    x, y = make(n, seed=11)
+    return spec, params, cnn.images_nchw(x, "cpu"), torch.from_numpy(y).long()
+
+
+@pytest.mark.parametrize("net", ["lenet", "convnet", "alexnet_small"])
+def test_cuda_cnn_logits_match_cpu_with_tf32_on(cuda, net):
+    """TF32 and cuDNN autotuning switched on around the call: the CNN's
+    forward turns them off for itself (card logits within 1e-4 of the
+    CPU's) and leaves them on for the rest of the program."""
+    from repro_torch.models import cnn
+    spec, params, x, _ = _cnn_case(net, 64)
+    want = cnn.cnn_forward(params, x, spec)
+    gparams = {k: {kk: v.to(cuda) for kk, v in d.items()}
+               for k, d in params.items()}
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    try:
+        torch.backends.cudnn.benchmark = True
+        for f in flags:
+            f.allow_tf32 = True
+        got = cnn.cnn_forward(gparams, x.to(cuda), spec)
+        assert torch.backends.cudnn.benchmark
+        assert all(f.allow_tf32 for f in flags)
+    finally:
+        torch.backends.cudnn.benchmark = False
+        for f in flags:
+            f.allow_tf32 = False
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("net", ["lenet", "convnet", "alexnet_small"])
+def test_cuda_cnn_eval_is_a_function(cuda, net):
+    """Trained on the card with the reference's recipe, one policy
+    evaluated twice gives the same count (the greedy search compares tied
+    accuracies with a strict >), within one sample of the port's on the
+    CPU. (At random init the ten logits are near ties, so argmax there
+    tells nothing of the two devices.)"""
+    from repro_torch.benchmarks.common import train_cnn
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.models import cnn
+    spec, _, x, y = _cnn_case(net, 512)
+    gparams, _ = train_cnn(net, device=cuda, verbose=False)
+    params = {k: {kk: v.cpu() for kk, v in d.items()}
+              for k, d in gparams.items()}
+    pol = PrecisionPolicy.uniform(spec.layer_names, FixedPointFormat(1, 6),
+                                  FixedPointFormat(4, 3))
+    a = cnn.cnn_accuracy(gparams, x.to(cuda), y.to(cuda), spec, pol)
+    b = cnn.cnn_accuracy(gparams, x.to(cuda), y.to(cuda), spec, pol)
+    assert a == b
+    assert abs(a - cnn.cnn_accuracy(params, x, y, spec, pol)) * 512 <= 1

@@ -67,7 +67,18 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.core.policy", "repro_torch.core.traffic",
                   "repro_torch.configs.counting",
                   "repro_torch.models.transformer",
-                  "repro_torch.launch.steps", "repro_torch.launch.serve"]
+                  "repro_torch.launch.steps", "repro_torch.launch.serve",
+                  "repro_torch.data", "repro_torch.data.synthetic",
+                  "repro_torch.models.cnn", "repro_torch.core.calibrate",
+                  "repro_torch.core.search",
+                  "repro_torch.benchmarks.common",
+                  "repro_torch.benchmarks.uniform_sweep",
+                  "repro_torch.benchmarks.perlayer_sweep",
+                  "repro_torch.benchmarks.pareto_search",
+                  "repro_torch.benchmarks.traffic",
+                  "repro_torch.benchmarks.report",
+                  "repro_torch.benchmarks.run",
+                  "repro_torch.examples.precision_search_lenet"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():
