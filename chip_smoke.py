@@ -33,7 +33,15 @@ Phases, each of which raises on failure (no phase is caught):
    ``fused="on"`` (one ragged program per cycle, B1 once per layer per
    program, programs == cycles, the fused kernel route fed the gather
    route's tokens passes the gate; decode-step ms, tok/s and cycles beside
-   the separate run's); a ``torch.profiler`` window over decode steps of
+   the separate run's); ``[prefix]``: 24 requests over 4 shared 200-token
+   system prompts with the prefix cache off and on, per-page scales (int8,
+   int4) and a per-layer profile (bf16, int4 and int8 layers) through both
+   routes, the tracer on (its Chrome trace written to
+   ``chiprun_out/prefix_trace.json``, the SLO summary and host ms per span
+   printed) and a 120-page pool that evicts: teacher-forced gates, B1 held
+   against its plain version on the pools of one captured served decode
+   step, the prefix counters equal to the smoke config's on the CPU for
+   the same trace; a ``torch.profiler`` window over decode steps of
    the int8 kernel-route run: B1's share of device time and the device's
    idle share; dense int8 slabs (``page_size=0``, stepwise prefill) on 8
    requests of 16-48 prompt tokens and 16 new tokens against the paged
@@ -812,15 +820,19 @@ def kv_cache_bytes(srv, peak_pages: int) -> int:
     return peak_pages * per_page
 
 
-def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
+def serve_once(cfg, model, *, kv_bits: int = 0, attn_impl: str, seed: int,
                forced=None, tap: bool = False, wrap=None, fused="off",
                page_size: int = PS, batch_size: int = 8, max_len: int = 576,
-               trace=None):
+               trace=None, keep=None, **server_kw):
     """One served run of ``trace`` (default: the 24 seeded requests of
     :func:`served_requests`); ``wrap`` (optional) wraps the decode step
     function. ``fused="on"`` times and taps the fused step instead;
     ``page_size=0`` serves from dense slabs (stepwise prefill through the
-    decode step). Returns (requests, stats, tap or None)."""
+    decode step). ``server_kw`` goes to ``BatchedServer`` (prefix cache,
+    page scales, profile, metrics, pool size); a prefix cache is released
+    at the end (its counters first go to ``keep["prefix"]``), and must
+    hand back every page. ``keep`` (a dict) receives the server as
+    ``keep["srv"]``. Returns (requests, stats, tap or None)."""
     import torch
     from repro_torch.launch.serve import BatchedServer
 
@@ -828,7 +840,9 @@ def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
     srv = BatchedServer(cfg, model, batch_size=batch_size, max_len=max_len,
                         kv_bits=kv_bits, page_size=page_size,
                         attn_impl=attn_impl, prefill_bucket=32,
-                        fused=fused, device="cuda")
+                        fused=fused, device="cuda", **server_kw)
+    keep = {} if keep is None else keep
+    keep["srv"] = srv
     peak = {"pages": 0}
     if srv.paged:
         alloc = srv.allocator.alloc
@@ -863,6 +877,9 @@ def serve_once(cfg, model, *, kv_bits: int, attn_impl: str, seed: int,
         assert all(t.is_cuda for t in cache.values()), \
             "a KV cache left the card"
     assert all(p.is_cuda for p in model.parameters())
+    if srv.prefix_cache is not None:
+        keep["prefix"] = prefix_counters(srv)
+        assert srv.release_prefix_cache() == 0, "prefix cache page leak"
     if srv.paged:
         assert srv.allocator.num_free == srv.allocator.num_usable
     gen = sum(len(r.out) for r in reqs)
@@ -1076,10 +1093,12 @@ def serve_phase(seed: int, num_layers: int):
     fused_launches, fused_runs = fused_phase(cfg, model, seed, gather,
                                              kernel, bits_list)
     runs += fused_runs
+    prefix_launches, prefix_runs = prefix_phase(cfg, model, seed)
+    runs += prefix_runs
     runs.append({"decode_profile": decode_profile(cfg, model, seed)})
     runs.append(dense_phase(cfg, model, seed))
     runs.append(quant_forward_phase(cfg, model, seed))
-    return launches + fused_launches, runs
+    return launches + fused_launches + prefix_launches, runs
 
 
 def fused_phase(cfg, model, seed: int, gather, separate, bits_list):
@@ -1144,6 +1163,349 @@ def fused_phase(cfg, model, seed: int, gather, separate, bits_list):
           f"{cfg.num_layers} layers x {expect // cfg.num_layers} programs",
           flush=True)
     return launches, runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, [prefix]: the shared-prefix page cache, per-page scales, a
+# per-layer KV profile and the request tracer, served through B1
+# ---------------------------------------------------------------------------
+SYS_LEN, N_SYS = 200, 4             # 4 system prompts of 200 tokens
+EVICT_PAGES = 120                   # a pool the cache must evict from
+
+
+def prefix_trace(cfg, seed: int):
+    """24 requests of 32 new tokens: one of 4 shared 200-token system
+    prompts plus a suffix of 16-240 tokens; requests 22 and 23 repeat the
+    prompts of requests 5 and 9 exactly (full-chain hits). Token ids lie
+    below the smoke config's vocabulary, so the CPU run of the smoke
+    config serves the same token trace."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import Request
+    vocab = get_smoke_config("qwen2-72b").vocab_size
+    rng = np.random.default_rng(seed + 7)
+    sys_p = [rng.integers(0, vocab, SYS_LEN).astype(np.int32)
+             for _ in range(N_SYS)]
+    reqs = []
+    for i in range(22):
+        suffix = rng.integers(0, vocab, int(rng.integers(16, 241)))
+        reqs.append(Request(i, np.concatenate(
+            [sys_p[i % N_SYS], suffix.astype(np.int32)]), 32))
+    for i, src in ((22, 5), (23, 9)):
+        reqs.append(Request(i, reqs[src].prompt.copy(), 32))
+    return reqs
+
+
+def kv_profile_policy(n_layers: int):
+    """Layers 0 and n-1 float (bf16 pages), the others alternating Q2.2
+    (int4 pages) and Q2.6 (int8 pages)."""
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.policy import LayerPolicy, PrecisionPolicy
+    fmts = [None if i in (0, n_layers - 1) else
+            FixedPointFormat(2, 2 if i % 2 else 6) for i in range(n_layers)]
+    return PrecisionPolicy(tuple(f"layer_{i:03d}" for i in range(n_layers)),
+                           tuple(LayerPolicy(None, f) for f in fmts))
+
+
+class B1Capture:
+    """Wraps the decode entry of B1 as the attention layer calls it: at
+    decode call ``at`` and the ``layers - 1`` calls after it (one decode
+    step, every layer) it keeps a copy of the inputs, pools included (the
+    server rewrites them in place later)."""
+
+    def __init__(self, fn, *, at: int, layers: int):
+        self.fn, self.at, self.layers = fn, at, layers
+        self.n, self.saved = 0, []
+
+    def __call__(self, q, kp, vp, ks, vs, pt, kv_len, *, bits):
+        if self.at <= self.n < self.at + self.layers:
+            self.saved.append(dict(
+                q=q.clone(), k_pages=kp.clone(), v_pages=vp.clone(),
+                k_scale=ks.clone(), v_scale=vs.clone(), page_table=pt.clone(),
+                kv_len=kv_len.clone(), bits=bits))
+        self.n += 1
+        return self.fn(q, kp, vp, ks, vs, pt, kv_len, bits=bits)
+
+
+def check_captured_b1(saved, label: str) -> dict:
+    """B1 (the decode entry on the card) against its plain version on
+    each captured layer's pool, at the kernel tests' tolerance; the
+    distinct page scales among the pages in use and the containers seen."""
+    import torch
+    from repro_torch.kernels import paged_kv_attention as pka
+    if not saved:
+        raise AssertionError(f"{label}: no decode step was captured")
+    errs, distinct, bits = [], [], set()
+    for c in saved:
+        args = (c["q"], c["k_pages"], c["v_pages"], c["k_scale"],
+                c["v_scale"], c["page_table"])
+        out = pka.paged_kv_attention_decode(*args, c["kv_len"],
+                                            bits=c["bits"])
+        plain = pka.paged_kv_attention_chunk_plain(
+            c["q"][:, None], *args[1:], c["kv_len"] - 1, c["kv_len"],
+            bits=c["bits"])[:, 0]
+        err = float((out - plain).abs().max())
+        if not (bool(torch.isfinite(out).all())
+                and torch.allclose(out, plain, rtol=TOL, atol=TOL)):
+            raise AssertionError(f"{label}: B1 vs plain on a served pool, "
+                                 f"bits={c['bits']}: max abs err {err:.3e}")
+        errs.append(err)
+        used = torch.unique(c["page_table"])
+        used = used[used != 0].long()
+        distinct.append(int(torch.unique(c["k_scale"][used]).numel()))
+        bits.add(c["bits"])
+    res = {"layers": len(saved), "max_abs_err": max(errs),
+           "distinct_k_scales_min": min(distinct), "bits": sorted(bits)}
+    print(f"[prefix] {label}: B1 vs plain on the pools of one served decode "
+          f"step, {len(saved)} layers, bits {res['bits']}: max abs err "
+          f"{res['max_abs_err']:.2e} (tol {TOL}); distinct k scales among "
+          f"the pages in use, fewest over layers: "
+          f"{res['distinct_k_scales_min']}", flush=True)
+    return res
+
+
+def prefix_counters(srv) -> dict:
+    """The prefix cache's host counters: they depend on tokens and pages
+    only, not on the model."""
+    st = srv.prefix_cache.stats()
+    return {"hits": st["hits"], "hit_tokens": st["hit_tokens"],
+            "cow_copies": st["cow_copies"], "evictions": st["evictions"],
+            "lookups": st["lookups"], "inserted_pages": st["inserted_pages"],
+            "wave_dedup_pages": srv.wave_dedup_pages,
+            "prefill_forwards": srv.prefill_forwards}
+
+
+def cpu_prefix_counters(seed: int, **kw) -> dict:
+    """The same token trace served by the smoke config on the CPU."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config("qwen2-72b")
+    model = init_model(cfg, seed=seed, device="cpu")
+    srv = BatchedServer(cfg, model, batch_size=8, max_len=576, kv_bits=8,
+                        page_size=PS, prefill_bucket=32, prefix_cache="on",
+                        device=torch.device("cpu"), **kw)
+    srv.run(prefix_trace(cfg, seed))
+    return prefix_counters(srv)
+
+
+def prefix_phase(cfg, model, seed: int):
+    """``[prefix]``: the 24-request shared-prompt trace of
+    :func:`prefix_trace` through B1 with the prefix cache off and on
+    (int8), per-page scales (int8 and int4) and a per-layer profile on
+    both routes, the tracer on, and a pool small enough to evict. Fails
+    unless every request finishes and every page comes back, B1 runs once
+    per layer per program, sharing saves prefill forwards and prompt
+    tokens, every teacher-forced gate passes, B1 equals its plain version
+    on the pools of one captured decode step (page scales: at least 2
+    distinct; the profile: all three containers), the prefix counters
+    equal the smoke config's on the CPU for the same trace, and the
+    at-rest bytes are the layers' containers' bytes. Returns (B1
+    launches, run records)."""
+    from repro_torch.core.paged_kv import caches_kv_bytes
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.models import attention
+    from repro_torch.quant.apply import kv_layer_container
+
+    t_phase = time.perf_counter()
+    profile = kv_profile_policy(cfg.num_layers)
+    trace_path = Path(__file__).resolve().parent / "chiprun_out" / \
+        "prefix_trace.json"
+    prompt_tokens = sum(len(r.prompt) - 1 for r in prefix_trace(cfg, seed))
+    launches = {"n": 0}
+
+    def run(label, *, attn_impl="kernel", capture=False, **kw):
+        keep = {}
+        cap = None
+        if capture:
+            cap = B1Capture(attention.paged_kv_attention_decode,
+                            at=40 * cfg.num_layers, layers=cfg.num_layers)
+            attention.paged_kv_attention_decode = cap
+        paged_kv_attention_chunk.launches = 0
+        try:
+            reqs, st, tap = serve_once(cfg, model, attn_impl=attn_impl,
+                                       seed=seed, trace=prefix_trace,
+                                       keep=keep, **kw)
+        finally:
+            if cap is not None:
+                attention.paged_kv_attention_decode = cap.fn
+        n = paged_kv_attention_chunk.launches
+        srv = keep["srv"]
+        if attn_impl == "kernel":
+            if n != cfg.num_layers * st["program_launches"]:
+                raise AssertionError(f"[prefix] {label}: B1 launches {n} != "
+                                     f"layers x programs "
+                                     f"{cfg.num_layers} x "
+                                     f"{st['program_launches']}")
+            launches["n"] += n
+        by = caches_kv_bytes(srv.caches)
+        st.update(label=label, b1_launches=n, kv_by_container=by,
+                  kv_at_rest_bytes=sum(by.values()),
+                  prefilled_tokens=prompt_tokens - srv.prefix_hit_tokens
+                  - srv.wave_dedup_pages * PS)
+        if srv.prefix_cache is not None:
+            st["prefix"] = keep["prefix"]
+        print(f"[prefix] {label:<22} {st['tok_per_s']:7.1f} tok/s, decode "
+              f"step {st['decode_step_ms']:.2f} ms x {st['decode_steps']}, "
+              f"{st['prefill_forwards']} prefill forwards over "
+              f"{st['prefilled_tokens']} prompt tokens, B1 x {n}"
+              + (f", hits {st['prefix']['hits']} ({st['prefix']['hit_tokens']}"
+                 f" tokens), CoW {st['prefix']['cow_copies']}, wave-dedupe "
+                 f"pages {st['prefix']['wave_dedup_pages']}, evictions "
+                 f"{st['prefix']['evictions']}" if "prefix" in st else ""),
+              flush=True)
+        return reqs, st, tap, srv, cap
+
+    def gate(label, ref, test):
+        g = accuracy_gate([r.out for r in ref], [r.out for r in test])
+        print(f"[prefix] gate {label}: teacher-forced agreement "
+              f"{g['agreement']:.4f} ({g['below_floor']} below 0.5), gate "
+              f"0.9 -> {'pass' if g['passed'] else 'FAIL'}", flush=True)
+        if not g["passed"]:
+            raise AssertionError(f"[prefix] {label} fails the gate: {g}")
+        return g["agreement"]
+
+    def exact(a, b):
+        return decode_agreement([r.out for r in a], [r.out for r in b])[0]
+
+    runs, gates = {}, {}
+    off = run("int8 prefix off", kv_bits=8)
+    on = run("int8 prefix on", kv_bits=8, prefix_cache="on")
+    on_f = run("int8 prefix on, forced", kv_bits=8, prefix_cache="on",
+               forced={r.rid: r.out for r in off[0]})
+    gates["prefix_on_vs_off"] = gate("prefix on vs off (int8 kernel)",
+                                     off[0], on_f[0])
+    for a, b in (("prefill_forwards", "prefill_forwards"),
+                 ("prefilled_tokens", "prefilled_tokens")):
+        if not on[1][a] < off[1][b]:
+            raise AssertionError(f"[prefix] {a}: on {on[1][a]} is not below "
+                                 f"off {off[1][b]}")
+    print(f"[prefix] prefix on vs off: {on[1]['prefill_forwards']} < "
+          f"{off[1]['prefill_forwards']} prefill forwards, "
+          f"{on[1]['prefilled_tokens']} < {off[1]['prefilled_tokens']} "
+          f"prompt tokens prefilled; free-running exact agreement "
+          f"{exact(off[0], on[0]):.4f}", flush=True)
+    runs.update(off=off, on=on)
+    scaled = {}
+    for b in (8, 4):
+        g = run(f"int{b} page-scale gather", attn_impl="gather", kv_bits=b,
+                kv_scale="page", prefix_cache="on")
+        k = run(f"int{b} page-scale kernel", kv_bits=b, kv_scale="page",
+                prefix_cache="on", capture=True)
+        kf = run(f"int{b} page-scale forced", kv_bits=b, kv_scale="page",
+                 prefix_cache="on", forced={r.rid: r.out for r in g[0]})
+        gates[f"page_int{b}_kernel_vs_gather"] = gate(
+            f"int{b} page-scale kernel vs gather", g[0], kf[0])
+        print(f"[prefix] int{b} page-scale kernel vs gather: free-running "
+              f"exact agreement {exact(g[0], k[0]):.4f}", flush=True)
+        cap = check_captured_b1(k[4].saved, f"int{b} page-scale")
+        if cap["distinct_k_scales_min"] < 2:
+            raise AssertionError(f"[prefix] int{b} page-scale pools hold "
+                                 f"fewer than 2 distinct scales")
+        k[1]["captured_b1"] = cap
+        scaled[b] = (g, k)
+    pg = run("profile gather", attn_impl="gather", kv_profile=profile,
+             prefix_cache="on")
+    pk = run("profile kernel", kv_profile=profile, prefix_cache="on",
+             capture=True)
+    pf = run("profile forced", kv_profile=profile, prefix_cache="on",
+             forced={r.rid: r.out for r in pg[0]})
+    gates["profile_kernel_vs_gather"] = gate("profile kernel vs gather",
+                                             pg[0], pf[0])
+    print(f"[prefix] profile kernel vs gather: free-running exact agreement "
+          f"{exact(pg[0], pk[0]):.4f}", flush=True)
+    cap = check_captured_b1(pk[4].saved, "profile")
+    if cap["bits"] != [0, 4, 8]:
+        raise AssertionError(f"[prefix] the profile run's pools hold "
+                             f"containers {cap['bits']}, not all three")
+    pk[1]["captured_b1"] = cap
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    met = run("int8 metrics on", kv_bits=8, prefix_cache="on",
+              metrics="on")
+    met_f = run("int8 metrics on, forced", kv_bits=8, prefix_cache="on",
+                metrics="on", forced={r.rid: r.out for r in on[0]})
+    gates["metrics_on_vs_off"] = gate("metrics on vs off", on[0], met_f[0])
+    print(f"[prefix] metrics on vs off: free-running exact agreement "
+          f"{exact(on[0], met[0]):.4f}", flush=True)
+    tracer = met[3].tracer
+    tracer.export_chrome(str(trace_path))
+    slo = tracer.slo_summary()
+    steps = met[1]["decode_steps"]
+    spans = {}
+    for e in tracer.events:
+        if e["ph"] == "X":
+            d = spans.setdefault(e["name"], [0, 0.0])
+            d[0] += 1
+            d[1] += e["dur"] / 1e3
+    ms = lambda v: "n/a" if v is None else f"{v * 1e3:.2f}"  # noqa: E731
+    print(f"[prefix] slo_summary (metrics on, int8 kernel): TTFT p50 "
+          f"{ms(slo['ttft_p50_s'])} ms p99 {ms(slo['ttft_p99_s'])} ms, TPOT "
+          f"p50 {ms(slo['tpot_p50_s'])} ms p99 {ms(slo['tpot_p99_s'])} ms, "
+          f"goodput {slo['goodput']} ({slo['finished']}/{slo['requests']} "
+          f"finished); {len(tracer.events)} events -> {trace_path.name}",
+          flush=True)
+    for name, (n, tot) in sorted(spans.items()):
+        print(f"[prefix] span {name:<14} x {n:4d}: {tot:9.2f} ms host, "
+              f"{tot / steps:.3f} ms per decode step ({steps} steps)",
+              flush=True)
+    met[1].update(slo=slo, span_ms={k: v[1] for k, v in spans.items()},
+                  span_counts={k: v[0] for k, v in spans.items()})
+    ev = run(f"int8 {EVICT_PAGES} pages", kv_bits=8, prefix_cache="on",
+             num_pages=EVICT_PAGES)
+    if ev[1]["prefix"]["evictions"] < 1:
+        raise AssertionError("[prefix] the small pool evicted nothing")
+    # host counters against the smoke config on the CPU, same token trace
+    cpu = {"static": cpu_prefix_counters(seed),
+           "page": cpu_prefix_counters(seed, kv_scale="page"),
+           "evict": cpu_prefix_counters(seed, num_pages=EVICT_PAGES)}
+    card = {"static": [on, on_f, met, met_f, pg, pk, pf],
+            "page": [x for b in (8, 4) for x in scaled[b]],
+            "evict": [ev]}
+    for key, rs in card.items():
+        for r in rs:
+            if r[1]["prefix"] != cpu[key]:
+                raise AssertionError(f"[prefix] {r[1]['label']}: counters "
+                                     f"{r[1]['prefix']} != CPU {cpu[key]}")
+    print(f"[prefix] host counters equal the smoke config's on the CPU for "
+          f"the same trace: static {cpu['static']}; page {cpu['page']}; "
+          f"{EVICT_PAGES} pages {cpu['evict']}", flush=True)
+    # the profile's bytes are its layers' containers' bytes: against
+    # uniform int4 and uniform bf16 (float pages) it lies in between, but
+    # with two of its 8 layers in bf16 (2 bytes a value) it is above
+    # uniform int8 (8.5 bytes a value across the layers against 8)
+    u4 = scaled[4][1][1]["kv_at_rest_bytes"]
+    u8 = scaled[8][1][1]["kv_at_rest_bytes"]
+    prof = pk[1]["kv_at_rest_bytes"]
+    by = pk[1]["kv_by_container"]
+    conts = [kv_layer_container(lp.data) for lp in profile.layers]
+    per_layer = {"int4": u4 // cfg.num_layers, "int8": u8 // cfg.num_layers,
+                 "fp": by["fp"] // conts.count("fp")}
+    uf = per_layer["fp"] * cfg.num_layers
+    want = sum(per_layer[c] for c in conts)
+    if not (u4 < prof < uf and prof == want
+            and by["int8"] == conts.count("int8") * per_layer["int8"]
+            and by["int4"] == conts.count("int4") * per_layer["int4"]):
+        raise AssertionError(f"[prefix] at-rest KV bytes: int4 {u4}, "
+                             f"profile {prof} (expected {want}), int8 {u8}, "
+                             f"bf16 {uf}")
+    print(f"[prefix] at-rest KV bytes: uniform int4 {u4 / 2 ** 20:.1f} MiB "
+          f"< profile {prof / 2 ** 20:.1f} MiB < uniform bf16 "
+          f"{uf / 2 ** 20:.1f} MiB; uniform int8 {u8 / 2 ** 20:.1f} MiB "
+          f"(the profile's layers: {conts.count('fp')} bf16 at twice an "
+          f"int8 layer's page bytes, {conts.count('int8')} int8, "
+          f"{conts.count('int4')} int4 at half)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[prefix] main path: {launches['n']} B1 launches = layers x "
+          f"programs over the kernel runs; phase {wall:.1f} s", flush=True)
+    out = [dict(r[1], phase="prefix") for r in
+           (off, on, scaled[8][0], scaled[8][1], scaled[4][0], scaled[4][1],
+            pg, pk, met, ev)]
+    out.append({"phase": "prefix", "gates": gates, "cpu_counters": cpu,
+                "kv_at_rest_bytes": {"int4": u4, "profile": prof,
+                                     "int8": u8, "bf16": uf},
+                "phase_s": wall})
+    return launches["n"], out
 
 
 def dense_trace(cfg, seed: int):

@@ -17,14 +17,16 @@ allocator never hands it out.
 Unlike the reference's functional ``.at[].set``, :func:`paged_update` writes
 the pool tensors IN PLACE (index_put) and returns the same dict: a
 full-width pool is tens of MB per layer, and copying it per token would
-dominate decode. ``scale_mode="page"`` (per-page max-abs calibration),
-``copy_pool_pages`` and the pool traversal helpers of the reference are
-still to port (ROADMAP queue A items 3 and 8).
+dominate decode. ``scale_mode="page"`` calibrates each page's scale to
+the max-abs of what was written to it and requantizes the page in place
+when the scale rises; ``copy_pool_pages`` is the prefix cache's
+copy-on-write, and ``iter_kv_pools``/``map_kv_pools`` walk a model's
+per-layer pools.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,17 +45,20 @@ class OutOfPagesError(RuntimeError):
     Raised before any page is handed out (admission preflight) or when the
     free list empties mid-run, with the counts needed to size
     ``--num-pages``: ``reserved`` pages are promised to live requests but
-    not yet written, ``written`` pages already hold live KV."""
+    not yet written, ``written`` pages already hold live KV, and
+    ``evictable`` unreferenced prefix-cache pages could be reclaimed."""
 
     def __init__(self, *, needed: int, free: int, total: int,
                  rid: Optional[int] = None, reserved: int = 0,
-                 written: int = 0):
+                 written: int = 0, evictable: int = 0):
         self.needed, self.free, self.total, self.rid = needed, free, total, rid
         self.reserved, self.written = reserved, written
+        self.evictable = evictable
         who = f"request {rid}" if rid is not None else "allocation"
         extra = ""
-        if reserved or written:
-            extra = f" [{written} written, {reserved} reserved-unwritten]"
+        if reserved or written or evictable:
+            extra = (f" [{written} written, {reserved} reserved-unwritten, "
+                     f"{evictable} evictable-cached]")
         super().__init__(
             f"KV page pool cannot back {who}: needs {needed} page(s), "
             f"{free} free of {total} usable (page 0 is scratch){extra}; "
@@ -122,9 +127,12 @@ class PageAllocator:
     Host-side bookkeeping only: ``alloc`` hands out an index at refcount 1,
     ``incref`` adds a reference, ``free`` releases one reference per page
     and recycles pages that reach zero; releasing a page twice raises.
-    ``metrics`` counts allocations ("alloc.allocs") and registers a live
-    "alloc.free_pages" gauge. The reference's reclaim/pressure hooks serve
-    the prefix cache and are still to port (ROADMAP queue A item 8)."""
+    ``reclaim`` (optional ``n_pages -> n_freed``) is called when the free
+    list is empty at ``alloc``: the prefix cache registers its eviction
+    there. ``metrics`` counts allocations ("alloc.allocs") and reclaim
+    calls ("alloc.reclaims"), and registers a live "alloc.free_pages"
+    gauge. The reference's host-tier and quant-tier inventories are
+    ROADMAP queue A item 9."""
 
     def __init__(self, num_pages: int, *,
                  metrics: Optional[MetricsRegistry] = None):
@@ -133,8 +141,10 @@ class PageAllocator:
         self.num_pages = num_pages
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}
+        self.reclaim: Optional[Callable[[int], int]] = None
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._c_allocs = self.metrics.counter("alloc.allocs")
+        self._c_reclaims = self.metrics.counter("alloc.reclaims")
         self.metrics.register_gauge("alloc.free_pages", lambda: len(self._free))
 
     @property
@@ -150,6 +160,10 @@ class PageAllocator:
         return self._refs.get(page, 0)
 
     def alloc(self) -> int:
+        if not self._free:
+            self._c_reclaims.inc()
+            if self.reclaim is not None:
+                self.reclaim(1)
         if not self._free:
             raise OutOfPagesError(needed=1, free=0, total=self.num_usable)
         page = self._free.pop()
@@ -225,14 +239,19 @@ def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
     or (B,) — the logical position of the FIRST new token per sequence.
     ``valid_len`` (scalar or (B,)) marks only the first ``valid_len`` of the
     S tokens as real: the padded rest writes to the scratch page. Tokens
-    past the page-table span clamp into the row's last page, as in the
-    reference. Returns ``pool`` (updated in place).
+    past the page-table span clamp into the row's last page in static
+    mode and go to the scratch page in page mode, as in the reference.
+    Returns ``pool`` (updated in place).
 
     Static scale mode: every touched page's scale becomes the layer's
-    uniform Q(I,F) step 2^-F. Float pages store raw values under a unit
-    scale, reset on each page's first write (offset 0). Distinct sequences
-    own distinct pages, so duplicate scatter indices only ever land on the
-    scratch page, where any write order is acceptable.
+    uniform Q(I,F) step 2^-F. Page mode (int containers): each page's
+    scale is the running max-abs of what was written to it over the
+    container's symmetric grid (:func:`_paged_update_page_scale`). Float
+    pages store raw values under a unit scale, reset on each page's first
+    write (offset 0). Distinct sequences own distinct pages (pages shared
+    through the prefix cache lie before every sharer's write position), so
+    duplicate scatter indices only ever land on the scratch page, where
+    any write order is acceptable.
     """
     B, S = k_new.shape[0], k_new.shape[1]
     dev = k_new.device
@@ -242,10 +261,11 @@ def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
     blocks = torch.clamp(positions // page_size, max=page_table.shape[1] - 1)
     offsets = positions % page_size
     pids = torch.gather(page_table.to(torch.int64), 1, blocks)
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
     if valid_len is not None:
         vl = per_row(valid_len, B, dev)
-        pids = torch.where(ar[None, :] < vl[:, None], pids,
-                           torch.full_like(pids, SCRATCH_PAGE))
+        valid = ar[None, :] < vl[:, None]
+        pids = torch.where(valid, pids, torch.full_like(pids, SCRATCH_PAGE))
 
     if container == "fp":
         first = torch.where(offsets == 0, pids,
@@ -257,9 +277,9 @@ def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
         return pool
 
     if scale_mode == "page":
-        raise NotImplementedError(
-            "per-page scale calibration (--kv-scale page) is not ported "
-            "yet: ROADMAP queue A item 8")
+        return _paged_update_page_scale(
+            pool, k_new, v_new, page_table, pos, pids, offsets, valid,
+            page_size=page_size, container=container)
     if scale_mode != "static":
         raise ValueError(f"scale_mode must be 'static' or 'page', "
                          f"got {scale_mode!r}")
@@ -271,6 +291,91 @@ def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
     pool["v_pages"][pids, offsets] = v_q.to(pool["v_pages"].dtype)
     pool["k_scale"][pids] = rscale
     pool["v_scale"][pids] = rscale
+    return pool
+
+
+_SCALE_EPS = 2.0 ** -20   # floor for all-zero chunks (no division by 0)
+
+
+def _paged_update_page_scale(pool, k_new, v_new, page_table, pos, pids,
+                             offsets, valid, *, page_size: int,
+                             container: str):
+    """Per-page max-abs calibrated write (``scale_mode="page"``), in place.
+
+    A chunk's positions are contiguous, so each row touches at most
+    ``nb = (S - 1) // ps + 2`` consecutive blocks. Those pages are gathered,
+    requantized under the (possibly raised) new scale and written back,
+    then the new tokens are written, then the scales: this order matters
+    because the writes are in place. A block is fresh when it is not the
+    row's first block or the chunk starts at its offset 0; a fresh block's
+    old scale and content (a recycled page's garbage) are ignored. Tokens
+    past the page-table span, and blocks past it, go to the scratch page.
+    Rounding is ``torch.round`` (half to even, the reference's
+    ``jnp.round``), and new tokens are divided by their page's scale.
+
+    SHARING CONTRACT: a scale raise rewrites the touched pages' grids, so
+    every page in a row's written block range must be held by that row
+    alone (refcount 1). The server keeps it: in page mode the prefix cache
+    never holds a page its owner still writes, and
+    ``BatchedServer._ensure_page`` asserts refcount 1 on the target block.
+    """
+    B, S = k_new.shape[0], k_new.shape[1]
+    ps, NP = page_size, page_table.shape[1]
+    dev = k_new.device
+    bits = {"int8": 8, "int4": 4}[container]
+    qmax = float(2 ** (bits - 1) - 1)
+    hd = k_new.shape[-1]
+    pt = page_table.to(torch.int64)
+    scratch = torch.full_like(pids, SCRATCH_PAGE)
+
+    nb = (S - 1) // ps + 2
+    blk_first = pos // ps                                    # (B,)
+    positions = pos[:, None] + torch.arange(S, device=dev)[None, :]
+    in_tok = positions // ps < NP                            # (B, S)
+    pids = torch.where(in_tok, pids, scratch)
+    ar_nb = torch.arange(nb, device=dev)[None, :]
+    blocks_nb = blk_first[:, None] + ar_nb                   # (B, nb)
+    pids_nb = torch.gather(pt, 1, torch.clamp(blocks_nb, max=NP - 1))
+    pids_nb = torch.where(blocks_nb < NP, pids_nb,
+                          torch.full_like(pids_nb, SCRATCH_PAGE))
+    fresh = (ar_nb > 0) | ((pos % ps) == 0)[:, None]         # (B, nb)
+    lb = torch.clamp(positions // ps - blk_first[:, None], 0, nb - 1)
+
+    def page_scales(x_new, old_scale):
+        amax = x_new.to(torch.float32).abs().amax(dim=(-2, -1))  # (B, S)
+        amax = torch.where(valid & in_tok, amax, torch.zeros_like(amax))
+        need = torch.zeros((B, nb), dtype=torch.float32, device=dev)
+        need.scatter_reduce_(1, lb, amax, reduce="amax", include_self=True)
+        # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+        # its reciprocal, which is an ULP off the reference's division
+        need = need / torch.full_like(need, qmax)
+        old = old_scale[pids_nb]                                 # (B, nb)
+        new = torch.maximum(torch.where(fresh, torch.zeros_like(old), old),
+                            torch.clamp(need, min=_SCALE_EPS))
+        ratio = torch.where(fresh, torch.ones_like(old), old / new)
+        return new, ratio
+
+    def requant_and_write(pages, scale, x_new, new_scale, ratio):
+        got = pages[pids_nb]                       # (B, nb, ps, KV, hdw)
+        if container == "int4":
+            got = unpack_bits(got, 4, hd)
+        re = torch.round(got.to(torch.float32)
+                         * ratio[:, :, None, None, None])
+        re = torch.clamp(re, -qmax, qmax)
+        sc_tok = torch.gather(new_scale, 1, lb)    # (B, S) token's scale
+        q = torch.clamp(torch.round(x_new.to(torch.float32)
+                                    / sc_tok[:, :, None, None]),
+                        -qmax, qmax)
+        if container == "int4":
+            re, q = _pack_grid(re, 4), _pack_grid(q, 4)
+        pages[pids_nb] = re.to(pages.dtype)
+        pages[pids, offsets] = q.to(pages.dtype)
+        scale[pids_nb] = new_scale
+
+    k_ns, k_ratio = page_scales(k_new, pool["k_scale"])
+    v_ns, v_ratio = page_scales(v_new, pool["v_scale"])
+    requant_and_write(pool["k_pages"], pool["k_scale"], k_new, k_ns, k_ratio)
+    requant_and_write(pool["v_pages"], pool["v_scale"], v_new, v_ns, v_ratio)
     return pool
 
 
@@ -298,6 +403,29 @@ def paged_gather(pool, page_table, *, container: str = "int8",
     return k.reshape(B, NP * ps, KV, hd), v.reshape(B, NP * ps, KV, hd)
 
 
+def copy_pool_pages(pool, src: int, dst: int):
+    """Copy one page's stored bytes and scales ``src -> dst`` in place (the
+    prefix cache's copy-on-write: a request that diverges inside a shared
+    page extends a private copy, and the source stays byte-identical for
+    its other readers). The reference's ``page_axis`` has no counterpart:
+    the port keeps one unstacked pool per layer.
+
+    A float pool folds the source scale into the copied floats (in
+    float32, then cast to the pool dtype) and gives the copy a unit scale,
+    since the copier's later float writes store raw values under a unit
+    scale. Int pools copy bytes and scales verbatim. Returns ``pool``."""
+    if pool_container(pool) == "fp":
+        for pk, sk in (("k_pages", "k_scale"), ("v_pages", "v_scale")):
+            pages, scale = pool[pk], pool[sk]
+            vals = pages[src].to(torch.float32) * scale[src]
+            pages[dst] = vals.to(pages.dtype)
+            scale[dst] = 1.0
+        return pool
+    for t in pool.values():
+        t[dst] = t[src]
+    return pool
+
+
 def pool_container(pool) -> str:
     """Container name of a pool dict, inferred from the stored dtype."""
     dt = pool["k_pages"].dtype
@@ -311,11 +439,30 @@ def pool_bytes(pool) -> int:
     return sum(t.numel() * t.element_size() for t in pool.values())
 
 
+# ---------------------------------------------------------------------------
+# Full-model cache traversal
+# ---------------------------------------------------------------------------
+def iter_kv_pools(caches) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yield every paged pool of a model's cache
+    (:func:`models.transformer.init_cache`'s per-layer list), in layer
+    order; dense slabs are skipped. The port has no scan-stacked pools, so
+    unlike the reference it yields no page axis."""
+    for entry in caches:
+        if isinstance(entry, dict) and "k_pages" in entry:
+            yield entry
+
+
+def map_kv_pools(caches, fn):
+    """A model cache with every paged pool replaced by ``fn(pool)``; other
+    entries pass through. Order as :func:`iter_kv_pools`."""
+    return [fn(c) if isinstance(c, dict) and "k_pages" in c else c
+            for c in caches]
+
+
 def caches_kv_bytes(caches) -> Dict[str, int]:
-    """Device bytes of every layer's pool, split per container. ``caches``
-    is the port's per-layer list of pool dicts."""
+    """Device at-rest bytes of every paged pool, split per container."""
     out: Dict[str, int] = {}
-    for pool in caches:
+    for pool in iter_kv_pools(caches):
         cont = pool_container(pool)
         out[cont] = out.get(cont, 0) + pool_bytes(pool)
     return out

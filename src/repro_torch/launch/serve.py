@@ -30,6 +30,22 @@ write harmlessly (their own dense row, or the scratch page).
   reads the pool through the dense gather (the reference route).
 * Decode runs in spans between slot events; next-token ids stay on the
   device within a span and come to the host once, at its end.
+* Prefix sharing (``prefix_cache="on"``, paged only): prompts are indexed
+  page by page in a radix trie (``core.prefix_cache``); a new request
+  aliases the fully matched pages, copies the page it diverges inside
+  (copy-on-write) and prefills only its suffix. Same-wave prompts that
+  share full pages alias the first one's fresh pages (wave dedupe).
+  Unreferenced cached pages are evicted least recently used first under
+  pool pressure.
+* Per-page scales (``kv_scale="page"``): each page's dequant scale is the
+  max-abs of what was written to it, raised (and the page requantized) in
+  place; such pages are shared only once full.
+* Per-layer KV profile (``kv_profile``, a ``PrecisionPolicy``): each layer
+  stores int4 pages for <= 4 data bits, int8 for <= 8, float pages for a
+  float layer.
+* ``metrics="on"`` records request-lifecycle spans on ``self.tracer``
+  (Chrome trace JSON, ``slo_summary``); ``snapshot_out`` streams registry
+  snapshots as JSONL.
 
 Options of the reference that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -40,6 +56,9 @@ Options of the reference that are not ported yet raise
       --kv-bits 8                                    # dense cache
   python -m repro_torch.launch.serve --arch qwen2-72b --num-layers 8 \\
       --page-size 16 --kv-bits 8 --attn-impl kernel --fused on
+  python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
+      --page-size 8 --kv-bits 8 --prefix-cache on --kv-scale page \\
+      --trace-out trace.json
 """
 from __future__ import annotations
 
@@ -55,14 +74,16 @@ from .. import resolve_device
 from ..configs.registry import get_config, get_smoke_config
 from ..core.fixedpoint import FixedPointFormat
 from ..core.paged_kv import (SCRATCH_PAGE, OutOfPagesError, PageAllocator,
-                             PagedCacheSpec, caches_kv_bytes,
-                             max_pages_per_seq)
-from ..core.policy import PrecisionPolicy
+                             PagedCacheSpec, caches_kv_bytes, copy_pool_pages,
+                             map_kv_pools, max_pages_per_seq)
+from ..core.policy import LayerPolicy, PrecisionPolicy
+from ..core.prefix_cache import PrefixCache
 from ..models.attention import ATTN_IMPLS
 from ..models.transformer import init_cache, init_model
-from ..quant.apply import build_model_quant, transformer_layer_names
-from ..runtime.telemetry import (MetricsRegistry, SLOMonitor, make_tracer,
-                                 metric_attr)
+from ..quant.apply import (build_model_quant, kv_profile_key,
+                           transformer_layer_names)
+from ..runtime.telemetry import (MetricsRegistry, MetricsSnapshotter,
+                                 SLOMonitor, make_tracer, metric_attr)
 from .steps import make_chunk_prefill_step, make_decode_step, \
     make_fused_step
 
@@ -85,18 +106,34 @@ def _pow2_bucket(n: int, cap: int) -> int:
     return min(cap, 1 << max(0, n - 1).bit_length())
 
 
+def _shared_page_tokens(a: np.ndarray, b: np.ndarray, ps: int) -> int:
+    """The common prefix of two prompts that both requests write (each
+    writes prompt[:-1]), rounded down to full ``ps``-token pages: the span
+    one admission-wave prompt can alias off another's fresh pages."""
+    n = min(len(a), len(b)) - 1
+    if n <= 0:
+        return 0
+    eq = a[:n] == b[:n]
+    common = n if eq.all() else int(np.argmin(eq))
+    return (common // ps) * ps
+
+
 @dataclasses.dataclass
 class _PrefillJob:
-    """One planned bucketed prefill (slot already reserved): feed
-    ``req.prompt[start:-1]`` into the pool. ``done`` counts written tokens
-    across the batched rounds; ``finished`` flips once the slot's clock and
-    token are final."""
+    """One planned bucketed prefill (slot already reserved or aliased):
+    feed ``req.prompt[start:-1]`` into the pool. ``done`` counts written
+    tokens across the batched rounds; ``finished`` flips once the slot's
+    clock and token are final. ``wait_for = (leader_job, shared)`` marks a
+    wave-dedupe follower: it sits out rounds until the leader has written
+    through token ``shared``, then aliases the leader's pages for
+    [start, shared) and jumps ``start`` there."""
 
     slot: int
     req: Request
     start: int
     done: int = 0
     finished: bool = False
+    wait_for: Optional[tuple] = None
 
     @property
     def total(self) -> int:
@@ -131,7 +168,10 @@ class BatchedServer:
     "stepwise" = the token-at-a-time reference. ``prefill_batch`` caps
     how many same-bucket prompts stack into one prefill forward (0 = the
     batch size). ``fused="on"`` runs one ragged program per scheduler
-    cycle (needs bucketed prefill).
+    cycle (needs bucketed prefill). ``prefix_cache``, ``kv_scale``,
+    ``kv_profile`` (with ``kv_profile_scan``, "group" or "unroll": one
+    per-layer loop in the port either way) and ``metrics`` (with
+    ``snapshot_out``/``snapshot_every``) are as in the module docstring.
     """
 
     prefill_forwards = metric_attr("serve.prefill_forwards")
@@ -140,7 +180,9 @@ class BatchedServer:
     decode_steps = metric_attr("serve.decode_steps")
     program_launches = metric_attr("serve.program_launches")
     cycles = metric_attr("serve.cycles")
+    wave_dedup_pages = metric_attr("serve.wave_dedup_pages")
     _gen_tokens = metric_attr("serve.gen_tokens")
+    prefix_hit_tokens = metric_attr("serve.prefix_hit_tokens")
     prefill_forwards_saved = metric_attr("serve.prefill_forwards_saved")
 
     def __init__(self, cfg, model, *, batch_size: int, max_len: int,
@@ -150,19 +192,15 @@ class BatchedServer:
                  prefill_bucket: int = 32, prefill_batch: int = 0,
                  kv_profile: Optional[PrecisionPolicy] = None,
                  kv_scale: str = "static", prefix_cache: str = "off",
+                 kv_profile_scan: str = "group",
                  kv_offload: str = "none", sched: str = "fifo",
                  kv_adapt: str = "off", fused: str = "off",
-                 metrics: str = "off", tp: int = 1, device="cuda"):
+                 metrics: str = "off", snapshot_out: Optional[str] = None,
+                 snapshot_every: int = 50, tp: int = 1, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lies on {model.device}, server asked "
                              f"for {self.device}")
-        if prefix_cache != "off":
-            raise _not_ported("--prefix-cache on", "8")
-        if kv_scale != "static":
-            raise _not_ported("--kv-scale page", "8")
-        if kv_profile is not None:
-            raise _not_ported("--kv-profile", "8")
         if kv_offload != "none":
             raise _not_ported("--kv-offload host", "9")
         if sched != "fifo":
@@ -189,6 +227,24 @@ class BatchedServer:
                              "(--page-size > 0); use prefill='stepwise'")
         self.prefill_mode = ("bucketed" if self.paged and prefill != "stepwise"
                              else "stepwise")
+        if kv_scale not in ("static", "page"):
+            raise ValueError(f"kv_scale must be 'static' or 'page', "
+                             f"got {kv_scale!r}")
+        if kv_scale == "page" and not (self.paged
+                                       and (kv_bits or kv_profile)):
+            raise ValueError("--kv-scale page calibrates per-page dequant "
+                             "scales; it needs a quantized paged cache "
+                             "(--page-size > 0 and --kv-bits/--kv-profile)")
+        self.kv_scale = kv_scale
+        if prefix_cache not in ("on", "off"):
+            raise ValueError(f"prefix_cache must be 'on' or 'off', "
+                             f"got {prefix_cache!r}")
+        if prefix_cache == "on" and not self.paged:
+            raise ValueError("--prefix-cache on shares pool pages; it needs "
+                             "--page-size > 0")
+        if kv_profile_scan not in ("group", "unroll"):
+            raise ValueError(f"kv_profile_scan must be 'group' or 'unroll', "
+                             f"got {kv_profile_scan!r}")
         if fused not in ("on", "off"):
             raise ValueError(f"fused must be 'on' or 'off', got {fused!r}")
         if fused == "on" and self.prefill_mode != "bucketed":
@@ -201,6 +257,9 @@ class BatchedServer:
             raise ValueError("prefill_batch must be >= 0 (0 = auto)")
         self.metrics = MetricsRegistry()
         self.tracer = make_tracer(metrics)
+        self._snapshotter = (MetricsSnapshotter(self.metrics, snapshot_out,
+                                                every=snapshot_every)
+                             if snapshot_out else None)
         self._clock = 0
         self.cfg = cfg
         self.model = model
@@ -211,7 +270,25 @@ class BatchedServer:
         self.prefill_batch = prefill_batch
         self.slo_monitor = SLOMonitor(self.metrics)
         self.quant = None
-        if kv_bits:
+        if kv_profile is not None:
+            if kv_bits:
+                raise ValueError("--kv-profile supersedes --kv-bits; "
+                                 "pass only one")
+            if not self.paged:
+                raise ValueError("--kv-profile (per-layer KV containers) "
+                                 "needs a paged cache and an attention-only "
+                                 "arch")
+            # serving quantizes the cache only: the data formats pick the
+            # containers, and weight formats (a search's output has them)
+            # are dropped
+            kv_profile = PrecisionPolicy(
+                kv_profile.names,
+                tuple(LayerPolicy(None, lp.data) for lp in kv_profile.layers))
+            self.quant = build_model_quant(
+                kv_profile, cfg, quantize_kv=True,
+                quantize_activations=False, per_layer_kv=True,
+                kv_scale_mode=kv_scale)
+        elif kv_bits:
             # dense slabs store int8 at every width; pages pack <= 4 bits
             container = "int4" if (self.paged and kv_bits <= 4) else "int8"
             pol = PrecisionPolicy.uniform(transformer_layer_names(cfg), None,
@@ -220,6 +297,10 @@ class BatchedServer:
                                            quantize_activations=False,
                                            kv_container=container,
                                            kv_scale_mode=kv_scale)
+        # pages are shared only between identically quantized configs:
+        # the prefix cache namespaces its trie by this key
+        self.profile_key = kv_profile_key(kv_profile, kv_bits=kv_bits,
+                                          kv_scale_mode=kv_scale)
         self.decode = make_decode_step(cfg, quant=self.quant,
                                        attn_impl=attn_impl)
         self._chunk_prefill = (
@@ -240,6 +321,7 @@ class BatchedServer:
 
         self.page_size = page_size
         spec = None
+        self.prefix_cache: Optional[PrefixCache] = None
         if self.paged:
             self.np_max = max_pages_per_seq(max_len, page_size)
             if num_pages is None:
@@ -253,6 +335,14 @@ class BatchedServer:
             self.slot_reserved = [0] * batch_size  # worst-case page demand
             self._pt_dev = _upload(self.page_table, self.device)
             self._pt_dirty = False
+            if prefix_cache == "on":
+                self.prefix_cache = PrefixCache(self.allocator, page_size,
+                                                self.profile_key,
+                                                metrics=self.metrics,
+                                                tracer=self.tracer)
+                # pool pressure evicts cold cached prefixes before an
+                # allocation fails
+                self.allocator.reclaim = self.prefix_cache.evict
         self.caches = init_cache(cfg, self.quant, spec, self.device,
                                  batch=batch_size, max_len=max_len)
         self.slots: List[Optional[Request]] = [None] * batch_size
@@ -265,8 +355,10 @@ class BatchedServer:
         self.decode_steps = 0
         self.program_launches = 0   # every forward executed
         self.cycles = 0             # scheduler cycles (decode span steps)
+        self.wave_dedup_pages = 0   # pages aliased off a same-wave leader
         self._gen_tokens = 0        # generated tokens (all run() calls)
-        self.prefill_forwards_saved = 0   # forwards a shorter suffix saved
+        self.prefix_hit_tokens = 0        # prompt tokens served from cache
+        self.prefill_forwards_saved = 0   # forwards prefix hits avoided
         self.rejected: List[Request] = []
         if self.paged:
             reg = self.metrics.register_gauge
@@ -279,6 +371,14 @@ class BatchedServer:
     def _ensure_page(self, slot: int, position: int):
         """Allocate pages so logical ``position`` of ``slot`` is backed."""
         blk = position // self.page_size
+        if self.kv_scale == "page" and blk < len(self.slot_pages[slot]):
+            # the page-scale sharing contract
+            # (core.paged_kv._paged_update_page_scale): a scale raise
+            # rewrites the page in place, so a write target must be this
+            # slot's alone; _cache_insert never shares a page its owner
+            # still writes, so a violation is a refcount bug
+            assert self.allocator.refcount(self.slot_pages[slot][blk]) == 1, \
+                "page-scale write into a CoW-shared page"
         while len(self.slot_pages[slot]) <= blk:
             page = self.allocator.alloc()
             self.page_table[slot, len(self.slot_pages[slot])] = page
@@ -324,19 +424,21 @@ class BatchedServer:
         self.prefill_forwards += 1
         self.program_launches += 1
 
-    def _prefill_slot(self, slot: int, req: Request):
-        """Feed prompt[:-1] through shared decode steps, leaving the last
-        prompt token in ``tokens`` for the decode loop. Other slots rewrite
-        their current position with identical values."""
+    def _prefill_slot(self, slot: int, req: Request, start: int = 0):
+        """Feed prompt[start:-1] through shared decode steps, leaving the
+        last prompt token in ``tokens`` for the decode loop (``start`` > 0:
+        a prefix hit already backs positions [0, start)). Other slots
+        rewrite their current position with identical values."""
         t0 = time.perf_counter()
-        self.pos[slot] = 0
-        for t in req.prompt[:-1]:
+        self.pos[slot] = start
+        for t in req.prompt[start:-1]:
             if self.paged:
                 self._ensure_page(slot, int(self.pos[slot]))
             self.tokens[slot] = int(t)
             self._sync_step()
             self.pos[slot] += 1
         self.tokens[slot] = int(req.prompt[-1])
+        self.prefill_forwards_saved += start
         self.prefill_s += time.perf_counter() - t0
         self.prefill_tokens += len(req.prompt)
         self.slot_gen[slot] = 0
@@ -352,6 +454,64 @@ class BatchedServer:
     # -- batched bucketed prefill -------------------------------------------
     def _prefill_group_cap(self) -> int:
         return self.prefill_batch or self.B
+
+    def _plan_wave_dedupe(self, pending: List[_PrefillJob]) -> None:
+        """Pair each wave job with the earlier same-wave job (leader) whose
+        prompt shares the most full pages beyond the job's own prefix hit;
+        the follower waits (``wait_for``) until the leader has written
+        through the shared span, then :meth:`_apply_wave_aliases` aliases
+        those pages, so their forwards run once per wave. A follower must
+        start page-aligned, with a leader that starts at or below it, and
+        only fully written pages are aliased (the leader never writes them
+        again, which keeps the page-scale sharing contract)."""
+        ps = self.page_size
+        leaders: List[_PrefillJob] = []
+        for job in pending:
+            best, best_shared = None, job.start
+            if job.done == 0 and job.start % ps == 0:
+                for lead in leaders:
+                    if lead.start > job.start:
+                        continue
+                    shared = _shared_page_tokens(lead.req.prompt,
+                                                 job.req.prompt, ps)
+                    if shared > best_shared:
+                        best, best_shared = lead, shared
+            if best is not None:
+                job.wait_for = (best, best_shared)
+            else:
+                leaders.append(job)
+
+    def _apply_wave_aliases(self, pending: List[_PrefillJob]) -> None:
+        """Unblock followers whose leader has written through the shared
+        span: one incref per leader page for [start, shared) into the
+        follower's table, no forward, and ``start`` jumps to ``shared``.
+        Runs at every round boundary, so a leader that just finished its
+        prefill unblocks its followers before it can retire."""
+        ps = self.page_size
+        for job in pending:
+            if job.wait_for is None or job.finished:
+                continue
+            lead, shared = job.wait_for
+            if lead.start + lead.done < shared:
+                continue
+            b0, b1 = job.start // ps, shared // ps
+            assert len(self.slot_pages[job.slot]) == b0, \
+                "wave-dedupe follower holds pages past its start"
+            chunks_before = self._n_chunks(job.total)
+            for b in range(b0, b1):
+                page = self.slot_pages[lead.slot][b]
+                self.allocator.incref(page)   # the follower's reference
+                self.page_table[job.slot, b] = page
+                self.slot_pages[job.slot].append(page)
+            self._pt_dirty = True
+            job.start = shared
+            job.wait_for = None
+            self.pos[job.slot] = shared
+            self.wave_dedup_pages += b1 - b0
+            self.prefill_forwards_saved += (chunks_before
+                                            - self._n_chunks(job.total))
+            if job.total == 0:
+                self._finish_job(job)
 
     def _prefill_group(self, rows: List[_PrefillJob], bucket: int):
         """ONE batched prefill forward: each row's next ``bucket``-sized
@@ -373,7 +533,9 @@ class BatchedServer:
             pts[r] = self.page_table[job.slot]
         dev = self.device
         # private host arrays nobody mutates later: plain blocking copies
-        with self.tracer.span("prefill_chunk"):
+        with self.tracer.span("prefill_chunk",
+                              args={"rows": n, "bucket": bucket,
+                                    "step": self._clock}):
             self.caches = self._chunk_prefill(
                 self.model, torch.from_numpy(chunk).to(dev),
                 torch.from_numpy(starts).to(dev),
@@ -387,9 +549,12 @@ class BatchedServer:
 
     def _finish_job(self, job: _PrefillJob):
         """Seal a prefilled slot: clock at the last prompt token, which the
-        decode loop consumes."""
+        decode loop consumes, and its fresh pages indexed in the prefix
+        cache."""
         self.pos[job.slot] = len(job.req.prompt) - 1
         self.tokens[job.slot] = int(job.req.prompt[-1])
+        if self.prefix_cache is not None:
+            self._cache_insert(job.slot, job.req)
         job.finished = True
 
     def _rollback_admission(self, job: _PrefillJob, err) -> None:
@@ -418,9 +583,14 @@ class BatchedServer:
         cap = self._prefill_group_cap()
         try:
             pending = self._start_jobs(jobs)
+            if self.prefix_cache is not None and cap > 1:
+                # same-wave sharing: followers alias a leader's fresh pages
+                self._plan_wave_dedupe(pending)
             while pending:
                 groups = {}
                 for job in pending:
+                    if job.wait_for is not None:
+                        continue        # follower: leader still writing
                     b = _pow2_bucket(job.total - job.done,
                                      self.prefill_bucket)
                     groups.setdefault(b, []).append(job)
@@ -428,9 +598,12 @@ class BatchedServer:
                     grp = groups[bucket]
                     for k in range(0, len(grp), cap):
                         self._prefill_group(grp[k:k + cap], bucket)
+                self._apply_wave_aliases(pending)
                 nxt = []
                 for job in pending:
-                    if job.done >= job.total:
+                    if job.finished:
+                        continue        # the alias jump covered the job
+                    if job.wait_for is None and job.done >= job.total:
                         self._finish_job(job)
                     else:
                         nxt.append(job)
@@ -453,7 +626,7 @@ class BatchedServer:
                 self._n_chunks(len(job.req.prompt) - 1)
                 - self._n_chunks(job.total))
             if job.total == 0:
-                self._finish_job(job)   # 1-token prompt
+                self._finish_job(job)   # full-chain hit / 1-token prompt
             else:
                 pending.append(job)
         return pending
@@ -465,8 +638,9 @@ class BatchedServer:
         bucket, tail masked through valid_len) and every OTHER live slot
         decodes one token in the same launch. Returns the jobs still
         pending after the round."""
+        ready = [j for j in pending if j.wait_for is None]
         bucket = max(_pow2_bucket(j.total - j.done, self.prefill_bucket)
-                     for j in pending)
+                     for j in ready)
         prefilling = {j.slot for j in pending}
         decode = [i for i in range(self.B) if self.slots[i] is not None
                   and i not in prefilling]
@@ -475,7 +649,7 @@ class BatchedServer:
         valids = np.ones((self.B,), np.int32)
         emit = np.zeros((self.B,), np.int32)   # fixed shape; the host
         #                                        discards padding entries
-        for j in pending:
+        for j in ready:
             off = j.start + j.done
             toks = j.req.prompt[off:len(j.req.prompt) - 1]
             valid = min(bucket, len(toks))
@@ -488,10 +662,23 @@ class BatchedServer:
             tokens[i, 0] = self.tokens[i]
             starts[i] = self.pos[i]
             emit[k] = i
-        pt = self._page_table_dev()
+        waiting = [j.slot for j in pending if j.wait_for is not None]
+        if waiting:
+            # a waiting follower's row writes its default (token 0 at
+            # position 0); its table may already alias cached prefix pages
+            # (a page-aligned hit), so the round gives it the scratch page
+            table = self.page_table.copy()
+            table[waiting, :] = SCRATCH_PAGE
+            pt = _upload(table, self.device)
+        else:
+            pt = self._page_table_dev()
         dev = self.device
         # private host arrays nobody mutates later: plain blocking copies
-        with self.tracer.span("fused_round"):
+        with self.tracer.span("fused_round",
+                              args={"bucket": bucket,
+                                    "prefill_rows": len(ready),
+                                    "decode_rows": len(decode),
+                                    "step": self._clock}):
             nxt, _, self.caches = self._fused(
                 self.model, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(starts).to(dev),
@@ -500,15 +687,18 @@ class BatchedServer:
         self.program_launches += 1
         self.cycles += 1
         self.prefill_forwards += 1
-        for j in pending:
+        for j in ready:
             j.done += int(valids[j.slot])
             self.pos[j.slot] = j.start + j.done
         still = []
         for j in pending:
-            if j.done >= j.total:
+            if j.wait_for is None and j.done >= j.total:
                 self._finish_job(j)     # decode-eligible next round
             else:
                 still.append(j)
+        # unblock followers before a retirement can free a leader's pages
+        self._apply_wave_aliases(still)
+        still = [j for j in still if not j.finished]
         if decode:
             arr = nxt.cpu().numpy()
             self.decode_steps += 1
@@ -541,6 +731,8 @@ class BatchedServer:
         t0 = time.perf_counter()
         try:
             pending = self._start_jobs(jobs)
+            if self.prefix_cache is not None:
+                self._plan_wave_dedupe(pending)
             while pending:
                 pending = self._fused_round(pending)
         except OutOfPagesError as err:
@@ -551,56 +743,126 @@ class BatchedServer:
         finally:
             self.prefill_s += time.perf_counter() - t0
 
+    # -- prefix sharing -----------------------------------------------------
+    def _copy_pool_pages(self, src: int, dst: int):
+        """Copy page ``src`` -> ``dst`` in every layer's pool (one page-id
+        space across layers: copy-on-write of a partly shared page)."""
+        self.caches = map_kv_pools(
+            self.caches, lambda pool: copy_pool_pages(pool, src, dst))
+
+    def _cache_insert(self, slot: int, req: Request):
+        """Index the request's prefilled prompt pages (tokens [0, P-1)) in
+        the prefix cache; chunks already cached dedupe. In page-scale mode
+        the partial tail page is left out: its owner keeps writing it, and
+        a scale raise rewrites it in place under any reader (the sharing
+        contract). Static mode shares the tail safely: later writes land
+        past every sharer's valid length."""
+        n_tok = len(req.prompt) - 1
+        if self.kv_scale == "page":
+            n_tok = (n_tok // self.page_size) * self.page_size
+        if n_tok <= 0:
+            return
+        n_pages = -(-n_tok // self.page_size)
+        self.prefix_cache.insert(req.prompt[:n_tok],
+                                 self.slot_pages[slot][:n_pages])
+
     # -- admission ----------------------------------------------------------
     def _admission_plan(self, req: Request):
         """Preflight one request against the pool: ``(verdict, info)`` with
-        verdict in {"admit", "defer", "reject"}. The worst-case demand is
-        checked against the free list less outstanding reservations, so
-        ``_ensure_page`` can never find the free list empty mid-run."""
+        verdict in {"admit", "defer", "reject"}. The worst-case demand, less
+        the fully matched cached pages of a prefix hit, is checked against
+        the free list less outstanding reservations, plus the cached pages
+        eviction could free, so ``_ensure_page`` can never find the free
+        list empty mid-run. On "admit" the hit's chain is pinned
+        (``info["hit"]``) until ``_do_admit`` unpins it; a request that
+        is deferred or rejected leaves nothing pinned. Malformed requests
+        raise before any pin."""
         if len(req.prompt) == 0:
             raise ValueError(f"request {req.rid} has an empty prompt")
         if len(req.prompt) >= self.max_len:
             raise ValueError(f"request {req.rid} prompt length "
                              f"{len(req.prompt)} >= max_len {self.max_len}")
         if not self.paged:
-            return "admit", {"total": 0}
+            return "admit", {"hit": None, "total": 0}
         total = self._pages_needed(req)
+        hit = None
+        need_new = total
+        if self.prefix_cache is not None:
+            # record=False: a deferred request retries this lookup every
+            # span; the hit rate counts once, at admission
+            hit = self.prefix_cache.lookup(req.prompt[:-1], record=False)
+            self.prefix_cache.pin(hit)
+            need_new = total - len(hit.nodes)
         avail = self.allocator.num_free - self._outstanding_reservation()
-        if total <= avail:
-            return "admit", {"total": total}
-        if (total > self.allocator.num_usable
+        evictable = 0
+        if need_new > avail and self.prefix_cache is not None:
+            evictable = self.prefix_cache.evictable_pages()
+            avail += evictable
+        if need_new <= avail:
+            return "admit", {"hit": hit, "total": total,
+                             "need_new": need_new}
+        if hit is not None:
+            self.prefix_cache.unpin(hit)
+        if (need_new > self.allocator.num_usable
                 or not any(s is not None for s in self.slots)):
             written = len(set().union(*map(set, self.slot_pages)))
             err = OutOfPagesError(
-                needed=total, free=self.allocator.num_free,
+                needed=need_new, free=self.allocator.num_free,
                 total=self.allocator.num_usable, rid=req.rid,
-                reserved=self._outstanding_reservation(), written=written)
+                reserved=self._outstanding_reservation(), written=written,
+                evictable=evictable)
             return "reject", {"err": err}
-        return "defer", {"total": total}
+        return "defer", {"total": total, "need_new": need_new}
 
     def _do_admit(self, i: int, req: Request, info: dict,
                   jobs: List[_PrefillJob]):
-        """Claim free slot ``i`` for ``req`` and stage its prefill: bucketed
-        prefills are appended to ``jobs`` and run batched (or fused) at the
-        end of the admission cycle (or at once with ``prefill_batch=1``);
-        a dense cache prefills the slot stepwise, here."""
+        """Claim free slot ``i`` for ``req``: alias the pinned prefix chain,
+        copy a page the prompt diverges inside, and stage the suffix's
+        prefill. Bucketed prefills are appended to ``jobs`` and run batched
+        (or fused) at the end of the admission cycle (at once with
+        ``prefill_batch=1``, so the next admission can alias them); a dense
+        cache or stepwise mode prefills the slot here."""
         self.tracer.req_admit(req.rid, self._clock)
         if not self.paged:
             self._prefill_slot(i, req)
             self.slots[i] = req
             return
+        hit = info["hit"]
         self.slot_reserved[i] = info["total"]
+        start = 0
+        if hit is not None:
+            for j, node in enumerate(hit.nodes):
+                self.allocator.incref(node.page)   # the slot's alias
+                self.page_table[i, j] = node.page
+                self.slot_pages[i].append(node.page)
+                self._pt_dirty = True
+            start = len(hit.nodes) * self.page_size
+            if hit.cow_node is not None and hit.cow_valid > 0:
+                # divergence inside a shared page: a private copy
+                src = hit.cow_node.page
+                dst = self.allocator.alloc()   # the reclaim hook may evict
+                self.page_table[i, len(hit.nodes)] = dst
+                self.slot_pages[i].append(dst)
+                self._pt_dirty = True
+                self._copy_pool_pages(int(src), int(dst))
+                self.prefix_cache.cow_copies += 1
+                start += hit.cow_valid
+            self.prefix_cache.unpin(hit)
+            self.prefix_cache.note_lookup(len(req.prompt) - 1, start)
+            self.prefix_hit_tokens += start
         self.slots[i] = req
-        self.pos[i] = 0
+        self.pos[i] = start
         self.slot_gen[i] = 0
         if self.prefill_mode == "bucketed":
-            job = _PrefillJob(i, req, 0)
+            job = _PrefillJob(i, req, start)
             if self.fused or self._prefill_group_cap() > 1:
                 jobs.append(job)
             else:
                 self._run_prefills([job])
         else:
-            self._prefill_slot(i, req)
+            self._prefill_slot(i, req, start)
+            if self.prefix_cache is not None:
+                self._cache_insert(i, req)
 
     def _reject(self, queue: List[Request], idx: int, err) -> None:
         """Drop a never-fit request from the queue; the error is recorded
@@ -639,13 +901,15 @@ class BatchedServer:
             return
         self.metrics.histogram("sched.queue_depth").observe(len(queue))
         self.slo_monitor.note_queue_depth(len(queue))
-        jobs: List[_PrefillJob] = []
-        self._admit_fifo(queue, jobs)
-        if jobs:
-            if self.fused:
-                self._run_fused_rounds(jobs)
-            else:
-                self._run_prefills(jobs)
+        with self.tracer.span("admission", args={"queued": len(queue),
+                                                 "step": self._clock}):
+            jobs: List[_PrefillJob] = []
+            self._admit_fifo(queue, jobs)
+            if jobs:
+                if self.fused:
+                    self._run_fused_rounds(jobs)
+                else:
+                    self._run_prefills(jobs)
 
     # -- decode -------------------------------------------------------------
     def _run_span(self) -> int:
@@ -689,10 +953,44 @@ class BatchedServer:
                   f"fused={'on' if self.fused else 'off'}, "
                   f"{self.program_launches} programs / {self.cycles} "
                   f"cycles, device={self.device})")
+            if self.prefix_cache is not None:
+                s = self.prefix_cache.stats()
+                print(f"[serve] prefix cache: {s['hits']}/{s['lookups']} "
+                      f"hits, {s['hit_tokens']} tokens reused, "
+                      f"{self.prefill_forwards_saved} prefill forwards "
+                      f"saved, {s['cow_copies']} CoW copies, "
+                      f"{s['cached_pages']} pages cached "
+                      f"({s['evictions']} evicted)")
         new_rejects = self.rejected[rejected0:]
         if new_rejects:
             raise new_rejects[0].error
         return requests
+
+    def release_prefix_cache(self) -> int:
+        """Drop every unreferenced cached prefix page back to the free
+        list. Returns the pages the cache still holds: 0 once every request
+        has finished, anything else is a refcount leak."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.clear()
+
+    def kv_inventory(self) -> dict:
+        """The KV store's bytes per container and page counts, with the
+        reference's keys. Scalars read the registered ``kv.*`` gauges, so
+        this dict and the snapshot stream share one schema; the host-tier
+        and quant-tier entries (ROADMAP queue A item 9) stay 0."""
+        inv = {"device_bytes": 0, "device_by_container": {},
+               "device_pages_free": 0, "device_pages_usable": 0,
+               "host_bytes": 0, "host_pages": 0, "host_by_container": {},
+               "tier_bytes": 0, "tier_pages": 0, "tier_by_container": {}}
+        if self.paged:
+            g = self.metrics.gauge
+            inv.update(
+                device_bytes=g("kv.device_bytes").value,
+                device_by_container=caches_kv_bytes(self.caches),
+                device_pages_free=g("kv.device_pages_free").value,
+                device_pages_usable=g("kv.device_pages_usable").value)
+        return inv
 
 
 class ServeLoop:
@@ -750,7 +1048,9 @@ class ServeLoop:
         live_mask_dev = _upload(live_mask, dev)
         live_inc = live_mask_dev.to(torch.int32)
         fetches, owners = [], []
-        with srv.tracer.span("decode_span"):
+        with srv.tracer.span("decode_span",
+                             args={"steps": span, "rows": len(live),
+                                   "step": clock}):
             for _ in range(span):
                 if srv.paged:
                     for i in live:
@@ -799,6 +1099,8 @@ class ServeLoop:
                 srv._note_finish(req, clock + span)
         self.clock = clock + span
         srv.slo_monitor.advance(span)
+        if srv._snapshotter is not None:
+            srv._snapshotter.maybe_emit(srv.cycles)
         return True
 
 
@@ -835,19 +1137,46 @@ def main(argv=None):
                          "scheduler cycle (prefill chunks and decode tokens "
                          "in one forward); needs --page-size > 0 and "
                          "bucketed prefill")
-    ap.add_argument("--kv-profile", default="")
+    ap.add_argument("--kv-profile", default="",
+                    help="path to a PrecisionPolicy JSON: per-layer KV "
+                         "containers (int4 pages for <= 4 data bits, int8 "
+                         "for <= 8, float pages for float layers); needs "
+                         "--page-size > 0, supersedes --kv-bits")
+    ap.add_argument("--kv-profile-scan", choices=["group", "unroll"],
+                    default="group",
+                    help="the reference's two lowerings of the per-layer "
+                         "forward; the port runs one per-layer loop for "
+                         "both")
     ap.add_argument("--kv-scale", choices=["static", "page"],
-                    default="static")
-    ap.add_argument("--prefix-cache", choices=["on", "off"], default="off")
+                    default="static",
+                    help="paged dequant scales: static = the layer's Q(I,F) "
+                         "grid; page = per-page max-abs calibration")
+    ap.add_argument("--prefix-cache", choices=["on", "off"], default="off",
+                    help="share page-aligned common prompt prefixes across "
+                         "requests (refcounted aliasing, copy-on-write, LRU "
+                         "eviction under pool pressure)")
     ap.add_argument("--kv-offload", choices=["none", "host"], default="none")
     ap.add_argument("--kv-adapt", choices=["off", "on"], default="off")
     ap.add_argument("--sched", choices=["fifo", "slo"], default="fifo")
-    ap.add_argument("--metrics", choices=["off", "on"], default="off")
+    ap.add_argument("--metrics", choices=["off", "on"], default="off",
+                    help="on = record request-lifecycle spans and print an "
+                         "SLO summary (p50/p99 TTFT and TPOT, goodput); "
+                         "tokens are identical either way")
+    ap.add_argument("--trace-out", default="",
+                    help="path: write the request-lifecycle trace as Chrome "
+                         "trace-event JSON; implies --metrics on")
+    ap.add_argument("--metrics-out", default="",
+                    help="path: append a JSONL registry snapshot every "
+                         "--metrics-every scheduler cycles; implies "
+                         "--metrics on")
+    ap.add_argument("--metrics-every", type=int, default=50)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     args = ap.parse_args(argv)
+    if args.trace_out or args.metrics_out:
+        args.metrics = "on"
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.num_layers:
@@ -874,10 +1203,29 @@ def main(argv=None):
                         prefill_batch=args.prefill_batch,
                         kv_profile=kv_profile, kv_scale=args.kv_scale,
                         prefix_cache=args.prefix_cache,
+                        kv_profile_scan=args.kv_profile_scan,
                         kv_offload=args.kv_offload, sched=args.sched,
                         kv_adapt=args.kv_adapt, fused=args.fused,
-                        metrics=args.metrics, tp=args.tp, device=device)
+                        metrics=args.metrics,
+                        snapshot_out=args.metrics_out or None,
+                        snapshot_every=args.metrics_every, tp=args.tp,
+                        device=device)
     srv.run(reqs, verbose=True)
+    if args.metrics == "on":
+        slo = srv.tracer.slo_summary()
+        ttft, tpot = slo.get("ttft_p50_s"), slo.get("tpot_p50_s")
+        ttft99, goodput = slo.get("ttft_p99_s"), slo.get("goodput")
+        print(f"[serve] slo: "
+              f"goodput={'n/a' if goodput is None else format(goodput, '.3f')}"
+              f" ({slo['finished']}/{slo['requests']} finished, "
+              f"{slo['deadline_misses']} deadline misses), "
+              f"ttft p50={0.0 if ttft is None else ttft * 1e3:.1f}ms "
+              f"p99={0.0 if ttft99 is None else ttft99 * 1e3:.1f}ms, "
+              f"tpot p50={0.0 if tpot is None else tpot * 1e3:.2f}ms")
+    if args.trace_out:
+        srv.tracer.export_chrome(args.trace_out)
+        print(f"[serve] wrote {len(srv.tracer.events)} trace events to "
+              f"{args.trace_out}")
     for r in reqs[:4]:
         print(f"  req {r.rid}: {len(r.out)} tokens -> {r.out[:8]}...")
     return reqs

@@ -47,7 +47,14 @@ class ModelQuant:
 
     ``w_int``/``w_frac`` fake-quantize the weights and ``a_int``/``a_frac``
     the residual stream (None: off); ``kv_int``/``kv_frac`` give each
-    layer's KV grid (None: float KV) in the uniform ``kv_container``.
+    layer's KV grid (None: float KV) in the uniform ``kv_container``, or,
+    with ``kv_containers`` (a per-layer profile, paged caches only), in
+    each layer's own container, "fp" marking a layer that stores float
+    pages. ``kv_scale_mode`` ("static" | "page") picks the paged dequant
+    scale calibration. The reference's ``kv_unroll`` (its
+    ``--kv-profile-scan unroll``) picks one of two XLA lowerings of one
+    computation and has no counterpart: the port's forward is one
+    per-layer loop either way.
     Built from a PrecisionPolicy by
     ``repro_torch.quant.apply.build_model_quant``."""
 
@@ -58,14 +65,24 @@ class ModelQuant:
     kv_int: Optional[Tuple[int, ...]] = None
     kv_frac: Optional[Tuple[int, ...]] = None
     kv_container: str = "int8"
+    kv_containers: Optional[Tuple[str, ...]] = None
     kv_scale_mode: str = "static"
+
+    def layer_container(self, li: int) -> str:
+        """Layer ``li``'s KV container ("fp": float K/V)."""
+        if self.kv_int is None:
+            return "fp"
+        if self.kv_containers is not None:
+            return self.kv_containers[li]
+        return self.kv_container
 
     def layer_kv(self, li: int) -> Optional[KVQuantSpec]:
         """Layer ``li``'s KV spec (None: the layer stores float K/V)."""
-        if self.kv_int is None:
+        cont = self.layer_container(li)
+        if cont == "fp":
             return None
-        return KVQuantSpec(self.kv_int[li], self.kv_frac[li],
-                           self.kv_container, scale_mode=self.kv_scale_mode)
+        return KVQuantSpec(self.kv_int[li], self.kv_frac[li], cont,
+                           scale_mode=self.kv_scale_mode)
 
     def layer_weight(self, li: int) -> Optional[Tuple[int, int]]:
         """Layer ``li``'s weight (I, F), or None when weights stay float."""
@@ -241,9 +258,15 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
     """One cache per layer: paged pools sharing one page table when
     ``paged`` is given, else dense ``(batch, max_len)`` slabs. A quantized
     dense slab stores the int8/int16 grid of ``quant.kv_container`` (int4
-    raises: it exists only lane-packed in pages)."""
+    raises: it exists only lane-packed in pages). A per-layer profile
+    (``quant.kv_containers``) gives each layer a pool in its own
+    container, float pages for "fp" layers; it needs a paged cache."""
     if paged is None and (batch <= 0 or max_len <= 0):
         raise ValueError("a dense cache needs batch and max_len")
+    if (paged is None and quant is not None
+            and quant.kv_containers is not None):
+        raise ValueError("per-layer KV containers require a paged cache "
+                         "(--page-size > 0)")
     dev = resolve_device(device)
     return [init_block_cache(cfg, batch, max_len, cfg.torch_dtype,
                              quant.layer_kv(li) if quant is not None
@@ -285,7 +308,10 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
     ``attn_impl`` ("gather" | "kernel") picks the paged attention route
     for every chunk shape; ``kv_valid_len`` masks padded prefill chunk
     tails. ``quant`` fake-quantizes the embedding output with layer 0's
-    data format, then each block as :func:`block_apply`."""
+    data format, then each block as :func:`block_apply`; under a per-layer
+    KV profile each layer writes and reads its own pool at its own width
+    (both of the reference's ``kv_profile_scan`` lowerings are this one
+    per-layer loop)."""
     x = embed_tokens(model.embed, tokens)
     B, S = x.shape[0], x.shape[1]
     base = per_row(0 if cache_pos is None else cache_pos, B, x.device)

@@ -2,15 +2,15 @@
 
 * ``transformer_layer_names`` — the policy's layer-name space for an arch.
 * ``build_model_quant`` — policy -> :class:`ModelQuant`: per-layer weight,
-  residual-data and KV formats (uniform KV container).
+  residual-data and KV formats, in one uniform KV container or, with
+  ``per_layer_kv``, one container per layer (``--kv-profile``).
 * ``transformer_traffic_model`` — the paper's §2.4 access counting applied
   to a transformer workload (train / prefill / decode);
   ``policy_footprint_report`` prices a policy with it.
-* ``kv_profile_key`` — the canonical string of a KV quantization setup.
+* ``kv_layer_container`` — a layer's KV container under its data format;
+  ``kv_profile_key`` — the canonical string of a KV quantization setup
+  (the prefix cache's namespace).
 * ``quantize_param_tree`` — a dense model's weights as QuantizedTensors.
-
-Per-layer KV containers (``per_layer_kv``, ``--kv-profile``) are still to
-port (ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
@@ -50,25 +50,34 @@ def build_model_quant(policy: Optional[PrecisionPolicy], cfg,
     KV cache alone). The KV cache of layer i stores on the grid of the
     layer's data format clipped to the container width:
     ``tot = clip(I + F, 2, cap)``, ``I' = min(I, tot - 1)``,
-    ``F' = tot - I'`` (the reference's arithmetic, on python ints)."""
+    ``F' = tot - I'`` (the reference's arithmetic, on python ints).
+
+    ``per_layer_kv=True`` gives each layer its own container from its data
+    bits (:func:`kv_layer_container`: <= 4 bits "int4", <= 8 "int8", a
+    float layer "fp", whose pool stores float pages) and clips each
+    layer's grid to its container (cap 8 for "fp", whose grid is unused).
+    The reference's ``kv_unroll`` has no counterpart: it picks one of two
+    XLA lowerings, and the port's forward is one per-layer loop."""
     if policy is None:
         return None
     if len(policy) != cfg.num_layers:
         raise ValueError(f"policy has {len(policy)} layers, model has "
                          f"{cfg.num_layers}")
-    if per_layer_kv:
-        raise NotImplementedError(
-            "per-layer KV containers (--kv-profile) are not ported yet: "
-            "ROADMAP queue A item 8")
     w_i, w_f, w_en = policy.stacked_arrays("weight")
     a_i, a_f, a_en = policy.stacked_arrays("data")
     w_on = bool(w_en.any())
     act_on = quantize_activations and bool(a_en.any())
-    kv_int = kv_frac = None
+    kv_int = kv_frac = kv_containers = None
     if quantize_kv:
-        cap = {"int4": 4, "int8": 8, "int16": 16}[kv_container]
+        if per_layer_kv:
+            kv_containers = tuple(kv_layer_container(lp.data)
+                                  for lp in policy.layers)
+            caps = [{"int4": 4, "int8": 8, "fp": 8}[c] for c in kv_containers]
+        else:
+            caps = [{"int4": 4, "int8": 8, "int16": 16}[kv_container]] \
+                * len(policy)
         kv_int, kv_frac = [], []
-        for i, f in zip(_ints(a_i), _ints(a_f)):
+        for i, f, cap in zip(_ints(a_i), _ints(a_f), caps):
             tot = min(max(i + f, 2), cap)
             kv_int.append(min(i, tot - 1))
             kv_frac.append(tot - kv_int[-1])
@@ -79,7 +88,7 @@ def build_model_quant(policy: Optional[PrecisionPolicy], cfg,
         a_int=_ints(a_i) if act_on else None,
         a_frac=_ints(a_f) if act_on else None,
         kv_int=kv_int, kv_frac=kv_frac, kv_container=kv_container,
-        kv_scale_mode=kv_scale_mode)
+        kv_containers=kv_containers, kv_scale_mode=kv_scale_mode)
 
 
 def kv_layer_container(data_fmt) -> str:
@@ -91,8 +100,9 @@ def kv_layer_container(data_fmt) -> str:
 
 def kv_profile_key(policy: Optional[PrecisionPolicy], *,
                    kv_bits: int = 0, kv_scale_mode: str = "static") -> str:
-    """Canonical string identifying a KV quantization configuration (the
-    reference's prefix-cache namespace key)."""
+    """Canonical string identifying a KV quantization configuration. The
+    prefix cache namespaces its trie by it, so pages are shared only
+    between identically quantized configurations."""
     if policy is not None:
         per = ",".join(
             f"{kv_layer_container(lp.data)}"

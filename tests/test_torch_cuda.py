@@ -564,6 +564,187 @@ def test_cuda_fused_step_launches_b1_once_per_layer(cuda):
 
 
 # ---------------------------------------------------------------------------
+# B1 on the pools of the prefix cache, per-page scales and per-layer
+# profiles
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("container", ["int8", "int4"])
+def test_cuda_b1_on_page_scale_pools(cuda, container):
+    """``paged_update(scale_mode="page")`` on the card writes the CPU's
+    bytes and scales (pages 1..); after a write that raises a page's
+    scale (requantizing its earlier tokens in place), B1 equals its plain
+    version on the pool."""
+    from repro_torch.core import paged_kv as tpk
+    rng = np.random.default_rng(11)
+    kv, hd, ps, b = 8, 128, 16, 4
+    layout = tpk.PagedKVLayout(40, ps, kv, hd, container)
+    pools = {d: tpk.init_paged_pool(layout, torch.device(d))
+             for d in ("cpu", cuda)}
+    pt = torch.from_numpy(rng.permutation(np.arange(1, 37)).astype(
+        np.int32).reshape(b, 9))
+    raised = False
+    for pos, s, mag in ((0, 20, 0.05), (20, 9, 3.0), (29, 1, 5.0),
+                        (30, 1, 0.1)):
+        k = torch.from_numpy((rng.normal(size=(b, s, kv, hd)) * mag)
+                             .astype(np.float32))
+        v = torch.from_numpy((rng.normal(size=(b, s, kv, hd)) * mag)
+                             .astype(np.float32))
+        before = pools["cpu"]["k_scale"].clone()
+        for d, pool in pools.items():
+            tpk.paged_update(pool, k.to(d), v.to(d), pt.to(d), pos,
+                             page_size=ps, container=container,
+                             scale_mode="page")
+        raised |= bool((pools["cpu"]["k_scale"] > before)[1:].any()
+                       & (before[1:] != 1.0).any())
+        for name, t in pools[cuda].items():
+            assert torch.equal(t[1:].cpu(), pools["cpu"][name][1:]), name
+    assert raised
+    pool = pools[cuda]
+    used = pt.flatten().long()
+    assert torch.unique(pool["k_scale"][used.to(cuda)]).numel() >= 2
+    bits = {"int8": 8, "int4": 4}[container]
+    q = torch.from_numpy(rng.normal(size=(b, 1, kv * 8, hd)).astype(
+        np.float32))
+    lens = torch.full((b,), 31, dtype=torch.int32)
+    args = (pool["k_pages"], pool["v_pages"], pool["k_scale"],
+            pool["v_scale"], pt.to(cuda))
+    got = pka.paged_kv_attention_decode(q[:, 0].to(cuda), *args,
+                                        lens.to(cuda), bits=bits)
+    plain = pka.paged_kv_attention_chunk_plain(
+        q, *[a.cpu() for a in args], lens - 1, lens, bits=bits)[:, 0]
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+def test_cuda_b1_on_aliased_page_table(cuda):
+    """Rows whose page tables alias the same pages (a shared prefix, each
+    row then on its own pages) read them as the plain version does."""
+    rng = np.random.default_rng(5)
+    b, s, kv, g, hd, ps = 4, 5, 8, 8, 128, 16
+    args = _case(9, b=b, kv=kv, g=g, hd=hd, ps=ps, s=s, bits=8, start=90,
+                 qdt=torch.bfloat16)
+    pt = args[5].clone()
+    shared = rng.integers(1, int(pt.max()) + 1, 4)
+    pt[:, :4] = torch.from_numpy(shared.astype(np.int32))   # aliased prefix
+    args[5] = pt
+    plain = pka.paged_kv_attention_chunk_plain(*args, bits=8)
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args], bits=8)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+    again = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                         bits=8)
+    assert torch.equal(got, again)
+
+
+def _small_cfg():
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen2-72b"), d_model=256,
+                               num_heads=4, num_kv_heads=2, d_ff=384)
+
+
+def _profile(cfg, fmts):
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.policy import LayerPolicy, PrecisionPolicy
+    return PrecisionPolicy(
+        tuple(f"layer_{i:03d}" for i in range(cfg.num_layers)),
+        tuple(LayerPolicy(None, f and FixedPointFormat(*f)) for f in fmts))
+
+
+def test_cuda_b1_in_a_mixed_container_forward(cuda, monkeypatch):
+    """One forward whose layers store float, int8 and int4 pages side by
+    side (a per-layer profile): B1 launches once per layer per forward at
+    each layer's own width, and each launch equals the plain version on
+    its own inputs (captured at the call)."""
+    from repro_torch.core.paged_kv import PagedCacheSpec
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import forward, init_cache, \
+        init_model
+    from repro_torch.quant.apply import build_model_quant
+    cfg = _small_cfg()
+    quant = build_model_quant(_profile(cfg, [None, (2, 6), (2, 2), (2, 6)]),
+                              cfg, quantize_kv=True,
+                              quantize_activations=False, per_layer_kv=True,
+                              kv_scale_mode="page")
+    seen = []
+    real = attention.paged_kv_attention_chunk
+
+    def capture(q, *a, bits):
+        seen.append(([x.clone() for x in (q,) + a], bits))
+        return real(q, *a, bits=bits)
+    monkeypatch.setattr(attention, "paged_kv_attention_chunk", capture)
+    model = init_model(cfg, seed=1, device=cuda)
+    caches = init_cache(cfg, quant, PagedCacheSpec(page_size=8,
+                                                   num_pages=12), cuda)
+    pt = torch.tensor([[3, 7, 1], [9, 2, 5]], dtype=torch.int32,
+                      device=cuda)
+    rng = np.random.default_rng(2)
+    tok = torch.tensor(rng.integers(0, 256, (2, 11)), dtype=torch.int32,
+                       device=cuda)
+    for toks, pos in ((tok, 0), (tok[:, :4], 11)):
+        before = pka.paged_kv_attention_chunk.launches
+        forward(model, toks, cfg, quant=quant, caches=caches,
+                cache_pos=pos, page_table=pt, attn_impl="kernel")
+        torch.cuda.synchronize()
+        assert pka.paged_kv_attention_chunk.launches == \
+            before + cfg.num_layers
+    assert [b for _, b in seen] == [0, 8, 4, 8] * 2
+    for inputs, bits in seen:
+        got = real(*inputs, bits=bits)
+        plain = pka.paged_kv_attention_chunk_plain(
+            *[x.cpu() for x in inputs], bits=bits)
+        np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+def test_cuda_served_prefix_cache_counts_as_on_the_cpu(cuda):
+    """A small served trace with a shared prompt, prefix cache off and on,
+    kernel route: the card's host counters equal the CPU's on the same
+    trace, sharing saves prefill forwards, B1 runs once per layer per
+    program, and every page comes back."""
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import init_model
+    cfg = _small_cfg()
+    rng = np.random.default_rng(4)
+    sys_p = rng.integers(0, 256, 21).astype(np.int32)
+    suffixes = [rng.integers(0, 256, 3 + 4 * i).astype(np.int32)
+                for i in range(6)]
+
+    def trace():
+        reqs = [Request(i, np.concatenate([sys_p, s]), 6)
+                for i, s in enumerate(suffixes)]
+        return reqs + [Request(6, reqs[2].prompt.copy(), 4)]
+
+    counts = {}
+    for dev in ("cpu", cuda):
+        model = init_model(cfg, seed=3, device=dev)
+        for mode in ("off", "on"):
+            srv = BatchedServer(cfg, model, batch_size=3, max_len=64,
+                                kv_bits=8, page_size=8, prefill_bucket=8,
+                                attn_impl="kernel", prefix_cache=mode,
+                                kv_scale="page", device=dev)
+            before = pka.paged_kv_attention_chunk.launches
+            reqs = srv.run(trace())
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert (pka.paged_kv_attention_chunk.launches - before
+                        == cfg.num_layers * srv.program_launches)
+            assert all(r.done and len(r.out) == r.max_new for r in reqs)
+            c = {"prefill_forwards": srv.prefill_forwards,
+                 "decode_steps": srv.decode_steps,
+                 "allocs": srv.metrics.value("alloc.allocs")}
+            if mode == "on":
+                st = srv.prefix_cache.stats()
+                c.update({k: st[k] for k in ("hits", "hit_tokens",
+                                             "cow_copies", "evictions")},
+                         wave=srv.wave_dedup_pages)
+                assert srv.release_prefix_cache() == 0
+            assert srv.allocator.num_free == srv.allocator.num_usable
+            counts[(str(dev), mode)] = c
+    for mode in ("off", "on"):
+        assert counts[(str(cuda), mode)] == counts[("cpu", mode)]
+    on, off = counts[(str(cuda), "on")], counts[(str(cuda), "off")]
+    assert on["hits"] >= 3 and on["prefill_forwards"] < \
+        off["prefill_forwards"]
+
+
+# ---------------------------------------------------------------------------
 # the paper's CNNs (torch ops, no kernel): TF32 and cuDNN determinism
 # ---------------------------------------------------------------------------
 def _cnn_case(net, n):

@@ -78,7 +78,10 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.benchmarks.traffic",
                   "repro_torch.benchmarks.report",
                   "repro_torch.benchmarks.run",
-                  "repro_torch.examples.precision_search_lenet"]
+                  "repro_torch.examples.precision_search_lenet",
+                  "repro_torch.core.prefix_cache",
+                  "repro_torch.core.paged_kv",
+                  "repro_torch.runtime.telemetry"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():

@@ -123,13 +123,13 @@ def test_static_scale_marks_every_touched_page():
                                       1.0, 1.0]
 
 
-def test_page_scale_mode_is_not_ported():
+def test_unknown_scale_mode_raises():
     tp, _ = _pools("int8", 4)
     k = torch.zeros(1, 1, KV, HD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="scale_mode"):
         tpk.paged_update(tp, k, k, torch.tensor([[1]], dtype=torch.int32), 0,
                          page_size=PS, container="int8", int_bits=2,
-                         frac_bits=6, scale_mode="page")
+                         frac_bits=6, scale_mode="dynamic")
 
 
 def test_layout_matches_reference():

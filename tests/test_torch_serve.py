@@ -144,10 +144,8 @@ def test_admission_rejects_and_defers(models):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(prefix_cache="on"), "8"), (dict(kv_scale="page"), "8"),
     (dict(kv_offload="host"), "9"), (dict(sched="slo"), "9"),
-    (dict(kv_adapt="on"), "9"), (dict(metrics="on"), "8"),
-    (dict(tp=2), "13")])
+    (dict(kv_adapt="on"), "9"), (dict(tp=2), "13")])
 def test_options_outside_the_slice_raise(models, option, item):
     _, tcfg, _, model = models
     kw = dict(_KW, kv_bits=8, device=CPU)
