@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phase kernels
     python3 chip_smoke.py --phase cnn    # phase 4 alone, no kernel build
+    python3 chip_smoke.py --phase tier   # the build and [tier] alone
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -41,7 +42,19 @@ Phases, each of which raises on failure (no phase is caught):
    printed) and a 120-page pool that evicts: teacher-forced gates, B1 held
    against its plain version on the pools of one captured served decode
    step, the prefix counters equal to the smoke config's on the CPU for
-   the same trace; a ``torch.profiler`` window over decode steps of
+   the same trace; ``[tier]``: 59 requests of a bursty two-tenant trace
+   from ``core.traffic.generate_trace`` (a deadlined chat tenant over 4
+   shared 200-token prompts, a no-deadline batch tenant) on a 160-page
+   pool with SLO scheduling, preemption and the host tier, sync and async
+   pager, at int8 and int4, with the quant tier on a bf16 pool, with the
+   predictor, and from a restored prefix snapshot, each against an
+   uninterrupted roomy FIFO run of its container: teacher-forced gates,
+   host counters equal to the CPU rehearsal's, async equal to sync,
+   async demote / promote byte for byte over rewritten pages, B1 against
+   its plain version on pools captured after promotions and quant-tier
+   restores, pager latencies and at-rest bytes per tier (the async run's
+   Chrome trace, pager track included, to ``chiprun_out/tier_trace.json``);
+   a ``torch.profiler`` window over decode steps of
    the int8 kernel-route run: B1's share of device time and the device's
    idle share; dense int8 slabs (``page_size=0``, stepwise prefill) on 8
    requests of 16-48 prompt tokens and 16 new tokens against the paged
@@ -1095,10 +1108,24 @@ def serve_phase(seed: int, num_layers: int):
     runs += fused_runs
     prefix_launches, prefix_runs = prefix_phase(cfg, model, seed)
     runs += prefix_runs
+    tier_launches, tier_runs = tier_phase(cfg, model, seed)
+    runs += tier_runs
     runs.append({"decode_profile": decode_profile(cfg, model, seed)})
     runs.append(dense_phase(cfg, model, seed))
     runs.append(quant_forward_phase(cfg, model, seed))
-    return launches + fused_launches + prefix_launches, runs
+    return (launches + fused_launches + prefix_launches + tier_launches,
+            runs)
+
+
+def tier_only(seed: int, num_layers: int):
+    """``--phase tier``: the served model and the ``[tier]`` phase alone."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("qwen2-72b"), num_layers=num_layers)
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    return tier_phase(cfg, model, seed)
 
 
 def fused_phase(cfg, model, seed: int, gather, separate, bits_list):
@@ -1226,7 +1253,7 @@ class B1Capture:
         return self.fn(q, kp, vp, ks, vs, pt, kv_len, bits=bits)
 
 
-def check_captured_b1(saved, label: str) -> dict:
+def check_captured_b1(saved, label: str, tag: str = "[prefix]") -> dict:
     """B1 (the decode entry on the card) against its plain version on
     each captured layer's pool, at the kernel tests' tolerance; the
     distinct page scales among the pages in use and the containers seen."""
@@ -1255,7 +1282,7 @@ def check_captured_b1(saved, label: str) -> dict:
         bits.add(c["bits"])
     res = {"layers": len(saved), "max_abs_err": max(errs),
            "distinct_k_scales_min": min(distinct), "bits": sorted(bits)}
-    print(f"[prefix] {label}: B1 vs plain on the pools of one served decode "
+    print(f"{tag} {label}: B1 vs plain on the pools of one served decode "
           f"step, {len(saved)} layers, bits {res['bits']}: max abs err "
           f"{res['max_abs_err']:.2e} (tol {TOL}); distinct k scales among "
           f"the pages in use, fewest over layers: "
@@ -1505,6 +1532,504 @@ def prefix_phase(cfg, model, seed: int):
                 "kv_at_rest_bytes": {"int4": u4, "profile": prof,
                                      "int8": u8, "bf16": uf},
                 "phase_s": wall})
+    return launches["n"], out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, [tier]: the tiered page store (host tier, sync and async pager,
+# quant tier, prefix snapshots) and SLO scheduling with preemption, on the
+# bursty two-tenant trace, served through B1
+# ---------------------------------------------------------------------------
+TIER_PAGES = 160            # from the CPU rehearsal: >= 2 preemptions,
+#                             >= 8 demotions, >= 8 promotions at int8
+TIER_ADAPT_PAGES = 96       # the quant tier narrows, deepens and restores
+TIER_MAX_LEN = 640
+
+
+def tier_trace_config():
+    """A chat service behind 4 shared 200-token system prompts sharing
+    its card with long-running batch jobs: bursty arrivals over 96 decode
+    steps at qwen2-72b's vocabulary."""
+    from repro_torch.core.traffic import TenantSpec, TraceConfig
+    return TraceConfig(
+        seed=7, horizon=96, rate=0.15, process="bursty", burst_rate=2.0,
+        p_enter_burst=0.10, p_exit_burst=0.30, vocab_size=152064,
+        tenants=(
+            TenantSpec("interactive", weight=0.7, priority=5,
+                       deadline_slack=8, prompt_mean=64, prompt_sigma=0.5,
+                       prompt_cap=240, max_new_mean=8, max_new_cap=16,
+                       shared_prefix_len=200, prefix_pool=4),
+            TenantSpec("batch", weight=0.3, priority=0, deadline_slack=None,
+                       prompt_mean=256, prompt_sigma=0.5, prompt_cap=512,
+                       max_new_mean=48, max_new_cap=64)))
+
+
+def tier_requests(trace, vocab=None):
+    """Fresh requests of ``trace``. ``vocab`` maps the token ids into a
+    smaller vocabulary position by position (an id's rank among the
+    distinct ids the trace has at that position): equal tokens at equal
+    positions stay equal and unequal ones unequal, and that is all the
+    prefix cache, the wave dedupe and the scheduler compare, so the host
+    counters of the mapped trace are those of the trace."""
+    from repro_torch.benchmarks.traffic import to_requests
+    reqs = to_requests(trace)
+    if vocab is None:
+        return reqs
+    seen = {}
+    for r in reqs:
+        for p, t in enumerate(r.prompt):
+            seen.setdefault(p, set()).add(int(t))
+    rank = {p: {t: i for i, t in enumerate(sorted(ts))}
+            for p, ts in seen.items()}
+    if max(len(v) for v in rank.values()) > vocab:
+        raise ValueError("the trace has more distinct ids at a position "
+                         "than the vocabulary holds")
+    for r in reqs:
+        r.prompt = np.array([rank[p][int(t)] for p, t in
+                             enumerate(r.prompt)], np.int32)
+    return reqs
+
+
+TIER_BASE = dict(batch_size=8, max_len=TIER_MAX_LEN, page_size=PS,
+                 prefill_bucket=32, metrics="on")
+TIER_SERVED = dict(prefix_cache="on", kv_offload="host", sched="slo",
+                   num_pages=TIER_PAGES)
+TIER_RUNS = {
+    # name: (server options, reference run)
+    "b": (dict(kv_bits=8, pager_async="off"), "a8"),
+    "c": (dict(kv_bits=8, pager_async="on"), "a8"),
+    "d": (dict(kv_bits=4, pager_async="on"), "a4"),
+    "e": (dict(kv_bits=0, pager_async="on", kv_adapt="on",
+               adapt_pages=TIER_ADAPT_PAGES), "a0"),
+    "f": (dict(kv_bits=8, pager_async="on", predictor="on"), "a8"),
+    "g": (dict(kv_bits=8, pager_async="on"), "a8"),
+}
+
+
+def tier_counters(srv) -> dict:
+    """The host counters of a [tier] run: they depend on the prompts,
+    lengths, arrivals and pool, not on the model's numbers."""
+    st, m = srv.prefix_cache.stats(), srv.metrics
+    return {
+        "preempt_count": srv.preempt_count,
+        "resume_count": srv.resume_count,
+        "realias_skipped": srv.realias_skipped,
+        "demotions": srv.pager.demotions, "promotions": srv.pager.promotions,
+        "prefetches": srv.pager.prefetches,
+        "prefetch_hits": srv.pager.prefetch_hits,
+        "host_drops": st["host_drops"], "requants": st["requants"],
+        "deepens": st["deepens"], "tier_promotions": st["tier_promotions"],
+        "defers": m.counter("sched.defers").value,
+        "rejects": m.counter("sched.rejects").value,
+        "ooo_admissions": srv.scheduler.ooo_admissions,
+        "gated": srv.predictor.gated if srv.predictor else 0,
+        "prefill_forwards": srv.prefill_forwards,
+        "programs": srv.program_launches, "decode_steps": srv.decode_steps,
+        "hits": st["hits"], "restored_pages": st["restored_pages"],
+        "staged_resumes": srv.pager.staged_resumes}
+
+
+def cpu_tier_counters(seed: int, snapshot_dir: str, src: str) -> dict:
+    """Runs (b)-(g) on the CPU with the smoke config cut to one layer (the
+    counters do not depend on the model) and the trace mapped into its
+    vocabulary, through the gather route; (g) restores the CPU's own (c)
+    snapshot. Runs in a child process beside the card runs (``src`` is
+    the port's source directory) on one thread: the card runs are
+    host-bound, and 4 threads here took the references from 120-150 to
+    85 tok/s (an H100 host of 8 cores)."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.traffic import generate_trace
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_smoke_config("qwen2-72b"), num_layers=1)
+    model = init_model(cfg, seed=seed, device="cpu")
+    trace = generate_trace(tier_trace_config())
+    path = str(Path(snapshot_dir) / "cpu_c")
+    out = {}
+    for name, (kw, _) in TIER_RUNS.items():
+        srv = BatchedServer(cfg, model, attn_impl="gather",
+                            device=torch.device("cpu"),
+                            **TIER_BASE, **TIER_SERVED, **kw)
+        if name == "g":
+            srv.restore_prefix_cache(path)
+        srv.run(tier_requests(trace, cfg.vocab_size))
+        out[name] = tier_counters(srv)
+        if name == "c":
+            srv.snapshot_prefix_cache(path)
+    return out
+
+
+class ForceTokens:
+    """Wraps a decode step: request rid consumes the reference run's token
+    g - 1 at its step g > 0 (teacher forcing; no logits are kept)."""
+
+    def __init__(self, srv, fn, forced):
+        self.srv, self.fn, self.forced = srv, fn, forced
+
+    def __call__(self, model, tokens, pos, caches, page_table):
+        import torch
+        srv = self.srv
+        idx = [i for i, r in enumerate(srv.slots)
+               if r is not None and srv.slot_gen[i] > 0]
+        if idx:
+            tokens = tokens.clone()
+            tokens[idx] = torch.tensor(
+                [self.forced[srv.slots[i].rid][srv.slot_gen[i] - 1]
+                 for i in idx], dtype=tokens.dtype, device=tokens.device)
+        return self.fn(model, tokens, pos, caches, page_table)
+
+
+class RestoredPages:
+    """Pages the run wrote back from a tier since their allocation: host
+    promotions and resumes (``pager.promote`` / ``pager.resume``) in
+    ``host``, quant tier restores in ``tier``; an allocation clears a page
+    from both."""
+
+    def __init__(self, srv):
+        self.host, self.tier = set(), set()
+        alloc = srv.allocator.alloc
+
+        def alloc_w():
+            p = alloc()
+            self.host.discard(p)
+            self.tier.discard(p)
+            return p
+
+        def into(pages, fn):
+            def wrapped(*a):
+                p = fn(*a)
+                pages.add(p)
+                return p
+            return wrapped
+
+        srv.allocator.alloc = alloc_w
+        srv.pager.promote = into(self.host, srv.pager.promote)
+        srv.pager.resume = into(self.host, srv.pager.resume)
+        if srv.quant_tier is not None:
+            restore = srv.quant_tier.restore
+
+            def restore_w(h, page):
+                restore(h, page)
+                self.tier.add(page)
+            srv.quant_tier.restore = restore_w
+
+
+class TierCapture:
+    """Wraps B1's decode entry as the attention layer calls it: at the
+    first decode step whose page table holds a page ``want()`` names, it
+    keeps a copy of every layer's inputs (the server rewrites the pools in
+    place later). Reads the server's host page table: no device sync."""
+
+    def __init__(self, fn, srv, want, layers: int):
+        self.fn, self.srv, self.want, self.layers = fn, srv, want, layers
+        self.n, self.start, self.saved = 0, None, []
+
+    def __call__(self, q, kp, vp, ks, vs, pt, kv_len, *, bits):
+        if (self.start is None and self.n % self.layers == 0
+                and set(self.srv.page_table.ravel().tolist()) & self.want()):
+            self.start = self.n
+        if self.start is not None and self.n < self.start + self.layers:
+            self.saved.append(dict(
+                q=q.clone(), k_pages=kp.clone(), v_pages=vp.clone(),
+                k_scale=ks.clone(), v_scale=vs.clone(), page_table=pt.clone(),
+                kv_len=kv_len.clone(), bits=bits))
+        self.n += 1
+        return self.fn(q, kp, vp, ks, vs, pt, kv_len, bits=bits)
+
+
+class RoundTrip:
+    """Wraps (c)'s pager: each demoted page's bytes and scales, every
+    layer, captured before the demote; at its promote the new page must
+    hold them, and whether the old page was rewritten meanwhile (by a
+    later owner) is recorded."""
+
+    def __init__(self, srv):
+        from repro_torch.core.paged_kv import iter_kv_pools
+        self.checked, self.rewritten = 0, 0
+        saved = {}
+        demote, promote = srv.pager.demote, srv.pager.promote
+
+        def state(page):
+            return [{k: t[page].clone() for k, t in p.items()}
+                    for p in iter_kv_pools(srv.caches)]
+
+        def demote_w(page):
+            before = state(page)
+            h = demote(page)
+            saved[h] = (page, before)
+            return h
+
+        def promote_w(h):
+            new = promote(h)
+            if h in saved:
+                old, before = saved.pop(h)
+                now_old, now_new = state(old), state(new)
+                for want, got in zip(before, now_new):
+                    for k in want:
+                        if not bool((want[k] == got[k]).all()):
+                            raise AssertionError(
+                                f"[tier] page {old} -> {new}: {k} changed "
+                                f"across the async host round trip")
+                self.checked += 1
+                self.rewritten += any(
+                    not bool((want[k] == got[k]).all())
+                    for want, got in zip(before, now_old) for k in want)
+            return new
+        srv.pager.demote, srv.pager.promote = demote_w, promote_w
+
+
+TIER_BUDGET_S = 60          # the phase's time budget on the card
+
+
+def tier_phase(cfg, model, seed: int):
+    """``[tier]``: the trace of :func:`tier_trace_config` through B1 with
+    the page size 16, batch 8, bucketed prefill (bucket 32) and ``max_len``
+    640, metrics on: (a) uninterrupted roomy FIFO references at int8, int4
+    and bf16; then, each teacher-forced by its reference's tokens, (b) int8
+    with SLO scheduling, host offload and the prefix cache, sync pager;
+    (c) as (b) with the async pager; (d) int4 as (c); (e) a bf16 pool with
+    the quant tier; (f) int8 as (c) with the predictor; (g) a fresh server
+    restoring (c)'s prefix snapshot. The CPU rehearsal runs in a child
+    process meanwhile. Fails unless every request finishes and every page
+    comes back (host tier empty, no prefix pages held), B1 runs once per
+    layer per program, (b)-(g) pass the gate against their reference,
+    their host counters equal the CPU rehearsal's, (c)'s tokens equal
+    (b)'s and its counters too but for the prefetches, every page demoted
+    async in (c) promotes back with its bytes (at least one over a
+    rewritten page), and B1 equals its plain version on pools captured
+    after promotions and quant-tier restores. Returns (B1 launches, run
+    records)."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    import torch
+    from repro_torch.core.traffic import generate_trace, trace_fingerprint
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import attention
+
+    t_phase = time.perf_counter()
+    trace = generate_trace(tier_trace_config())
+    print(f"[tier] trace: {len(trace.requests)} requests "
+          f"({sum(r.tenant == 'interactive' for r in trace.requests)} "
+          f"interactive), {sum(len(r.prompt) for r in trace.requests)} "
+          f"prompt tokens, {sum(r.max_new for r in trace.requests)} new "
+          f"tokens, overload_ratio(8) {trace.overload_ratio(8):.3f}, "
+          f"fingerprint {trace_fingerprint(trace)[:16]}; pool "
+          f"{TIER_PAGES} pages, quant tier {TIER_ADAPT_PAGES} floor pages",
+          flush=True)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    snap_dir = tempfile.mkdtemp(prefix="tier_snap_")
+    snap = str(Path(snap_dir) / "card_c")
+    launches = {"n": 0}
+
+    def run(label, *, forced=None, capture=None, roundtrip=False,
+            restore=None, snapshot=None, **kw):
+        srv = BatchedServer(cfg, model, attn_impl="kernel", device="cuda",
+                            **TIER_BASE, **kw)
+        if restore:
+            srv.restore_prefix_cache(restore)
+        step = srv.decode
+        if forced is not None:
+            step = ForceTokens(srv, step, forced)
+        srv.decode = StepTimer(step)
+        pages = RestoredPages(srv) if srv.pager else None
+        cap = None
+        if capture is not None:
+            cap = TierCapture(attention.paged_kv_attention_decode, srv,
+                              lambda: getattr(pages, capture),
+                              cfg.num_layers)
+            attention.paged_kv_attention_decode = cap
+        rt = RoundTrip(srv) if roundtrip else None
+        reqs = tier_requests(trace)
+        paged_kv_attention_chunk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            srv.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            if cap is not None:
+                attention.paged_kv_attention_decode = cap.fn
+        wall = time.perf_counter() - t0
+        n = paged_kv_attention_chunk.launches
+        if n != cfg.num_layers * srv.program_launches:
+            raise AssertionError(f"[tier] {label}: B1 launches {n} != layers"
+                                 f" x programs {srv.program_launches}")
+        launches["n"] += n
+        if not all(r.done and r.error is None and len(r.out) == r.max_new
+                   for r in reqs):
+            raise AssertionError(f"[tier] {label}: a request did not finish")
+        gen = sum(len(r.out) for r in reqs)
+        slo = srv.tracer.slo_summary()
+        st = {"label": label, "requests": len(reqs), "wall_s": wall,
+              "tok_per_s": gen / wall, "decode_step_ms": srv.decode.ms(),
+              "decode_steps": srv.decode_steps, "b1_launches": n,
+              "programs": srv.program_launches,
+              "ttft_p50_s": slo.get("ttft_p50_s"),
+              "ttft_p99_s": slo.get("ttft_p99_s"),
+              "tpot_p50_s": slo.get("tpot_p50_s"),
+              "tpot_p99_s": slo.get("tpot_p99_s"),
+              "goodput": slo.get("goodput")}
+        if srv.pager is not None:
+            st["counters"] = tier_counters(srv)
+            inv = srv.kv_inventory()
+            st["inventory"] = {k: inv[k] for k in (
+                "device_by_container", "host_bytes", "host_pages",
+                "host_by_container", "tier_bytes", "tier_pages",
+                "tier_by_container", "host_pinned_bytes")}
+            st["host_peak_bytes"] = srv.host_store.peak_bytes
+            st["host_s"] = {f"{tier}.{k}": srv.metrics.histogram(
+                f"{tier}.{k}_s").summary() for tier, ks in (
+                    ("pager", ("demote", "promote", "offload")),
+                    ("tier", ("requantize", "deepen", "restore")))
+                for k in ks}
+            if snapshot:
+                st["snapshot_pages"] = srv.snapshot_prefix_cache(snapshot)
+            if rt is not None:
+                st["round_trips"] = (rt.checked, rt.rewritten)
+                srv.tracer.export_chrome(str(out_dir / "tier_trace.json"))
+            if srv.release_prefix_cache() != 0:
+                raise AssertionError(f"[tier] {label}: prefix page leak")
+            if srv.host_store.num_pages != 0:
+                raise AssertionError(f"[tier] {label}: the host tier kept "
+                                     f"{srv.host_store.num_pages} pages")
+        if srv.allocator.num_free != srv.allocator.num_usable:
+            raise AssertionError(f"[tier] {label}: device page leak")
+        ms = lambda v: "n/a" if v is None else f"{v * 1e3:.2f}"  # noqa: E731
+        c = st.get("counters", {})
+        print(f"[tier] {label:<24} {st['tok_per_s']:7.1f} tok/s, decode step "
+              f"{st['decode_step_ms']:.2f} ms x {st['decode_steps']}, B1 x "
+              f"{n}, TTFT p50/p99 {ms(st['ttft_p50_s'])}/"
+              f"{ms(st['ttft_p99_s'])} ms, TPOT p50/p99 "
+              f"{ms(st['tpot_p50_s'])}/{ms(st['tpot_p99_s'])} ms"
+              + (f"; {c}" if c else ""), flush=True)
+        return reqs, st, cap
+
+    def gate(label, ref, test):
+        g = accuracy_gate([r.out for r in ref], [r.out for r in test])
+        print(f"[tier] gate {label}: teacher-forced agreement "
+              f"{g['agreement']:.4f} ({g['below_floor']} below 0.5) -> "
+              f"{'pass' if g['passed'] else 'FAIL'}", flush=True)
+        if not g["passed"]:
+            raise AssertionError(f"[tier] {label} fails the gate: {g}")
+        return g["agreement"]
+
+    src = str(Path(__file__).resolve().parent / "src")
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_future = rehearsal.submit(cpu_tier_counters, seed, snap_dir, src)
+        refs = {f"a{b}": run(f"(a) ref int{b}" if b else "(a) ref bf16",
+                             kv_bits=b) for b in (8, 4, 0)}
+        extras = {"c": dict(roundtrip=True, capture="host", snapshot=snap),
+                  "d": dict(capture="host"), "e": dict(capture="tier"),
+                  "g": dict(restore=snap)}
+        runs, gates = {}, {}
+        for name, (kw, ref) in TIER_RUNS.items():
+            forced = {r.rid: r.out for r in refs[ref][0]}
+            runs[name] = run(f"({name}) forced", forced=forced,
+                             **TIER_SERVED, **kw, **extras.get(name, {}))
+            gates[name] = gate(f"({name}) vs {ref}", refs[ref][0],
+                               runs[name][0])
+        t_card = time.perf_counter() - t_phase
+        cpu = cpu_future.result()
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+    for name in ("d", "e"):
+        g = accuracy_gate([r.out for r in refs["a8"][0]],
+                          [r.out for r in runs[name][0]])
+        print(f"[tier] ({name}) against the int8 reference a8 (observed, "
+              f"no limit): teacher-forced agreement {g['agreement']:.4f}",
+              flush=True)
+    # async against sync: the pager moves bytes and decides nothing
+    rb, rc = runs["b"], runs["c"]
+    cb, cc = rb[1]["counters"], rc[1]["counters"]
+    skip = ("prefetches", "prefetch_hits", "staged_resumes")
+    diff = {k: (cb[k], cc[k]) for k in cb if k not in skip and cb[k] != cc[k]}
+    if diff:
+        raise AssertionError(f"[tier] (c) async differs from (b) sync: {diff}")
+    agree_bc = decode_agreement([r.out for r in rb[0]],
+                                [r.out for r in rc[0]])[0]
+    if agree_bc != 1.0:
+        raise AssertionError(f"[tier] (c) async tokens differ from (b) sync "
+                             f"(exact agreement {agree_bc:.4f})")
+    print(f"[tier] (c) async == (b) sync in every token and every host "
+          f"counter but the prefetches ({cc['prefetches']} staged: "
+          f"{cc['prefetch_hits']} used by prefix promotes, "
+          f"{cc['staged_resumes']} by resumes)", flush=True)
+    for name in TIER_RUNS:
+        st = runs[name][1]
+        if st["counters"] != cpu[name]:
+            raise AssertionError(
+                f"[tier] {st['label']}: counters {st['counters']} != "
+                f"CPU {cpu[name]}")
+    print(f"[tier] host counters equal the smoke config's on the CPU for "
+          f"the same token trace, runs (b)-(g): {cpu}", flush=True)
+    rtc = rc[1]["round_trips"]
+    if rtc[0] < 1 or rtc[1] < 1:
+        raise AssertionError(f"[tier] (c): {rtc[0]} async round trips "
+                             f"checked, {rtc[1]} over a rewritten page")
+    print(f"[tier] (c) async host round trips: {rtc[0]} demoted pages "
+          f"promoted back byte for byte, {rtc[1]} of them over a page a "
+          f"later owner rewrote", flush=True)
+    caps = {}
+    for label, cap in (("(c) int8 promoted", rc[2]),
+                       ("(d) int4 promoted", runs["d"][2]),
+                       ("(e) bf16 quant-tier restored", runs["e"][2])):
+        res = check_captured_b1(cap.saved, label, tag="[tier]")
+        scales = torch.cat([c["k_scale"][torch.unique(c["page_table"])
+                                         .long()] for c in cap.saved])
+        res["distinct_non_unit_scales"] = int(torch.unique(
+            scales[scales != 1.0]).numel())
+        print(f"[tier] {label}: {res['distinct_non_unit_scales']} distinct "
+              f"non-unit k scales among the pages in use", flush=True)
+        if "bf16" in label and res["distinct_non_unit_scales"] < 1:
+            raise AssertionError("[tier] no quant-tier scale in the bf16 "
+                                 "pools B1 read")
+        caps[label] = res
+
+    def pct(st, k):
+        s = st["host_s"][k]
+        return ("n/a" if not s["count"] else
+                f"{s['p50'] * 1e3:.3f}/{s['p99'] * 1e3:.3f} ms x "
+                f"{s['count']} ({s['mean'] * s['count']:.3f} s)")
+    for name in ("b", "c"):
+        st = runs[name][1]
+        inv = st["inventory"]
+        print(f"[tier] ({name}) at rest before release: device "
+              f"{inv['device_by_container']}, host {inv['host_bytes']} B in "
+              f"{inv['host_pages']} pages {inv['host_by_container']} "
+              f"({inv['host_pinned_bytes']} B of pinned transfer buffers), "
+              f"peak host {st['host_peak_bytes']} B; pager p50/p99 demote "
+              f"{pct(st, 'pager.demote')}, promote "
+              f"{pct(st, 'pager.promote')}, offload "
+              f"{pct(st, 'pager.offload')}", flush=True)
+    st = runs["e"][1]
+    inv = st["inventory"]
+    print(f"[tier] (e) quant tier at rest: {inv['tier_bytes']} B in "
+          f"{inv['tier_pages']} pages {inv['tier_by_container']}; host "
+          f"p50/p99 requantize {pct(st, 'tier.requantize')}, deepen "
+          f"{pct(st, 'tier.deepen')}, restore {pct(st, 'tier.restore')}",
+          flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[tier] main path: {launches['n']} B1 launches = layers x "
+          f"programs over the runs; phase {wall:.1f} s against a "
+          f"{TIER_BUDGET_S} s budget (card runs {t_card:.1f} s, the CPU "
+          f"rehearsal beside them)", flush=True)
+    out = [dict(r[1], phase="tier") for r in
+           list(refs.values()) + list(runs.values())]
+    out.append({"phase": "tier", "gates": gates, "cpu_counters": cpu,
+                "b_c_exact_agreement": agree_bc, "captured_b1": caps,
+                "requests": len(trace.requests),
+                "overload_ratio": trace.overload_ratio(8),
+                "num_pages": TIER_PAGES, "phase_s": wall,
+                "budget_s": TIER_BUDGET_S})
     return launches["n"], out
 
 
@@ -1882,7 +2407,7 @@ def cnn_phase() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels", "cnn"],
+    ap.add_argument("--phase", choices=["all", "kernels", "cnn", "tier"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -1913,6 +2438,10 @@ def main(argv=None) -> int:
         return 0
     t0 = time.perf_counter()
     built = build.build_all()
+    if args.phase == "tier":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        tier_only(SEED, NUM_LAYERS)
+        return 0
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     hmma = kernel_build_report()

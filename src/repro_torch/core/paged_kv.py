@@ -20,8 +20,9 @@ full-width pool is tens of MB per layer, and copying it per token would
 dominate decode. ``scale_mode="page"`` calibrates each page's scale to
 the max-abs of what was written to it and requantizes the page in place
 when the scale rises; ``copy_pool_pages`` is the prefix cache's
-copy-on-write, and ``iter_kv_pools``/``map_kv_pools`` walk a model's
-per-layer pools.
+copy-on-write, ``iter_kv_pools``/``map_kv_pools`` walk a model's
+per-layer pools, and ``kv_pool_groups`` groups them as the reference's
+scan-stacked pools (the tiered page store's record layout).
 """
 from __future__ import annotations
 
@@ -45,20 +46,27 @@ class OutOfPagesError(RuntimeError):
     Raised before any page is handed out (admission preflight) or when the
     free list empties mid-run, with the counts needed to size
     ``--num-pages``: ``reserved`` pages are promised to live requests but
-    not yet written, ``written`` pages already hold live KV, and
-    ``evictable`` unreferenced prefix-cache pages could be reclaimed."""
+    not yet written, ``written`` pages already hold live KV, ``evictable``
+    unreferenced prefix-cache pages could be reclaimed, ``requantizable``
+    cold cached pages the quant tier could narrow in place, and
+    ``host_pages`` pages are parked in the host tier."""
 
     def __init__(self, *, needed: int, free: int, total: int,
                  rid: Optional[int] = None, reserved: int = 0,
-                 written: int = 0, evictable: int = 0):
+                 written: int = 0, evictable: int = 0,
+                 requantizable: int = 0, host_pages: int = 0):
         self.needed, self.free, self.total, self.rid = needed, free, total, rid
         self.reserved, self.written = reserved, written
         self.evictable = evictable
+        self.requantizable = requantizable
+        self.host_pages = host_pages
         who = f"request {rid}" if rid is not None else "allocation"
         extra = ""
-        if reserved or written or evictable:
+        if reserved or written or evictable or requantizable or host_pages:
             extra = (f" [{written} written, {reserved} reserved-unwritten, "
-                     f"{evictable} evictable-cached]")
+                     f"{evictable} evictable-cached, "
+                     f"{requantizable} requantizable, "
+                     f"{host_pages} host-tier]")
         super().__init__(
             f"KV page pool cannot back {who}: needs {needed} page(s), "
             f"{free} free of {total} usable (page 0 is scratch){extra}; "
@@ -129,10 +137,14 @@ class PageAllocator:
     and recycles pages that reach zero; releasing a page twice raises.
     ``reclaim`` (optional ``n_pages -> n_freed``) is called when the free
     list is empty at ``alloc``: the prefix cache registers its eviction
-    there. ``metrics`` counts allocations ("alloc.allocs") and reclaim
-    calls ("alloc.reclaims"), and registers a live "alloc.free_pages"
-    gauge. The reference's host-tier and quant-tier inventories are
-    ROADMAP queue A item 9."""
+    there (requantize, demote to the host tier, or drop). ``pressure`` is a
+    list of further callbacks of the same contract (``add_pressure``),
+    tried in order after ``reclaim``. ``host_inventory`` and
+    ``requant_inventory`` (optional zero-arg callables -> page count) let
+    :class:`OutOfPagesError` report the host tier and the pages the quant
+    tier could narrow. ``metrics`` counts allocations ("alloc.allocs") and
+    pressure calls ("alloc.reclaims"), and registers a live
+    "alloc.free_pages" gauge."""
 
     def __init__(self, num_pages: int, *,
                  metrics: Optional[MetricsRegistry] = None):
@@ -142,6 +154,9 @@ class PageAllocator:
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}
         self.reclaim: Optional[Callable[[int], int]] = None
+        self.pressure: List[Callable[[int], int]] = []
+        self.host_inventory: Optional[Callable[[], int]] = None
+        self.requant_inventory: Optional[Callable[[], int]] = None
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._c_allocs = self.metrics.counter("alloc.allocs")
         self._c_reclaims = self.metrics.counter("alloc.reclaims")
@@ -159,13 +174,39 @@ class PageAllocator:
         """Live references on ``page`` (0 = free / never allocated)."""
         return self._refs.get(page, 0)
 
+    def host_pages(self) -> int:
+        """Pages currently parked in the host tier (0 without a tier)."""
+        return int(self.host_inventory()) if self.host_inventory else 0
+
+    def requant_pages(self) -> int:
+        """Cold cached pages the quant tier could narrow in place (0
+        without an adaptation tier)."""
+        return (int(self.requant_inventory())
+                if self.requant_inventory else 0)
+
+    def add_pressure(self, fn: Callable[[int], int]) -> None:
+        """Register an ``n_pages -> n_freed`` pressure callback (tried after
+        ``reclaim`` when the free list empties mid-``alloc``)."""
+        self.pressure.append(fn)
+
+    def _apply_pressure(self, needed: int) -> None:
+        if self._free:
+            return
+        self._c_reclaims.inc()
+        if self.reclaim is not None:
+            self.reclaim(needed)
+        for fn in self.pressure:
+            if self._free:
+                return
+            fn(needed)
+
     def alloc(self) -> int:
         if not self._free:
-            self._c_reclaims.inc()
-            if self.reclaim is not None:
-                self.reclaim(1)
+            self._apply_pressure(1)
         if not self._free:
-            raise OutOfPagesError(needed=1, free=0, total=self.num_usable)
+            raise OutOfPagesError(needed=1, free=0, total=self.num_usable,
+                                  requantizable=self.requant_pages(),
+                                  host_pages=self.host_pages())
         page = self._free.pop()
         self._refs[page] = 1
         self._c_allocs.inc()
@@ -457,6 +498,33 @@ def map_kv_pools(caches, fn):
     entries pass through. Order as :func:`iter_kv_pools`."""
     return [fn(c) if isinstance(c, dict) and "k_pages" in c else c
             for c in caches]
+
+
+def kv_pool_groups(caches, scan: str = "group"
+                   ) -> List[Tuple[List[Dict[str, torch.Tensor]], int]]:
+    """The per-layer pools grouped as the reference's cache structure
+    stacks them, for the dense decoders the port serves (one layer
+    segment): ``(pools, page_axis)`` per reference pool, in its traversal
+    order. ``scan="group"`` stacks each run of consecutive layers whose
+    pools share container, dtype and shape (a uniform cache is one run),
+    page axis 1 of the stacked ``(layers, pages, ...)`` pool;
+    ``scan="unroll"`` (the reference's ``--kv-profile-scan unroll`` with a
+    per-layer profile) keeps one unstacked pool per layer, page axis 0.
+    The tiered page store keys its records and snapshots by this grouping,
+    so a page moves between the two packages byte for byte."""
+    if scan not in ("group", "unroll"):
+        raise ValueError(f"scan must be 'group' or 'unroll', got {scan!r}")
+    groups: List[Tuple[List[Dict[str, torch.Tensor]], int]] = []
+    for pool in iter_kv_pools(caches):
+        sig = (pool["k_pages"].dtype, tuple(pool["k_pages"].shape))
+        if scan == "unroll":
+            groups.append(([pool], 0))
+        elif groups and (groups[-1][0][0]["k_pages"].dtype,
+                         tuple(groups[-1][0][0]["k_pages"].shape)) == sig:
+            groups[-1][0].append(pool)
+        else:
+            groups.append(([pool], 1))
+    return groups
 
 
 def caches_kv_bytes(caches) -> Dict[str, int]:

@@ -46,9 +46,28 @@ write harmlessly (their own dense row, or the scratch page).
 * ``metrics="on"`` records request-lifecycle spans on ``self.tracer``
   (Chrome trace JSON, ``slo_summary``); ``snapshot_out`` streams registry
   snapshots as JSONL.
+* Tiered page store (``kv_offload="host"``, ``core.page_store``): pool
+  pressure demotes unreferenced cached prefixes to a host tier, bytes in
+  their containers, instead of destroying them, and admission promotes
+  matched host pages back. ``pager_async="on"`` issues those copies on a
+  side CUDA stream through pinned memory and resolves them at span
+  boundaries, and prefetches the pages the queue head will promote.
+  ``snapshot_prefix_cache`` / ``restore_prefix_cache``
+  (``--prefix-snapshot``) persist the cached chains across restarts.
+* Online precision adaptation (``kv_adapt="on"``, prefix cache on): pool
+  pressure first narrows cold cached pages one container step (fp ->
+  int8 -> int4) into a byte-bounded device tier, and a hit widens them
+  back.
+* SLO scheduling (``sched="slo"``): admission orders the queue by
+  (priority, deadline, arrival), may admit up to ``admit_window``
+  requests past a deferred head, and (with the host tier) preempts a
+  strictly less urgent running request: its private pages go to the host
+  tier, its cached prompt pages stay pinned, and it resumes later from
+  the same bytes without a re-prefill. ``predictor="on"`` gates new
+  no-deadline admissions on an online deadline-miss model.
 
-Options of the reference that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
@@ -59,11 +78,15 @@ Options of the reference that are not ported yet raise
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --page-size 8 --kv-bits 8 --prefix-cache on --kv-scale page \\
       --trace-out trace.json
+  python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
+      --page-size 8 --kv-bits 8 --num-pages 24 --prefix-cache on \\
+      --kv-offload host --sched slo --pager-async on
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List, Optional
 
@@ -73,6 +96,10 @@ import torch
 from .. import resolve_device
 from ..configs.registry import get_config, get_smoke_config
 from ..core.fixedpoint import FixedPointFormat
+from ..core.page_store import (HostPageStore, QuantTierStore, TieredPager,
+                               cache_geometry, extract_page,
+                               load_prefix_snapshot, save_prefix_snapshot,
+                               snapshot_path)
 from ..core.paged_kv import (SCRATCH_PAGE, OutOfPagesError, PageAllocator,
                              PagedCacheSpec, caches_kv_bytes, copy_pool_pages,
                              map_kv_pools, max_pages_per_seq)
@@ -84,8 +111,24 @@ from ..quant.apply import (build_model_quant, kv_profile_key,
                            transformer_layer_names)
 from ..runtime.telemetry import (MetricsRegistry, MetricsSnapshotter,
                                  SLOMonitor, make_tracer, metric_attr)
+from .scheduler import DeadlineMissPredictor, SchedPolicy, SLOScheduler
 from .steps import make_chunk_prefill_step, make_decode_step, \
     make_fused_step
+
+
+@dataclasses.dataclass
+class PreemptedState:
+    """A preempted request's slot state, captured at a span boundary: the
+    cache position, the next token, the generated count, and one entry per
+    slot page in page-table order, either ``("host", handle)`` (the page's
+    bytes went to the host tier) or ``("alias", node)`` (the page is a
+    still-resident prefix-cache node: the slot's reference was dropped and
+    the node pinned, and resume aliases it again)."""
+
+    pos: int
+    token: int
+    gen: int
+    entries: List[tuple]
 
 
 @dataclasses.dataclass
@@ -95,10 +138,16 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    priority: int = 0           # higher = more urgent (SLO scheduling)
     deadline_step: Optional[int] = None  # SLO: finish by this decode step
     arrive_step: int = 0        # becomes visible to admission at this step
     error: Optional[Exception] = None    # set when admission rejects
     finish_step: Optional[int] = None    # decode-step clock at retirement
+    preemptions: int = 0
+    _paused: Optional[PreemptedState] = None
+    # the admission cycle's predictor features (predictor on, deadlined
+    # requests): the training example its met/missed outcome labels
+    _risk_feat: Optional[list] = None
 
 
 def _pow2_bucket(n: int, cap: int) -> int:
@@ -170,8 +219,12 @@ class BatchedServer:
     batch size). ``fused="on"`` runs one ragged program per scheduler
     cycle (needs bucketed prefill). ``prefix_cache``, ``kv_scale``,
     ``kv_profile`` (with ``kv_profile_scan``, "group" or "unroll": one
-    per-layer loop in the port either way) and ``metrics`` (with
-    ``snapshot_out``/``snapshot_every``) are as in the module docstring.
+    per-layer loop in the port either way, but the page store groups its
+    records as the reference's pools of that scan mode), ``metrics`` (with
+    ``snapshot_out``/``snapshot_every``), ``kv_offload`` (with
+    ``host_pages``, ``pager_async``), ``kv_adapt`` (with ``adapt_pages``,
+    ``adapt_floor_bits``) and ``sched`` (with ``admit_window``,
+    ``preempt``, ``predictor``) are as in the module docstring.
     """
 
     prefill_forwards = metric_attr("serve.prefill_forwards")
@@ -184,6 +237,9 @@ class BatchedServer:
     _gen_tokens = metric_attr("serve.gen_tokens")
     prefix_hit_tokens = metric_attr("serve.prefix_hit_tokens")
     prefill_forwards_saved = metric_attr("serve.prefill_forwards_saved")
+    preempt_count = metric_attr("serve.preempt_count")
+    resume_count = metric_attr("serve.resume_count")
+    realias_skipped = metric_attr("serve.realias_skipped")
 
     def __init__(self, cfg, model, *, batch_size: int, max_len: int,
                  kv_bits: int = 0, page_size: int = 0,
@@ -193,20 +249,19 @@ class BatchedServer:
                  kv_profile: Optional[PrecisionPolicy] = None,
                  kv_scale: str = "static", prefix_cache: str = "off",
                  kv_profile_scan: str = "group",
-                 kv_offload: str = "none", sched: str = "fifo",
-                 kv_adapt: str = "off", fused: str = "off",
+                 kv_offload: str = "none",
+                 host_pages: Optional[int] = None,
+                 sched: str = "fifo", admit_window: int = 4,
+                 preempt: Optional[bool] = None,
+                 kv_adapt: str = "off", adapt_pages: int = 0,
+                 adapt_floor_bits: int = 4, fused: str = "off",
                  metrics: str = "off", snapshot_out: Optional[str] = None,
-                 snapshot_every: int = 50, tp: int = 1, device="cuda"):
+                 snapshot_every: int = 50, predictor: str = "off",
+                 pager_async: str = "off", tp: int = 1, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lies on {model.device}, server asked "
                              f"for {self.device}")
-        if kv_offload != "none":
-            raise _not_ported("--kv-offload host", "9")
-        if sched != "fifo":
-            raise _not_ported("--sched slo", "9")
-        if kv_adapt != "off":
-            raise _not_ported("--kv-adapt on", "9")
         if tp != 1:
             raise _not_ported("tensor-parallel serving (--tp)", "13")
         self.paged = page_size > 0
@@ -242,9 +297,55 @@ class BatchedServer:
         if prefix_cache == "on" and not self.paged:
             raise ValueError("--prefix-cache on shares pool pages; it needs "
                              "--page-size > 0")
+        if kv_offload not in ("none", "host"):
+            raise ValueError(f"kv_offload must be 'none' or 'host', "
+                             f"got {kv_offload!r}")
+        if kv_offload == "host" and not self.paged:
+            raise ValueError("--kv-offload host demotes pool pages; it "
+                             "needs --page-size > 0")
+        if kv_adapt not in ("off", "on"):
+            raise ValueError(f"kv_adapt must be 'off' or 'on', "
+                             f"got {kv_adapt!r}")
+        if kv_adapt == "on" and not (self.paged and prefix_cache == "on"):
+            raise ValueError("--kv-adapt on requantizes cold CACHED prefix "
+                             "pages under pool pressure; it needs "
+                             "--page-size > 0 and --prefix-cache on")
+        if adapt_floor_bits not in (4, 8):
+            raise ValueError(f"adapt_floor_bits must be 4 or 8, "
+                             f"got {adapt_floor_bits}")
+        if sched not in ("fifo", "slo"):
+            raise ValueError(f"sched must be 'fifo' or 'slo', got {sched!r}")
+        if sched == "slo" and not self.paged:
+            raise ValueError("--sched slo schedules page-pool admission; "
+                             "it needs --page-size > 0")
+        if preempt is None:
+            preempt = sched == "slo" and kv_offload == "host"
+        if preempt and kv_offload != "host":
+            raise ValueError("preemption parks victim pages in the host "
+                             "tier; it needs --kv-offload host")
+        if preempt and sched != "slo":
+            raise ValueError("preemption is driven by the SLO scheduler; "
+                             "it needs --sched slo")
+        if predictor not in ("off", "on"):
+            raise ValueError(f"predictor must be 'off' or 'on', "
+                             f"got {predictor!r}")
+        if predictor == "on" and sched != "slo":
+            raise ValueError("--predictor on gates speculative admissions "
+                             "inside the SLO admission loop; it needs "
+                             "--sched slo")
+        if pager_async not in ("off", "on"):
+            raise ValueError(f"pager_async must be 'off' or 'on', "
+                             f"got {pager_async!r}")
+        if pager_async == "on" and kv_offload != "host":
+            raise ValueError("--pager-async on overlaps host-tier page "
+                             "transfers with decode; it needs "
+                             "--kv-offload host")
         if kv_profile_scan not in ("group", "unroll"):
             raise ValueError(f"kv_profile_scan must be 'group' or 'unroll', "
                              f"got {kv_profile_scan!r}")
+        # the page store's record grouping: the reference unrolls only a
+        # per-layer profile
+        self.kv_scan = kv_profile_scan if kv_profile is not None else "group"
         if fused not in ("on", "off"):
             raise ValueError(f"fused must be 'on' or 'off', got {fused!r}")
         if fused == "on" and self.prefill_mode != "bucketed":
@@ -257,6 +358,10 @@ class BatchedServer:
             raise ValueError("prefill_batch must be >= 0 (0 = auto)")
         self.metrics = MetricsRegistry()
         self.tracer = make_tracer(metrics)
+        self.scheduler = (SLOScheduler(SchedPolicy(admit_window=admit_window,
+                                                   preempt=preempt),
+                                       metrics=self.metrics)
+                          if sched == "slo" else None)
         self._snapshotter = (MetricsSnapshotter(self.metrics, snapshot_out,
                                                 every=snapshot_every)
                              if snapshot_out else None)
@@ -269,6 +374,9 @@ class BatchedServer:
         self.prefill_bucket = prefill_bucket
         self.prefill_batch = prefill_batch
         self.slo_monitor = SLOMonitor(self.metrics)
+        self.predictor = (DeadlineMissPredictor(metrics=self.metrics)
+                          if predictor == "on" else None)
+        self._risk_feat_last: Optional[list] = None
         self.quant = None
         if kv_profile is not None:
             if kv_bits:
@@ -322,6 +430,8 @@ class BatchedServer:
         self.page_size = page_size
         spec = None
         self.prefix_cache: Optional[PrefixCache] = None
+        self.host_store: Optional[HostPageStore] = None
+        self.pager: Optional[TieredPager] = None
         if self.paged:
             self.np_max = max_pages_per_seq(max_len, page_size)
             if num_pages is None:
@@ -335,16 +445,38 @@ class BatchedServer:
             self.slot_reserved = [0] * batch_size  # worst-case page demand
             self._pt_dev = _upload(self.page_table, self.device)
             self._pt_dirty = False
+            if kv_offload == "host":
+                self.host_store = HostPageStore(max_pages=host_pages,
+                                                metrics=self.metrics)
+                self.pager = TieredPager(
+                    self.allocator, self.host_store, lambda: self.caches,
+                    metrics=self.metrics, async_mode=pager_async == "on",
+                    tracer=self.tracer, scan=self.kv_scan)
+                self.allocator.host_inventory = \
+                    lambda: self.host_store.num_pages
             if prefix_cache == "on":
                 self.prefix_cache = PrefixCache(self.allocator, page_size,
                                                 self.profile_key,
+                                                pager=self.pager,
                                                 metrics=self.metrics,
                                                 tracer=self.tracer)
-                # pool pressure evicts cold cached prefixes before an
-                # allocation fails
+                # pool pressure requantizes, demotes or drops cold cached
+                # prefixes before an allocation fails
                 self.allocator.reclaim = self.prefix_cache.evict
         self.caches = init_cache(cfg, self.quant, spec, self.device,
                                  batch=batch_size, max_len=max_len)
+        # the adaptation tier probes the pools' geometry, so it follows
+        # the caches
+        self.quant_tier: Optional[QuantTierStore] = None
+        if kv_adapt == "on":
+            self.quant_tier = QuantTierStore(
+                lambda: self.caches,
+                pages=adapt_pages or self.allocator.num_usable,
+                floor_bits=adapt_floor_bits, metrics=self.metrics,
+                scan=self.kv_scan)
+            self.prefix_cache.tier = self.quant_tier
+            self.allocator.requant_inventory = \
+                self.prefix_cache.requantizable_pages
         self.slots: List[Optional[Request]] = [None] * batch_size
         self.pos = np.zeros((batch_size,), np.int32)     # host-side lengths
         self.tokens = np.zeros((batch_size,), np.int32)  # host-side tokens
@@ -359,6 +491,10 @@ class BatchedServer:
         self._gen_tokens = 0        # generated tokens (all run() calls)
         self.prefix_hit_tokens = 0        # prompt tokens served from cache
         self.prefill_forwards_saved = 0   # forwards prefix hits avoided
+        self.preempt_count = 0            # victim slots parked + re-queued
+        self.resume_count = 0             # preempted requests resumed
+        self.realias_skipped = 0          # victim pages kept resident by
+        #                                   re-aliasing cache nodes
         self.rejected: List[Request] = []
         if self.paged:
             reg = self.metrics.register_gauge
@@ -366,6 +502,14 @@ class BatchedServer:
                 lambda: sum(caches_kv_bytes(self.caches).values()))
             reg("kv.device_pages_free", lambda: self.allocator.num_free)
             reg("kv.device_pages_usable", lambda: self.allocator.num_usable)
+            reg("kv.host_bytes",
+                lambda: self.host_store.nbytes if self.host_store else 0)
+            reg("kv.host_pages",
+                lambda: self.host_store.num_pages if self.host_store else 0)
+            reg("kv.tier_bytes",
+                lambda: self.quant_tier.nbytes if self.quant_tier else 0)
+            reg("kv.tier_pages",
+                lambda: self.quant_tier.num_pages if self.quant_tier else 0)
 
     # -- page bookkeeping ---------------------------------------------------
     def _ensure_page(self, slot: int, position: int):
@@ -571,6 +715,7 @@ class BatchedServer:
         self.pos[i] = 0
         self.tokens[i] = 0
         self.slot_gen[i] = 0
+        self._discard_paused(job.req)
         job.req.error = err
 
     def _run_prefills(self, jobs: List[_PrefillJob]):
@@ -769,13 +914,15 @@ class BatchedServer:
     # -- admission ----------------------------------------------------------
     def _admission_plan(self, req: Request):
         """Preflight one request against the pool: ``(verdict, info)`` with
-        verdict in {"admit", "defer", "reject"}. The worst-case demand, less
-        the fully matched cached pages of a prefix hit, is checked against
-        the free list less outstanding reservations, plus the cached pages
-        eviction could free, so ``_ensure_page`` can never find the free
-        list empty mid-run. On "admit" the hit's chain is pinned
-        (``info["hit"]``) until ``_do_admit`` unpins it; a request that
-        is deferred or rejected leaves nothing pinned. Malformed requests
+        verdict in {"admit", "defer", "reject"}. The worst-case demand,
+        less the fully matched resident pages of a prefix hit, plus one
+        page per matched node off the device (host or quant tier), is
+        checked against the free list less outstanding reservations, plus
+        the cached pages eviction could free, so ``_ensure_page`` can never
+        find the free list empty mid-run. A preempted request needs only
+        its host pages. On "admit" the hit's chain is pinned
+        (``info["hit"]``) until ``_do_admit`` unpins it; a request that is
+        deferred or rejected leaves nothing pinned. Malformed requests
         raise before any pin."""
         if len(req.prompt) == 0:
             raise ValueError(f"request {req.rid} has an empty prompt")
@@ -786,13 +933,20 @@ class BatchedServer:
             return "admit", {"hit": None, "total": 0}
         total = self._pages_needed(req)
         hit = None
-        need_new = total
-        if self.prefix_cache is not None:
+        if req._paused is not None:
+            # resume allocates only the host pages; re-aliased (pinned)
+            # cache nodes cost nothing
+            need_new = total - sum(1 for kind, _ in req._paused.entries
+                                   if kind == "alias")
+        elif self.prefix_cache is not None:
             # record=False: a deferred request retries this lookup every
             # span; the hit rate counts once, at admission
             hit = self.prefix_cache.lookup(req.prompt[:-1], record=False)
             self.prefix_cache.pin(hit)
-            need_new = total - len(hit.nodes)
+            need_new = (total - len(hit.nodes)
+                        + self.prefix_cache.host_nodes_in(hit))
+        else:
+            need_new = total
         avail = self.allocator.num_free - self._outstanding_reservation()
         evictable = 0
         if need_new > avail and self.prefix_cache is not None:
@@ -810,36 +964,50 @@ class BatchedServer:
                 needed=need_new, free=self.allocator.num_free,
                 total=self.allocator.num_usable, rid=req.rid,
                 reserved=self._outstanding_reservation(), written=written,
-                evictable=evictable)
+                evictable=evictable,
+                requantizable=self.allocator.requant_pages(),
+                host_pages=self.allocator.host_pages())
             return "reject", {"err": err}
-        return "defer", {"total": total, "need_new": need_new}
+        return "defer", {"total": total, "need_new": need_new,
+                         "shortfall": need_new - avail}
 
     def _do_admit(self, i: int, req: Request, info: dict,
                   jobs: List[_PrefillJob]):
-        """Claim free slot ``i`` for ``req``: alias the pinned prefix chain,
-        copy a page the prompt diverges inside, and stage the suffix's
-        prefill. Bucketed prefills are appended to ``jobs`` and run batched
-        (or fused) at the end of the admission cycle (at once with
+        """Claim free slot ``i`` for ``req``: make the pinned prefix chain
+        resident and alias it, copy a page the prompt diverges inside, and
+        stage the suffix's prefill (or resume a preempted request).
+        Bucketed prefills are appended to ``jobs`` and run batched (or
+        fused) at the end of the admission cycle (at once with
         ``prefill_batch=1``, so the next admission can alias them); a dense
         cache or stepwise mode prefills the slot here."""
-        self.tracer.req_admit(req.rid, self._clock)
+        if (self.predictor is not None and req.deadline_step is not None
+                and req._risk_feat is None):
+            # this cycle's features; the request's outcome is their label
+            req._risk_feat = self._risk_feat_last
         if not self.paged:
+            self.tracer.req_admit(req.rid, self._clock)
             self._prefill_slot(i, req)
             self.slots[i] = req
             return
+        if req._paused is not None:
+            self._resume_slot(i, req, info["total"])
+            return
+        self.tracer.req_admit(req.rid, self._clock)
         hit = info["hit"]
         self.slot_reserved[i] = info["total"]
         start = 0
         if hit is not None:
             for j, node in enumerate(hit.nodes):
-                self.allocator.incref(node.page)   # the slot's alias
-                self.page_table[i, j] = node.page
-                self.slot_pages[i].append(node.page)
+                # a host or quant-tier node comes back to the device first
+                page = self.prefix_cache.ensure_resident(node)
+                self.allocator.incref(page)   # the slot's alias
+                self.page_table[i, j] = page
+                self.slot_pages[i].append(page)
                 self._pt_dirty = True
             start = len(hit.nodes) * self.page_size
             if hit.cow_node is not None and hit.cow_valid > 0:
                 # divergence inside a shared page: a private copy
-                src = hit.cow_node.page
+                src = self.prefix_cache.ensure_resident(hit.cow_node)
                 dst = self.allocator.alloc()   # the reclaim hook may evict
                 self.page_table[i, len(hit.nodes)] = dst
                 self.slot_pages[i].append(dst)
@@ -864,10 +1032,26 @@ class BatchedServer:
             if self.prefix_cache is not None:
                 self._cache_insert(i, req)
 
+    def _discard_paused(self, req: Request) -> None:
+        """Release a preempted request's parked resources once it will
+        never resume (a reject or a rollback): unpin each re-aliased prefix
+        node and drop each host page of its resume state."""
+        st = req._paused
+        if st is None:
+            return
+        for kind, val in st.entries:
+            if kind == "alias":
+                self.prefix_cache.unpin_node(val)
+            else:
+                self.host_store.drop(val)
+        req._paused = None
+
     def _reject(self, queue: List[Request], idx: int, err) -> None:
         """Drop a never-fit request from the queue; the error is recorded
-        on the request and re-raised once the serviceable traffic drained."""
+        on the request (FIFO mode re-raises it once the serviceable traffic
+        drained). A preempted request releases its parked state first."""
         req = queue.pop(idx)
+        self._discard_paused(req)
         req.error = err
         req.done = True
         self.rejected.append(req)
@@ -894,6 +1078,89 @@ class BatchedServer:
                 self._do_admit(i, queue.pop(0), info, jobs)
                 break
 
+    def _admit_slo(self, queue: List[Request], jobs: List[_PrefillJob],
+                   spec_budget: Optional[int] = None):
+        """Priority / EDF admission: up to ``admit_window`` requests past a
+        deferred head may still be admitted, and a request that lacks a
+        slot or pages may preempt strictly less urgent running requests
+        (into the host tier). ``spec_budget`` (predictor on) caps new
+        speculative admissions this cycle: no-deadline, non-resumed
+        requests past it stay queued; deadlined and resuming requests are
+        never gated."""
+        pol = self.scheduler.policy
+        self.scheduler.sort_queue(queue)
+        preempts_left = pol.max_preempt_per_admit
+        deferred = False
+        examined = 0          # requests examined past the deferred head
+        idx = 0
+        while idx < len(queue):
+            if deferred:
+                examined += 1
+                if examined > pol.admit_window:
+                    break
+            req = queue[idx]
+            speculative = (req.deadline_step is None
+                           and req._paused is None)
+            if speculative and spec_budget is not None and spec_budget <= 0:
+                # gate before planning: a plan pins the hit chain
+                self.predictor.gated += 1
+                self.tracer.req_defer(req.rid, self._clock)
+                idx += 1
+                continue
+            free = [i for i in range(self.B) if self.slots[i] is None]
+            if not free:
+                # batch full: claim a slot by preempting a strictly less
+                # urgent running request
+                n = self._preempt_for(req, queue, 0, preempts_left)
+                if n:
+                    preempts_left -= n
+                    continue
+                break
+            verdict, info = self._admission_plan(req)
+            if verdict == "reject":
+                self._reject(queue, idx, info["err"])
+                continue
+            if verdict == "admit":
+                queue.pop(idx)
+                self._do_admit(free[0], req, info, jobs)
+                if speculative and spec_budget is not None:
+                    spec_budget -= 1
+                if deferred:
+                    self.scheduler.ooo_admissions += 1
+                continue
+            # defer: try preemption before stepping past this request
+            n = self._preempt_for(req, queue, info["shortfall"],
+                                  preempts_left)
+            if n:
+                preempts_left -= n
+                continue                  # plan the same request again
+            self.metrics.counter("sched.defers").inc()
+            self.tracer.req_defer(req.rid, self._clock)
+            deferred = True
+            idx += 1
+
+    def _risk_features(self, queue: List[Request]) -> list:
+        """The predictor's feature vector for this cycle. Queue depth and
+        prefill debt count deadlined requests only, so a gated backlog of
+        speculative work cannot feed the gate that holds it."""
+        deadlined = [r for r in queue if r.deadline_step is not None]
+        live = sum(1 for s in self.slots if s is not None)
+        if self.paged:
+            usable = max(1, self.allocator.num_usable)
+            free = max(0, self.allocator.num_free
+                       - self._outstanding_reservation())
+            free_frac = free / usable
+        else:
+            free_frac = 1.0 - live / self.B
+        return self.predictor.features(
+            queue_deadlined=len(deadlined), batch=self.B,
+            free_frac=free_frac,
+            prefill_debt=sum(len(r.prompt) for r in deadlined),
+            debt_cap=self.B * self.prefill_bucket,
+            live_frac=live / self.B,
+            arrival_ewma=self.slo_monitor.arrival_rate.get(),
+            tpot_slowdown=self.slo_monitor.tpot_slowdown())
+
     def _admit(self, queue: List[Request]):
         """One admission cycle: claim as many queued requests as slots and
         pages allow, then run their prefills batched."""
@@ -901,15 +1168,162 @@ class BatchedServer:
             return
         self.metrics.histogram("sched.queue_depth").observe(len(queue))
         self.slo_monitor.note_queue_depth(len(queue))
+        spec_budget: Optional[int] = None
+        if self.predictor is not None:
+            feat = self._risk_features(queue)
+            self._risk_feat_last = feat
+            self.predictor.consult(feat)
+            spec_budget = self.predictor.spec_budget(self.B)
+            if (spec_budget <= 0
+                    and all(s is None for s in self.slots)
+                    and not any(r.deadline_step is not None
+                                or r._paused is not None for r in queue)):
+                # nothing live and nothing the gate would let through:
+                # admit one row so speculative traffic still drains
+                spec_budget = 1
         with self.tracer.span("admission", args={"queued": len(queue),
                                                  "step": self._clock}):
             jobs: List[_PrefillJob] = []
-            self._admit_fifo(queue, jobs)
+            if self.scheduler is not None:
+                self._admit_slo(queue, jobs, spec_budget)
+            else:
+                self._admit_fifo(queue, jobs)
             if jobs:
                 if self.fused:
                     self._run_fused_rounds(jobs)
                 else:
                     self._run_prefills(jobs)
+
+    # -- preemption ---------------------------------------------------------
+    def _preempt_gain(self, i: int) -> int:
+        """Device pages preempting slot ``i`` recovers: its exclusively held
+        pages (a shared page only drops a reference) plus its unallocated
+        reservation."""
+        freed = sum(1 for p in self.slot_pages[i]
+                    if self.allocator.refcount(p) == 1)
+        return freed + max(0, self.slot_reserved[i] - len(self.slot_pages[i]))
+
+    def _realias_plan(self, i: int) -> dict:
+        """Slot pages of ``i`` that alias still-resident prefix-cache nodes
+        (page-table index -> node). Copying such a page to the host frees
+        nothing (the cache's reference keeps it), so preemption pins the
+        node and drops only the slot's reference, and resume aliases it
+        again."""
+        req = self.slots[i]
+        if self.prefix_cache is None or req is None:
+            return {}
+        hit = self.prefix_cache.lookup(req.prompt[:-1], record=False)
+        plan = {}
+        for j, node in enumerate(hit.nodes):
+            if (j < len(self.slot_pages[i]) and node.resident
+                    and node.page == self.slot_pages[i][j]):
+                plan[j] = node
+            else:
+                return plan     # a private page (a CoW copy): chain ends
+        j = len(hit.nodes)
+        if (hit.cow_node is not None and j < len(self.slot_pages[i])
+                and hit.cow_node.resident
+                and hit.cow_node.page == self.slot_pages[i][j]):
+            plan[j] = hit.cow_node   # the victim's own partial leaf page
+        return plan
+
+    def _preempt_for(self, req: Request, queue: List[Request],
+                     shortfall: int, budget: int) -> int:
+        """Preempt strictly less urgent running slots so ``req`` becomes
+        admissible (``shortfall`` pages short; 0 = it needs only a slot),
+        at most ``budget`` victims. Victims go to the host tier (their
+        cache-aliased pages are pinned instead and need no host room) and
+        re-queue. Returns the slots preempted."""
+        if self.scheduler is None or self.host_store is None or budget <= 0:
+            return 0
+        running = [(i, self.slots[i], 0) for i in range(self.B)
+                   if self.slots[i] is not None]
+        victims = self.scheduler.choose_victims(
+            req, running, max(0, shortfall), self._preempt_gain,
+            limit=budget)
+        preempted = 0
+        for i in victims:
+            plan = self._realias_plan(i)
+            need_room = len(self.slot_pages[i]) - len(plan)
+            while not self.host_store.has_room(need_room):
+                # make host room by dropping cold demoted prefixes
+                if (self.prefix_cache is None
+                        or not self.prefix_cache.drop_host_lru()):
+                    return preempted      # the host tier is full
+            queue.append(self._preempt_slot(i, plan))
+            preempted += 1
+        return preempted
+
+    def _preempt_slot(self, i: int, plan: Optional[dict] = None) -> Request:
+        """Evict the request in slot ``i`` at a span boundary: each private
+        page goes to the host tier (``pager.offload``) and each
+        cache-aliased page stays resident as a pinned node; the slot's
+        pages and reservation are released and the resume state captured.
+        Returns the request, to re-queue."""
+        if plan is None:
+            plan = self._realias_plan(i)
+        req = self.slots[i]
+        self.tracer.req_preempt(req.rid, self._clock)
+        entries = []
+        with self.tracer.req_span(req.rid, "offload",
+                                  args={"pages": len(self.slot_pages[i]),
+                                        "step": self._clock}):
+            for j, p in enumerate(self.slot_pages[i]):
+                node = plan.get(j)
+                if node is not None:
+                    # the cache's reference keeps the page; the pin keeps
+                    # eviction off it until resume
+                    self.prefix_cache.pin_node(node)
+                    entries.append(("alias", node))
+                    self.realias_skipped += 1
+                else:
+                    entries.append(("host", self.pager.offload(p)))
+                self.allocator.free([p])
+        self.slot_pages[i] = []
+        self.page_table[i, :] = SCRATCH_PAGE
+        self._pt_dirty = True
+        self.slot_reserved[i] = 0
+        req._paused = PreemptedState(pos=int(self.pos[i]),
+                                     token=int(self.tokens[i]),
+                                     gen=int(self.slot_gen[i]),
+                                     entries=entries)
+        req.preemptions += 1
+        self.preempt_count += 1
+        self.pos[i] = 0
+        self.slot_gen[i] = 0
+        self.tokens[i] = 0
+        self.slots[i] = None
+        return req
+
+    def _resume_slot(self, i: int, req: Request, total: int):
+        """Re-admit a preempted request: its host pages go into freshly
+        allocated pages (the same bytes; ``pager.resume`` uses the upload
+        ``_prefetch_promotes`` staged), its pinned nodes are aliased again,
+        and the slot's clock, token and count are restored. No prefill
+        runs."""
+        st = req._paused
+        self.slot_reserved[i] = total
+        with self.tracer.req_span(req.rid, "resume",
+                                  args={"pages": len(st.entries),
+                                        "step": self._clock}):
+            for j, (kind, val) in enumerate(st.entries):
+                if kind == "alias":
+                    assert val.resident, "pinned prefix node lost residency"
+                    page = val.page
+                    self.allocator.incref(page)  # the slot's alias
+                    self.prefix_cache.unpin_node(val)
+                else:
+                    page = self.pager.resume(val)  # reclaim may evict
+                self.page_table[i, j] = page
+                self.slot_pages[i].append(page)
+                self._pt_dirty = True
+        self.pos[i] = st.pos
+        self.tokens[i] = st.token
+        self.slot_gen[i] = st.gen
+        req._paused = None
+        self.resume_count += 1
+        self.tracer.req_admit(req.rid, self._clock, resumed=True)
+        self.slots[i] = req
 
     # -- decode -------------------------------------------------------------
     def _run_span(self) -> int:
@@ -925,11 +1339,38 @@ class BatchedServer:
         missed = req.deadline_step is not None and step > req.deadline_step
         if missed:
             self.metrics.counter("sched.deadline_misses").inc()
+        if self.predictor is not None and req._risk_feat is not None:
+            self.predictor.observe(req._risk_feat, missed)
         self.slo_monitor.note_finish(req.rid, not missed, len(req.out))
         self.tracer.req_finish(req.rid, step, len(req.out))
 
     def start_loop(self, requests: List[Request]) -> "ServeLoop":
         return ServeLoop(self, requests)
+
+    def _prefetch_promotes(self, queue: List[Request]) -> None:
+        """Async pager: requests still queued after admission are next
+        cycle's candidates, so stage the upload of their host-parked pages
+        (prefix-chain nodes and preempted state) now, behind the decode
+        span about to run. Pure staging through ``peek_chain`` (no trie
+        stamps, no allocation): tokens are the same with it on or off."""
+        pager = self.pager
+        if pager is None or not pager.async_mode or not queue:
+            return
+        budget = pager.stage_room()
+        # only the queue head can be admitted next cycle
+        for req in queue[:max(2, self.B)]:
+            if budget <= 0:
+                return
+            if req._paused is not None:
+                for kind, val in req._paused.entries:
+                    if kind == "host" and budget > 0:
+                        budget -= pager.prefetch(val)
+                continue
+            if self.prefix_cache is None:
+                continue
+            for node in self.prefix_cache.peek_chain(req.prompt[:-1]):
+                if node.host is not None and budget > 0:
+                    budget -= pager.prefetch(node.host)
 
     def run(self, requests: List[Request], *, verbose: bool = False):
         t0 = time.perf_counter()
@@ -939,6 +1380,7 @@ class BatchedServer:
         loop = self.start_loop(requests)
         while loop.tick():
             pass
+        loop.close()
         dt = time.perf_counter() - t0
         if verbose:
             steps = self.decode_steps - steps0
@@ -959,45 +1401,128 @@ class BatchedServer:
                       f"hits, {s['hit_tokens']} tokens reused, "
                       f"{self.prefill_forwards_saved} prefill forwards "
                       f"saved, {s['cow_copies']} CoW copies, "
-                      f"{s['cached_pages']} pages cached "
-                      f"({s['evictions']} evicted)")
+                      f"{s['cached_pages']} pages cached + "
+                      f"{s['host_pages']} host ({s['evictions']} evicted, "
+                      f"{s['demotions']} demoted, {s['promotions']} "
+                      f"promoted)")
+            if self.quant_tier is not None:
+                s = self.prefix_cache.stats()
+                print(f"[serve] quant tier: {self.quant_tier.num_pages} "
+                      f"pages / {self.quant_tier.nbytes / 2**20:.2f} MiB "
+                      f"parked (peak {self.quant_tier.peak_pages}), "
+                      f"{s['requants']} requants, {s['deepens']} deepens, "
+                      f"{s['tier_promotions']} promotions")
+            if self.host_store is not None:
+                print(f"[serve] host tier: {self.host_store.num_pages} "
+                      f"pages / {self.host_store.nbytes / 2**20:.2f} MiB "
+                      f"(peak {self.host_store.peak_pages}), "
+                      f"{self.preempt_count} preemptions, "
+                      f"{self.resume_count} resumes, "
+                      f"{self.realias_skipped} pages re-aliased")
         new_rejects = self.rejected[rejected0:]
-        if new_rejects:
+        if new_rejects and self.scheduler is None:
+            # FIFO: the first impossible request surfaces once the
+            # serviceable traffic drained; SLO mode records the errors on
+            # the requests
             raise new_rejects[0].error
         return requests
 
     def release_prefix_cache(self) -> int:
-        """Drop every unreferenced cached prefix page back to the free
-        list. Returns the pages the cache still holds: 0 once every request
-        has finished, anything else is a refcount leak."""
+        """Drop every unreferenced cached prefix page back to the free list
+        (and every parked one out of the host and quant tiers). Returns the
+        device pages the cache still holds: 0 once every request has
+        finished, anything else is a refcount leak."""
         if self.prefix_cache is None:
             return 0
         return self.prefix_cache.clear()
 
     def kv_inventory(self) -> dict:
-        """The KV store's bytes per container and page counts, with the
-        reference's keys. Scalars read the registered ``kv.*`` gauges, so
-        this dict and the snapshot stream share one schema; the host-tier
-        and quant-tier entries (ROADMAP queue A item 9) stay 0."""
+        """The KV store's bytes per container and page counts on the device,
+        the host tier and the quant tier, with the reference's keys.
+        Scalars read the registered ``kv.*`` gauges, so this dict and the
+        snapshot stream share one schema; ``host_pinned_bytes`` (the port's
+        own) is the pinned host memory the pager holds for its transfers
+        (the host tier itself is ordinary memory)."""
         inv = {"device_bytes": 0, "device_by_container": {},
                "device_pages_free": 0, "device_pages_usable": 0,
                "host_bytes": 0, "host_pages": 0, "host_by_container": {},
-               "tier_bytes": 0, "tier_pages": 0, "tier_by_container": {}}
+               "tier_bytes": 0, "tier_pages": 0, "tier_by_container": {},
+               "host_pinned_bytes": 0}
         if self.paged:
             g = self.metrics.gauge
+            hs, qt = self.host_store, self.quant_tier
             inv.update(
                 device_bytes=g("kv.device_bytes").value,
                 device_by_container=caches_kv_bytes(self.caches),
                 device_pages_free=g("kv.device_pages_free").value,
-                device_pages_usable=g("kv.device_pages_usable").value)
+                device_pages_usable=g("kv.device_pages_usable").value,
+                host_bytes=g("kv.host_bytes").value,
+                host_pages=g("kv.host_pages").value,
+                host_by_container=hs.bytes_by_container() if hs else {},
+                tier_bytes=g("kv.tier_bytes").value,
+                tier_pages=g("kv.tier_pages").value,
+                tier_by_container=qt.bytes_by_container() if qt else {},
+                host_pinned_bytes=(self.pager.pinned_bytes
+                                   if self.pager else 0))
         return inv
+
+    def snapshot_prefix_cache(self, path: str) -> int:
+        """Write every cached prefix page (resident ones read off the
+        pools, parked ones from their tier, widened back to the pools'
+        containers) to ``path`` in the reference's format, namespaced by
+        profile key, with the pool-geometry signature. Returns the pages
+        written."""
+        if self.prefix_cache is None:
+            raise ValueError("snapshot needs --prefix-cache on")
+        entries = []
+        for key, tokens, node in self.prefix_cache.iter_chain_nodes():
+            if node.host is not None:
+                blob = self.host_store.get(node.host)
+            elif node.tier is not None:
+                blob = self.quant_tier.export(node.tier)
+            else:
+                blob = extract_page(self.caches, node.page,
+                                    scan=self.kv_scan)
+            entries.append((key, tokens, blob))
+        return save_prefix_snapshot(
+            path, entries, page_size=self.page_size,
+            geometry=cache_geometry(self.caches, scan=self.kv_scan))
+
+    def restore_prefix_cache(self, path: str) -> int:
+        """Load a snapshot into the HOST tier: each chain page becomes a
+        host-state trie node (no device page until a hit promotes it).
+        Chains of another profile key stay in their own namespace. Returns
+        the pages restored (fewer when the host tier fills)."""
+        if self.prefix_cache is None:
+            raise ValueError("restore needs --prefix-cache on")
+        if self.host_store is None:
+            raise ValueError("restore lands pages in the host tier; it "
+                             "needs --kv-offload host")
+        meta, entries = load_prefix_snapshot(path)
+        if meta["page_size"] != self.page_size:
+            raise ValueError(f"snapshot page_size {meta['page_size']} != "
+                             f"server page_size {self.page_size}")
+        if meta["geometry"] != cache_geometry(self.caches, scan=self.kv_scan):
+            raise ValueError("snapshot pool geometry does not match this "
+                             "server's architecture/profile")
+        n = 0
+        for key, tokens, blob in entries:
+            if not self.host_store.has_room(1):
+                break
+            h = self.host_store.put(blob)
+            if self.prefix_cache.insert_host(tokens, h, key):
+                n += 1
+            else:
+                self.host_store.drop(h)   # a duplicate or orphaned chain
+        return n
 
 
 class ServeLoop:
     """One in-flight :meth:`BatchedServer.run`, steppable one scheduler
-    cycle at a time: arrivals (on the decode-step clock), admission, then
-    one decode span. The frontend's ``limit_step`` clock cap is still to
-    port (ROADMAP queue A item 13)."""
+    cycle at a time: arrivals (on the decode-step clock), admission, the
+    promote prefetch, one decode span, then the pager's drain. The
+    frontend's ``limit_step`` clock cap and ``add`` are still to port
+    (ROADMAP queue A item 13)."""
 
     def __init__(self, srv: BatchedServer, requests: List[Request]):
         self.srv = srv
@@ -1026,6 +1551,7 @@ class ServeLoop:
             srv.slo_monitor.note_arrive(req.rid)
             queue.append(req)
         srv._admit(queue)
+        srv._prefetch_promotes(queue)
         live = [i for i in range(srv.B) if srv.slots[i] is not None]
         if not live:
             if pending:
@@ -1088,6 +1614,10 @@ class ServeLoop:
                             srv.tracer.req_first_token(req.rid)
                             srv.slo_monitor.note_first_token(req.rid)
                         req.out.append(int(row[i]))
+        if srv.pager is not None:
+            # span boundary: resolve the async transfers that ran behind
+            # the span
+            srv.pager.drain()
         for i in live:
             srv.tokens[i] = int(arr[-1][i])
             req = srv.slots[i]
@@ -1102,6 +1632,11 @@ class ServeLoop:
         if srv._snapshotter is not None:
             srv._snapshotter.maybe_emit(srv.cycles)
         return True
+
+    def close(self) -> None:
+        """The final pager drain."""
+        if self.srv.pager is not None:
+            self.srv.pager.drain()
 
 
 def main(argv=None):
@@ -1155,9 +1690,43 @@ def main(argv=None):
                     help="share page-aligned common prompt prefixes across "
                          "requests (refcounted aliasing, copy-on-write, LRU "
                          "eviction under pool pressure)")
-    ap.add_argument("--kv-offload", choices=["none", "host"], default="none")
-    ap.add_argument("--kv-adapt", choices=["off", "on"], default="off")
-    ap.add_argument("--sched", choices=["fifo", "slo"], default="fifo")
+    ap.add_argument("--kv-offload", choices=["none", "host"], default="none",
+                    help="host = a host-memory page tier: pool pressure "
+                         "demotes cached prefixes (containers and scales "
+                         "ride along) instead of destroying them; enables "
+                         "preemption and snapshots")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host-tier capacity in pages (0 = unbounded)")
+    ap.add_argument("--kv-adapt", choices=["off", "on"], default="off",
+                    help="on = pool pressure first requantizes cold cached "
+                         "prefix pages one container step narrower (fp -> "
+                         "int8 -> int4) into a bounded device tier; needs "
+                         "--prefix-cache on")
+    ap.add_argument("--kv-adapt-pages", type=int, default=0,
+                    help="adaptation-tier byte budget in floor-container "
+                         "pages (0 = the pool's usable page count)")
+    ap.add_argument("--kv-adapt-floor", type=int, choices=[4, 8], default=4,
+                    help="narrowest container requantization may reach")
+    ap.add_argument("--sched", choices=["fifo", "slo"], default="fifo",
+                    help="admission order: fifo, or slo = priority + "
+                         "earliest deadline with bounded out-of-order "
+                         "admission and preemption")
+    ap.add_argument("--admit-window", type=int, default=4,
+                    help="SLO sched: requests examined past a deferred "
+                         "head per cycle")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="SLO sched: never preempt running requests")
+    ap.add_argument("--predictor", choices=["off", "on"], default="off",
+                    help="on = an online deadline-miss predictor gates new "
+                         "no-deadline admissions; needs --sched slo")
+    ap.add_argument("--pager-async", choices=["off", "on"], default="off",
+                    help="on = host-tier copies on a side CUDA stream "
+                         "through pinned memory, resolved at decode-span "
+                         "boundaries, and promote prefetch; needs "
+                         "--kv-offload host")
+    ap.add_argument("--prefix-snapshot", default="",
+                    help="path: restore the prefix cache from it at start "
+                         "(if it exists) and snapshot it back at exit")
     ap.add_argument("--metrics", choices=["off", "on"], default="off",
                     help="on = record request-lifecycle spans and print an "
                          "SLO summary (p50/p99 TTFT and TPOT, goodput); "
@@ -1204,13 +1773,29 @@ def main(argv=None):
                         kv_profile=kv_profile, kv_scale=args.kv_scale,
                         prefix_cache=args.prefix_cache,
                         kv_profile_scan=args.kv_profile_scan,
-                        kv_offload=args.kv_offload, sched=args.sched,
-                        kv_adapt=args.kv_adapt, fused=args.fused,
-                        metrics=args.metrics,
+                        kv_offload=args.kv_offload,
+                        host_pages=args.host_pages or None,
+                        sched=args.sched, admit_window=args.admit_window,
+                        preempt=False if args.no_preempt else None,
+                        kv_adapt=args.kv_adapt,
+                        adapt_pages=args.kv_adapt_pages,
+                        adapt_floor_bits=args.kv_adapt_floor,
+                        fused=args.fused, metrics=args.metrics,
                         snapshot_out=args.metrics_out or None,
-                        snapshot_every=args.metrics_every, tp=args.tp,
+                        snapshot_every=args.metrics_every,
+                        predictor=args.predictor,
+                        pager_async=args.pager_async, tp=args.tp,
                         device=device)
+    if args.prefix_snapshot and os.path.exists(
+            snapshot_path(args.prefix_snapshot)):
+        n = srv.restore_prefix_cache(args.prefix_snapshot)
+        print(f"[serve] restored {n} prefix pages from "
+              f"{args.prefix_snapshot} (host tier)")
     srv.run(reqs, verbose=True)
+    if args.prefix_snapshot:
+        n = srv.snapshot_prefix_cache(args.prefix_snapshot)
+        print(f"[serve] snapshotted {n} prefix pages to "
+              f"{args.prefix_snapshot}")
     if args.metrics == "on":
         slo = srv.tracer.slo_summary()
         ttft, tpot = slo.get("ttft_p50_s"), slo.get("tpot_p50_s")

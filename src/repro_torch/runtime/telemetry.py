@@ -9,7 +9,8 @@ JSONL metrics stream.
   instants on ``time.perf_counter``, with per-request lifecycle records
   (arrive -> admit / defer / reject -> first token -> finish) reduced to
   TTFT, TPOT and goodput by :meth:`Tracer.slo_summary`. Track layout: pid
-  0; tid 0 the engine, tid 1 + rid one track per request.
+  0; tid 0 the engine, tid 1 + rid one track per request, tid
+  :data:`PAGER_TID` the tiered pager's transfers (:meth:`Tracer.pager_span`).
 * :class:`NullTracer` (``--metrics off``) — the same surface, every method
   a no-op.
 * :class:`SLOMonitor` — rolling-window SLO gauges the server always feeds.
@@ -20,8 +21,8 @@ All of it is host bookkeeping: nothing here reads or syncs a device
 tensor, so tracing cannot change tokens. On a card a span's duration is
 host time (the device runs behind it), except for a span that ends at a
 sync the serving loop already makes (``decode_span`` ends at its token
-download). The reference's async-pager track (``pager_span``) belongs to
-ROADMAP queue A item 9.
+download); a pager span of an async transfer runs from its issue to the
+drain that found it complete.
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ import time
 from typing import Callable, Dict, List, Optional
 
 logger = logging.getLogger(__name__)
+
+# the Chrome-trace track of the pager's transfers: far above any 1 + rid
+# request track, since its spans overlap the engine's decode spans
+PAGER_TID = 1_000_000
 
 
 def percentile(values, p: float):
@@ -81,6 +86,9 @@ class Gauge:
         self.name = name
         self._v = 0.0
         self.fn = fn
+
+    def set(self, v: float) -> None:
+        self._v = float(v)
 
     @property
     def value(self):
@@ -229,6 +237,7 @@ class SLOMonitor:
         self.queue_depth = Ewma(alpha)
         self.arrival_rate = Ewma(alpha / 2)
         self.tpot = Ewma(alpha)
+        self.tpot_ref = Ewma(alpha / 10)   # the run's own baseline speed
         self._pending_arrivals = 0
         g = registry.register_gauge
         g("slo.window_requests", lambda: len(self._met))
@@ -260,6 +269,7 @@ class SLOMonitor:
             tpot = (time.perf_counter() - first) / (tokens - 1)
             self._tpot.append(tpot)
             self.tpot.update(tpot)
+            self.tpot_ref.update(tpot)
         self._met.append(bool(met))
 
     def note_queue_depth(self, depth: int) -> None:
@@ -282,6 +292,15 @@ class SLOMonitor:
 
     def window_tpot(self, p: float) -> Optional[float]:
         return percentile(list(self._tpot), p)
+
+    def tpot_slowdown(self) -> float:
+        """Fast over slow TPOT EWMA, minus 1, clipped to [-0.25, 0.25]: the
+        deadline-miss predictor's one wall-clock feature, kept small so
+        timing jitter cannot outweigh its decode-step-clock features."""
+        if self.tpot.value is None or not self.tpot_ref.get():
+            return 0.0
+        r = self.tpot.value / self.tpot_ref.value - 1.0
+        return max(-0.25, min(0.25, r))
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +387,21 @@ class Tracer:
             if args:
                 ev["args"] = args
             self.events.append(ev)
+
+    def pager_span(self, name: str, t_start: float, t_end: float,
+                   args: Optional[dict] = None) -> None:
+        """Record a retrospective span on the pager track from two
+        ``time.perf_counter`` stamps: an async transfer is issued mid-cycle
+        and its end is known only at the next drain, so the span is closed
+        after the fact. It lands on :data:`PAGER_TID` because these spans
+        overlap the engine's decode spans by design."""
+        self._track_name(PAGER_TID, "pager")
+        ev = {"ph": "X", "name": name, "pid": 0, "tid": PAGER_TID,
+              "ts": max(0.0, (t_start - self._t0) * 1e6),
+              "dur": max(0.0, (t_end - t_start) * 1e6)}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
 
     # -- request lifecycle --------------------------------------------------
     def _rec(self, rid: int) -> Optional[_RequestRecord]:
@@ -561,6 +595,9 @@ class NullTracer:
 
     def chrome_trace(self):
         return {"traceEvents": [], "displayTimeUnit": "ms"}
+
+    def pager_span(self, name, t_start, t_end, args=None):
+        pass
 
     def export_chrome(self, path):
         """Writes nothing: warns and returns None."""

@@ -745,6 +745,197 @@ def test_cuda_served_prefix_cache_counts_as_on_the_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the tiered page store on the card: side-stream copies through pinned
+# memory, bf16 pages on the host, and B1 on pools restored from each tier
+# ---------------------------------------------------------------------------
+def _card_pool(cuda, container, *, b=4, blocks=3, seed=0, num_pages=40,
+               dtype=torch.bfloat16):
+    """One qwen2-72b-width pool on the card (8 KV heads, head_dim 128,
+    page size 16) whose pages an allocator handed out, written through
+    ``paged_update``: (caches, allocator, page table, tokens, bits)."""
+    from repro_torch.core import paged_kv as tpk
+    kv, hd, ps = 8, 128, 16
+    rng = np.random.default_rng(seed)
+    pool = tpk.init_paged_pool(
+        tpk.PagedKVLayout(num_pages, ps, kv, hd, container, dtype), cuda)
+    al = tpk.PageAllocator(num_pages)
+    pages = [al.alloc() for _ in range(b * blocks)]
+    pt = torch.tensor(np.array(pages, np.int32).reshape(b, blocks),
+                      device=cuda)
+    n = blocks * ps - 3
+    bits = {"int8": 8, "int4": 4, "fp": 0}[container]
+    k, v = (torch.from_numpy((rng.normal(size=(b, n, kv, hd)) * m)
+                             .astype(np.float32)).to(cuda)
+            for m in (0.7, 0.4))
+    tpk.paged_update(pool, k, v, pt, 0, page_size=ps, container=container,
+                     int_bits=2 if bits else None,
+                     frac_bits=bits - 2 if bits else None)
+    return [pool], al, pt, n, bits
+
+
+def _state(caches, page):
+    return {k: t[page].clone() for k, t in caches[0].items()}
+
+
+@pytest.mark.parametrize("container", ["int8", "int4", "fp"])
+def test_cuda_async_demote_survives_a_rewritten_page(cuda, container):
+    """An async demote clones the page on the compute stream and copies the
+    clone to a pinned landing buffer on a side stream; the freed page's
+    next owner rewrites it before the copy resolves, and the host blob
+    (ordinary memory, copied out of the buffer) still holds the page as it
+    was, which promotes back byte for byte."""
+    from repro_torch.core import page_store as tps
+    caches, al, pt, _, _ = _card_pool(cuda, container, seed=1)
+    pager = tps.TieredPager(al, tps.HostPageStore(), lambda: caches,
+                            async_mode=True)
+    page, other = int(pt[0, 0]), int(pt[1, 1])
+    want = _state(caches, page)
+    h = pager.demote(page)
+    again = al.alloc()
+    assert again == page                       # the next owner's page
+    tps.inject_page(caches, tps.extract_page(caches, other), again)
+    assert not torch.equal(caches[0]["k_pages"][page], want["k_pages"])
+    blob = pager.host.get(h)
+    assert pager.pinned_bytes == blob.nbytes     # one landing buffer
+    for f, key in (("k", "k_pages"), ("v", "v_pages"), ("ks", "k_scale"),
+                   ("vs", "v_scale")):
+        assert blob.arrays[0][f][0].tobytes() == \
+            tps.to_host(want[key]).tobytes(), f
+    new = pager.promote(h)
+    for k, t in _state(caches, new).items():
+        assert torch.equal(t, want[k]), k
+
+
+@pytest.mark.parametrize("container", ["int8", "int4", "fp"])
+def test_cuda_async_demotes_share_a_bounded_pinned_ring(cuda, container):
+    """Twelve async demotes land in the pager's ring of three pinned
+    buffers, each reused only after its last copy resolved: every parked
+    page promotes back byte for byte, and the pinned memory stays at three
+    pages while the host tier holds twelve."""
+    from repro_torch.core import page_store as tps
+    caches, al, pt, _, _ = _card_pool(cuda, container, seed=6)
+    pager = tps.TieredPager(al, tps.HostPageStore(), lambda: caches,
+                            async_mode=True)
+    pages = [int(p) for p in pt.flatten()]
+    want = [_state(caches, p) for p in pages]
+    handles = [pager.demote(p) for p in pages]
+    for p in pages:          # the next owners overwrite every freed page
+        q = al.alloc()
+        tps.inject_page(caches, tps.extract_page(caches, pages[0]), q)
+    pager.drain()
+    page_bytes = pager.host.get(handles[0]).nbytes
+    assert pager.host.num_pages == len(pages) == 12
+    assert pager.pinned_bytes == 3 * page_bytes
+    for h, w in zip(handles, want):
+        new = pager.promote(h)
+        for k, t in _state(caches, new).items():
+            assert torch.equal(t, w[k]), k
+
+
+@pytest.mark.parametrize("container", ["int8", "int4", "fp"])
+def test_cuda_prefetch_promote_equals_unstaged_promote(cuda, container):
+    """A page staged through pinned memory on the side stream and promoted
+    after the compute stream waits on its copy holds the bytes an unstaged
+    promote writes."""
+    from repro_torch.core import page_store as tps
+    caches, al, pt, _, _ = _card_pool(cuda, container, seed=2)
+    pager = tps.TieredPager(al, tps.HostPageStore(), lambda: caches,
+                            async_mode=True)
+    src = int(pt[2, 0])
+    want = _state(caches, src)
+    twin = al.alloc()
+    tps.inject_page(caches, tps.extract_page(caches, src), twin)
+    ha, hb = pager.demote(src), pager.demote(twin)
+    pager.drain()
+    assert pager.prefetch(ha) == 1
+    staged, unstaged = pager.promote(ha), pager.promote(hb)
+    torch.cuda.synchronize()
+    assert (pager.prefetches, pager.prefetch_hits) == (1, 1)
+    for k in want:
+        assert torch.equal(caches[0][k][staged], want[k]), k
+        assert torch.equal(caches[0][k][unstaged], want[k]), k
+
+
+def test_cuda_bf16_page_round_trip_through_host_and_snapshot(cuda,
+                                                             tmp_path):
+    """A bf16 page goes to the host as its 2-byte patterns, through an
+    ``.npz`` snapshot and back, bit for bit, in both pager modes."""
+    from repro_torch.core import page_store as tps
+    caches, al, pt, _, _ = _card_pool(cuda, "fp", seed=3)
+    src = int(pt[0, 1])
+    want = _state(caches, src)
+    blob = tps.extract_page(caches, src)
+    assert blob.arrays[0]["k"].dtype == np.dtype("V2")
+    path = str(tmp_path / "bf16")
+    tps.save_prefix_snapshot(path, [("fp", [1], blob)], page_size=16,
+                             geometry=tps.cache_geometry(caches))
+    meta, loaded = tps.load_prefix_snapshot(path)
+    assert meta["geometry"] == tps.cache_geometry(caches)
+    dst = al.alloc()
+    tps.inject_page(caches, loaded[0][2], dst)
+    for k in want:
+        assert torch.equal(caches[0][k][dst], want[k]), k
+    for mode in (False, True):
+        pager = tps.TieredPager(al, tps.HostPageStore(), lambda: caches,
+                                async_mode=mode)
+        page = pager.promote(pager.demote(dst))
+        for k in want:
+            assert torch.equal(caches[0][k][page], want[k]), (mode, k)
+        dst = page
+
+
+@pytest.mark.parametrize("tier", ["host-int8", "host-int4", "quant-bf16",
+                                  "quant-int8"])
+def test_cuda_b1_on_pools_restored_from_each_tier(cuda, tier):
+    """B1 against its plain version on pages that came back from a tier:
+    promoted from the host tier (int8, int4), or restored from the quant
+    tier, a bf16 pool holding widened int8 grids under non-unit scales and
+    an int8 pool holding int4 grids x 16 under scale / 16."""
+    from repro_torch.core import page_store as tps
+    kind, cont = tier.split("-")
+    container = "fp" if cont == "bf16" else cont
+    caches, al, pt, n, bits = _card_pool(cuda, container, seed=4)
+    new_pt = pt.clone()
+    if kind == "host":
+        pager = tps.TieredPager(al, tps.HostPageStore(), lambda: caches,
+                                async_mode=True)
+        handles = [[pager.demote(int(p)) for p in row] for row in pt]
+        for i, row in enumerate(handles):
+            for j, h in enumerate(row):
+                new_pt[i, j] = pager.promote(h)
+    else:
+        qt = tps.QuantTierStore(lambda: caches, pages=64)
+        parked = []
+        for row in pt:
+            hs = []
+            for p in row:
+                hs.append(qt.put(qt.requantize(int(p))))
+                al.free([int(p)])
+            parked.append(hs)
+        for i, row in enumerate(parked):
+            for j, h in enumerate(row):
+                page = al.alloc()
+                qt.restore(h, page)
+                new_pt[i, j] = page
+        used = new_pt.flatten().long()
+        scales = caches[0]["k_scale"][used]
+        assert bool((scales != 1.0).all())
+        if cont == "bf16":       # int8 grids saturate: one amax per page
+            assert torch.unique(scales).numel() >= 2
+    pool = caches[0]
+    q = torch.randn(pt.shape[0], 64, 128, generator=torch.Generator()
+                    .manual_seed(5)).to(cuda, torch.bfloat16)
+    lens = torch.full((pt.shape[0],), n, dtype=torch.int32, device=cuda)
+    args = (pool["k_pages"], pool["v_pages"], pool["k_scale"],
+            pool["v_scale"], new_pt)
+    got = pka.paged_kv_attention_decode(q, *args, lens, bits=bits)
+    plain = pka.paged_kv_attention_chunk_plain(
+        q[:, None].cpu(), *[a.cpu() for a in args], lens.cpu() - 1,
+        lens.cpu(), bits=bits)[:, 0]
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
 # the paper's CNNs (torch ops, no kernel): TF32 and cuDNN determinism
 # ---------------------------------------------------------------------------
 def _cnn_case(net, n):

@@ -81,7 +81,9 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.examples.precision_search_lenet",
                   "repro_torch.core.prefix_cache",
                   "repro_torch.core.paged_kv",
-                  "repro_torch.runtime.telemetry"]
+                  "repro_torch.runtime.telemetry",
+                  "repro_torch.core.page_store",
+                  "repro_torch.launch.scheduler"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():

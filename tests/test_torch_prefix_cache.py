@@ -165,11 +165,42 @@ def test_evict_keeps_ancestors_of_referenced_pages():
 
 
 def test_tiers_are_not_ported():
-    al = tpk.PageAllocator(8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PrefixCache(al, 2, pager=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PrefixCache(al, 2, tier=object())
+    """The tiers were refused until they were ported; now a pager and a
+    quant tier are accepted, and eviction tries them in the reference's
+    order (requantize, demote, then drop), here with a tier that cannot
+    narrow and a host tier without room, on both packages."""
+    sides = []
+    for alloc_cls, cache_cls in ((tpk.PageAllocator, PrefixCache),
+                                 (jpk.PageAllocator, JCache)):
+        calls = []
+
+        class Tier:
+            def room_pages(self):
+                return 0
+
+            def requantize(self, page, valid_len=None):
+                calls.append(("requant", page, valid_len))
+                return None
+
+        class Host:
+            def has_room(self, n=1):
+                calls.append("host_room")
+                return False
+
+        class Pager:
+            host = Host()
+
+            def host_room(self):
+                return 0
+
+        al = alloc_cls(8)
+        c = cache_cls(al, 2, pager=Pager(), tier=Tier())
+        pages = _insert(c, al, [0, 1, 2])
+        al.free(pages)
+        assert c.evict(1) == 1
+        sides.append((calls, c.stats()))
+    assert sides[0] == sides[1]
+    assert sides[0][0][0][0] == "requant" and sides[0][1]["evictions"] == 1
 
 
 # ---------------------------------------------------------------------------

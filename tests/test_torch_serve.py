@@ -144,14 +144,26 @@ def test_admission_rejects_and_defers(models):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(kv_offload="host"), "9"), (dict(sched="slo"), "9"),
+    (dict(sched="slo", preempt=True), "9"), (dict(predictor="on"), "9"),
     (dict(kv_adapt="on"), "9"), (dict(tp=2), "13")])
 def test_options_outside_the_slice_raise(models, option, item):
-    _, tcfg, _, model = models
-    kw = dict(_KW, kv_bits=8, device=CPU)
+    """Tensor-parallel serving (ROADMAP queue A item 13) raises
+    NotImplementedError. Item 9's options are ported: used without what
+    they need (preemption without the host tier, the predictor without
+    the SLO scheduler, adaptation without the prefix cache) they raise the
+    reference's ValueError, word for word."""
+    jcfg, tcfg, jparams, model = models
+    kw = dict(_KW, kv_bits=8)
     kw.update(option)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        BatchedServer(tcfg, model, **kw)
+    if item == "13":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            BatchedServer(tcfg, model, device=CPU, **kw)
+        return
+    with pytest.raises(ValueError) as ref:
+        JServer(jcfg, jparams, **kw)
+    with pytest.raises(ValueError) as port:
+        BatchedServer(tcfg, model, device=CPU, **kw)
+    assert str(port.value) == str(ref.value)
 
 
 def test_server_needs_the_models_device(models):
