@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase kernels
     python3 chip_smoke.py --phase cnn    # phase 4 alone, no kernel build
     python3 chip_smoke.py --phase tier   # the build and [tier] alone
+    python3 chip_smoke.py --phase moe    # the build and [moe] alone
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -61,7 +62,22 @@ Phases, each of which raises on failure (no phase is caught):
    gather route (the gate, KV bytes and peak memory of each); and one
    forward under weights Q2.6 / data Q4.12 (logits finite, weights on the
    grid, equal to a data-only forward on pre-quantized weights) with
-   ``policy_footprint_report`` for the full 80-layer config;
+   ``policy_footprint_report`` for the full 80-layer config; then, the
+   qwen2-72b model freed, ``[moe]``: llama4-maverick-400b-a17b at its
+   published widths cut to 2 layers (a dense layer and a MoE layer of 128
+   experts top-1 plus a shared expert; attention G = 40 / 8 = 5) served
+   on paged pools through B1 (16 requests of 32-160 prompt tokens and 16
+   new, batch 8): eval_all at int8 on both routes and int4, the
+   published scatter dispatch (stepwise by the server's rule) on both
+   routes; then deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE of 256
+   experts top-8, sigmoid router; MLA) on dense latent caches (8
+   requests of 32-96 prompt tokens and 16 new, stepwise): bf16 and int8
+   latents on the expanded route, int8 on the absorbed route:
+   teacher-forced gates, B1 against its plain version on the pools of
+   one captured decode step at G = 5 (int8, int4), B1 once per layer per
+   program, host counters equal to the smoke configs' on the CPU (a
+   child process) for the same traces, tok/s, decode-step ms and peak
+   memory of each run, the phase time against its 60 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -1290,6 +1306,68 @@ def check_captured_b1(saved, label: str, tag: str = "[prefix]") -> dict:
     return res
 
 
+class B1ChunkCapture:
+    """Wraps the chunk entry of B1 as the attention layer calls it (S > 1:
+    bucketed prefill): keeps a copy of the inputs of every layer's call in
+    the first prefill forward of ``S`` queries a row in which a row's chunk
+    starts past position 0, so its queries also see the keys of earlier
+    chunks."""
+
+    def __init__(self, fn, *, layers: int, S: int):
+        self.fn, self.layers, self.S = fn, layers, S
+        self.n, self.saved = 0, []
+
+    def __call__(self, q, kp, vp, ks, vs, pt, q_start, kv_len, *, bits):
+        if len(self.saved) < self.layers and (
+                self.saved or (self.n % self.layers == 0
+                               and q.shape[1] == self.S
+                               and bool((q_start > 0).any()))):
+            self.saved.append(dict(
+                q=q.clone(), k_pages=kp.clone(), v_pages=vp.clone(),
+                k_scale=ks.clone(), v_scale=vs.clone(), page_table=pt.clone(),
+                q_start=q_start.clone(), kv_len=kv_len.clone(), bits=bits))
+        self.n += 1
+        return self.fn(q, kp, vp, ks, vs, pt, q_start, kv_len, bits=bits)
+
+
+def check_captured_b1_chunk(saved, label: str, tag: str) -> dict:
+    """B1's chunk entry on the card against its plain version on each
+    captured layer's prefill chunk, at the kernel tests' tolerance (every
+    query row: the server passes ``kv_len = q_start + S``, so a padded
+    query's keys are written and its row defined)."""
+    import torch
+    from repro_torch.kernels import paged_kv_attention as pka
+    if not saved:
+        raise AssertionError(f"{label}: no prefill chunk past position 0 "
+                             f"was captured")
+    errs = []
+    for c in saved:
+        args = (c["q"], c["k_pages"], c["v_pages"], c["k_scale"],
+                c["v_scale"], c["page_table"], c["q_start"], c["kv_len"])
+        out = pka.paged_kv_attention_chunk(*args, bits=c["bits"])
+        plain = pka.paged_kv_attention_chunk_plain(*args, bits=c["bits"])
+        err = float((out - plain).abs().max())
+        if not (bool(torch.isfinite(out).all())
+                and torch.allclose(out, plain, rtol=TOL, atol=TOL)):
+            raise AssertionError(f"{label}: B1 vs plain on a served prefill "
+                                 f"chunk, bits={c['bits']}: max abs err "
+                                 f"{err:.3e}")
+        errs.append(err)
+    c = saved[0]
+    B, S, H, _ = c["q"].shape
+    G = H // c["k_pages"].shape[2]
+    res = {"layers": len(saved), "S": S, "G": G, "rows": B,
+           "rows_past_0": int((c["q_start"] > 0).sum()),
+           "max_q_start": int(c["q_start"].max()),
+           "max_abs_err": max(errs), "bits": c["bits"]}
+    print(f"{tag} {label}: B1 vs plain on one served bucketed prefill "
+          f"forward, {res['layers']} layers, S = {S}, G = {G}, {B} rows "
+          f"({res['rows_past_0']} past position 0, from up to "
+          f"{res['max_q_start']}), bits {res['bits']}: max abs err "
+          f"{res['max_abs_err']:.2e} (tol {TOL})", flush=True)
+    return res
+
+
 def prefix_counters(srv) -> dict:
     """The prefix cache's host counters: they depend on tokens and pages
     only, not on the model."""
@@ -1573,8 +1651,14 @@ def tier_requests(trace, vocab=None):
     counters of the mapped trace are those of the trace."""
     from repro_torch.benchmarks.traffic import to_requests
     reqs = to_requests(trace)
-    if vocab is None:
-        return reqs
+    return reqs if vocab is None else map_vocab(reqs, vocab)
+
+
+def map_vocab(reqs, vocab):
+    """``reqs`` with their prompts' token ids mapped into ``vocab`` ids
+    position by position (an id's rank among the distinct ids the
+    requests have at that position), in place: equal tokens at equal
+    positions stay equal and unequal ones unequal."""
     seen = {}
     for r in reqs:
         for p, t in enumerate(r.prompt):
@@ -2033,6 +2117,305 @@ def tier_phase(cfg, model, seed: int):
     return launches["n"], out
 
 
+# ---------------------------------------------------------------------------
+# [moe]: the MoE and MLA families at published widths, depth cut: llama4
+# served through B1 at G = 5 on paged pools, deepseek-v3 on dense latent
+# caches
+# ---------------------------------------------------------------------------
+LLAMA4, DSV3 = "llama4-maverick-400b-a17b", "deepseek-v3-671b"
+MOE_LAYERS = {LLAMA4: 2, DSV3: 4}     # one full period; 3 dense + 1 MoE
+MOE_TRAFFIC = {LLAMA4: dict(n=16, lo=32, hi=160, max_new=16),
+               DSV3: dict(n=8, lo=32, hi=96, max_new=16)}
+MOE_SERVE = {LLAMA4: dict(batch_size=8, max_len=192, page_size=PS),
+             DSV3: dict(batch_size=8, max_len=128, page_size=0)}
+MOE_RUNS = {
+    # label: (arch, config overrides, server options, route, forced by)
+    "a": (LLAMA4, dict(moe_mode="eval_all"), dict(kv_bits=8), "gather",
+          None),
+    "b": (LLAMA4, dict(moe_mode="eval_all"), dict(kv_bits=8), "kernel",
+          "a"),
+    "c": (LLAMA4, dict(moe_mode="eval_all"), dict(kv_bits=4), "kernel",
+          "a"),
+    "e": (LLAMA4, dict(moe_mode="scatter"), dict(kv_bits=8), "gather",
+          None),
+    "d": (LLAMA4, dict(moe_mode="scatter"), dict(kv_bits=8), "kernel",
+          "e"),
+    "f": (DSV3, dict(moe_mode="scatter"), dict(kv_bits=0), "gather", None),
+    "g": (DSV3, dict(moe_mode="scatter"), dict(kv_bits=8), "gather", None),
+    "h": (DSV3, dict(moe_mode="scatter", mla_absorbed=True),
+          dict(kv_bits=8), "gather", "g"),
+}
+MOE_GATED = {"b": "a", "d": "e", "h": "g"}   # teacher-forced gates
+# the stepwise scatter runs take the 8 shortest prompts of the trace:
+# stepwise prefill spends a program on each prompt token
+MOE_SHORT = {"d", "e"}
+MOE_BUDGET_S = 60
+
+
+def moe_trace(label, seed: int, vocab=None):
+    """Run ``label``'s requests, drawn in its arch's published vocabulary
+    (the 8 shortest prompts only for a run in ``MOE_SHORT``); ``vocab``
+    maps them into a smaller one position by position
+    (:func:`map_vocab`)."""
+    from repro_torch.configs.registry import get_config
+    arch = MOE_RUNS[label][0]
+    reqs = served_requests(get_config(arch), seed + 3, **MOE_TRAFFIC[arch])
+    if label in MOE_SHORT:
+        short = sorted(reqs, key=lambda r: len(r.prompt))[:8]
+        reqs = sorted(short, key=lambda r: r.rid)
+    return reqs if vocab is None else map_vocab(reqs, vocab)
+
+
+def moe_counters(srv) -> dict:
+    """A [moe] run's host counters: prompts and pages decide them."""
+    c = {"prefill_mode": srv.prefill_mode,
+         "prefill_forwards": srv.prefill_forwards,
+         "prefill_tokens": srv.prefill_tokens,
+         "decode_steps": srv.decode_steps,
+         "programs": srv.program_launches, "cycles": srv.cycles}
+    if srv.paged:
+        c.update(allocs=srv.metrics.value("alloc.allocs"),
+                 usable=srv.allocator.num_usable)
+    return c
+
+
+def cpu_moe_counters(seed: int, src: str) -> dict:
+    """Every [moe] run's server on the CPU with the arch's smoke config
+    (its moe_mode and MLA route set as the run's), the trace mapped into
+    its vocabulary, through the gather route (the counters do not depend
+    on the route or the model). Runs in a child process beside the card
+    runs (``src`` is the port's source directory), on one thread."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    out, seen = {}, {}
+    for label, (arch, over, kw, _, _) in MOE_RUNS.items():
+        key = (arch, tuple(sorted(over.items())), tuple(sorted(kw.items())),
+               label in MOE_SHORT)
+        if key not in seen:
+            cfg = dataclasses.replace(get_smoke_config(arch), **over)
+            model = init_model(cfg, seed=seed, device="cpu")
+            srv = BatchedServer(cfg, model, attn_impl="gather",
+                                prefill_bucket=32, device="cpu",
+                                **MOE_SERVE[arch], **kw)
+            srv.run(moe_trace(label, seed, cfg.vocab_size))
+            seen[key] = moe_counters(srv)
+        out[label] = seen[key]
+    return out
+
+
+def moe_model(arch, seed: int):
+    """The arch at published widths cut to ``MOE_LAYERS`` layers, bf16,
+    random weights from a seeded generator; prints the cut."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS[arch])
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    kinds = ", ".join(f"{i}: {'MoE' if blk.sig[1] == 'moe' else 'dense'}"
+                      for i, blk in enumerate(model.layers))
+    attn = (f"MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} "
+            f"rope {cfg.qk_rope_head_dim}" if cfg.attention_type == "mla"
+            else f"GQA G = {cfg.num_heads // cfg.num_kv_heads}, "
+            f"head_dim {cfg.head_dim}")
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[moe] {arch}: published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {attn}, d_ff "
+          f"{cfg.d_ff}, {cfg.num_experts} experts of {cfg.moe_d_ff} top-"
+          f"{cfg.experts_per_token}"
+          f"{' sigmoid' if cfg.moe_sigmoid_router else ''} + "
+          f"{cfg.num_shared_experts} shared, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}); cut: depth {full.num_layers} -> "
+          f"{cfg.num_layers} layers ({kinds})"
+          f"{', the MTP block carried' if model.mtp is not None else ''}; "
+          f"{n / 1e9:.2f} G parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, model
+
+
+def moe_arch_runs(arch, seed: int, runs: dict, caps: dict) -> int:
+    """The [moe] runs of ``arch`` on one model (see :func:`moe_phase`),
+    recorded in ``runs`` (label -> (requests, stats, None)) and ``caps``
+    (label -> B1 against plain on captured pools). Returns the B1
+    launches. The model, servers and taps die with the call."""
+    import torch
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.models import attention
+
+    cfg, model = moe_model(arch, seed)
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    labels = [lb for lb, r in MOE_RUNS.items() if r[0] == arch]
+    # one short untimed run of the first run's kind first, so that no
+    # timed run pays the card's one-time costs (kernels loaded on first
+    # use, cuBLAS workspaces, the caching allocator's first blocks)
+    t0 = time.perf_counter()
+    warm = moe_trace(labels[0], seed)[:2]
+    for r in warm:
+        r.max_new = 2
+    serve_once(dataclasses.replace(cfg, **MOE_RUNS[labels[0]][1]), model,
+               attn_impl=MOE_RUNS[labels[0]][3], seed=seed,
+               trace=lambda c, sd: warm, **MOE_SERVE[arch],
+               **MOE_RUNS[labels[0]][2])
+    print(f"[moe] {arch}: untimed warm-up run (2 requests of 2 new tokens "
+          f"as ({labels[0]})) {time.perf_counter() - t0:.2f} s", flush=True)
+    launches, taps = 0, {}
+    for label in labels:
+        _, over, kw, impl, by = MOE_RUNS[label]
+        rcfg = dataclasses.replace(cfg, **over)
+        cap = chunk_cap = None
+        if impl == "kernel" and by == "a":
+            cap = B1Capture(attention.paged_kv_attention_decode,
+                            at=6 * cfg.num_layers, layers=cfg.num_layers)
+            attention.paged_kv_attention_decode = cap
+            chunk_cap = B1ChunkCapture(attention.paged_kv_attention_chunk,
+                                       layers=cfg.num_layers, S=32)
+            attention.paged_kv_attention_chunk = chunk_cap
+        forced = {r.rid: r.out for r in runs[by][0]} if by else None
+        keep = {}
+        paged_kv_attention_chunk.launches = 0
+        try:
+            reqs, st, taps[label] = serve_once(
+                rcfg, model, attn_impl=impl, seed=seed,
+                trace=lambda c, sd: moe_trace(label, sd), forced=forced,
+                tap=True, keep=keep, **MOE_SERVE[arch], **kw)
+        finally:
+            if cap is not None:
+                attention.paged_kv_attention_decode = cap.fn
+                attention.paged_kv_attention_chunk = chunk_cap.fn
+        n = paged_kv_attention_chunk.launches
+        if impl == "kernel" and n != cfg.num_layers * st["program_launches"]:
+            raise AssertionError(f"[moe] ({label}): B1 launches {n} != "
+                                 f"layers x programs "
+                                 f"{st['program_launches']}")
+        if impl == "gather" and n:
+            raise AssertionError(f"[moe] ({label}): the gather route "
+                                 f"launched B1 {n} times")
+        launches += n
+        st.update(label=label, arch=arch, b1_launches=n,
+                  weights_gib=weights_gib,
+                  counters=moe_counters(keep["srv"]),
+                  moe_mode=rcfg.moe_mode, mla_absorbed=rcfg.mla_absorbed)
+        if by:
+            # the logits of the two runs on identical inputs
+            st.update(compare_logits(taps[by], taps[label]))
+        if cap is not None:
+            what = (f"({label}) kv_bits={kw['kv_bits']} G="
+                    f"{cfg.num_heads // cfg.num_kv_heads}")
+            caps[label] = {
+                "decode": check_captured_b1(cap.saved, what, tag="[moe]"),
+                "prefill": check_captured_b1_chunk(chunk_cap.saved, what,
+                                                   tag="[moe]")}
+        runs[label] = (reqs, st, None)
+        print(f"[moe] ({label}) {arch} {rcfg.moe_mode}"
+              f"{' absorbed' if rcfg.mla_absorbed else ''} "
+              f"kv_bits={kw['kv_bits']} {impl}"
+              f"{f' forced by ({by})' if by else ''}: "
+              f"{st['tok_per_s']:.1f} tok/s, decode step "
+              f"{st['decode_step_ms']:.2f} ms x {st['decode_steps']}, B1 x "
+              f"{n}, peak {st['max_memory_allocated_gib']:.2f} GiB "
+              f"(weights {weights_gib:.2f}); {st['counters']}"
+              + (f"; logits vs ({by}) on identical inputs differ by at "
+                 f"most {st['max_abs_logit_diff']:.4g} (median "
+                 f"{st['median_max_abs_logit_diff']:.4g}, "
+                 f"{st['top2_tied_steps']} steps with the top two tied)"
+                 if by else ""), flush=True)
+    return launches
+
+
+def moe_phase(seed: int):
+    """``[moe]``: llama4-maverick (2 layers: a dense layer and a MoE layer
+    of 128 experts top-1 plus the shared one) served on paged pools at
+    page size 16, batch 8, bucket 32, 16 requests of 32-160 prompt tokens
+    and 16 new: (a) eval_all int8 on the gather route, (b) the same on
+    the kernel route teacher-forced by (a), (c) int4 on the kernel route
+    fed (a)'s tokens, (e) the published scatter dispatch (stepwise, by
+    the server's rule) int8 gather on the trace's 8 shortest prompts,
+    (d) the same on the kernel route teacher-forced by (e); then
+    deepseek-v3 (3 dense layers and a MoE layer of 256 experts top-8,
+    sigmoid router) on dense latent caches, max_len 128, 8 requests of
+    32-96 prompt tokens and 16 new, stepwise: (f) bf16 latent, (g) int8
+    latent on the expanded route, (h) int8 on the absorbed route
+    teacher-forced by (g). One model on the card at a time, each after
+    an untimed warm-up run. Fails unless every request finishes, B1 runs
+    once per layer per program on the kernel runs, (b), (d) and (h) pass
+    the gate, B1 equals its plain version on the pools of one captured
+    decode step (S = 1) and of one captured bucketed prefill forward
+    (S = 32) of (b) and (c) (G = 5), and every run's host counters equal
+    the smoke config's on the CPU for the same trace (a child process).
+    Returns (B1 launches, run records)."""
+    import concurrent.futures
+    import gc
+    import multiprocessing
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe] card memory held before the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    runs, caps, launches = {}, {}, 0
+    try:
+        cpu_future = rehearsal.submit(cpu_moe_counters, seed, src)
+        for arch in (LLAMA4, DSV3):
+            launches += moe_arch_runs(arch, seed, runs, caps)
+            # the model, its servers and their taps are gone: free them
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            print(f"[moe] {arch} freed: {held:.2f} GiB still allocated",
+                  flush=True)
+            if held > 1.0:
+                raise AssertionError(f"[moe] {arch}'s model stayed on the "
+                                     f"card ({held:.2f} GiB)")
+        t_card = time.perf_counter() - t_phase
+        cpu = cpu_future.result()
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+    gates = {}
+    for label, ref in MOE_GATED.items():
+        g = accuracy_gate([r.out for r in runs[ref][0]],
+                          [r.out for r in runs[label][0]])
+        print(f"[moe] gate ({label}) vs ({ref}): teacher-forced agreement "
+              f"{g['agreement']:.4f} ({g['below_floor']} below 0.5) -> "
+              f"{'pass' if g['passed'] else 'FAIL'}", flush=True)
+        if not g["passed"]:
+            raise AssertionError(f"[moe] ({label}) fails the gate: {g}")
+        gates[label] = g["agreement"]
+    for label, ref in (("c", "a"), ("g", "f")):
+        g = accuracy_gate([r.out for r in runs[ref][0]],
+                          [r.out for r in runs[label][0]])
+        print(f"[moe] ({label}) against ({ref}) (observed, no limit): "
+              f"agreement {g['agreement']:.4f}", flush=True)
+    for label, (_, st, _) in runs.items():
+        if st["counters"] != cpu[label]:
+            raise AssertionError(f"[moe] ({label}): counters "
+                                 f"{st['counters']} != CPU {cpu[label]}")
+    print(f"[moe] host counters equal the smoke configs' on the CPU for "
+          f"the same token traces, runs (a)-(h)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[moe] main path: {launches} B1 launches = layers x programs "
+          f"over the kernel runs; phase {wall:.1f} s against a "
+          f"{MOE_BUDGET_S} s budget (card runs and model init "
+          f"{t_card:.1f} s, the CPU rehearsal beside them)", flush=True)
+    out = [dict(st, phase="moe") for _, st, _ in runs.values()]
+    out.append({"phase": "moe", "gates": gates, "cpu_counters": cpu,
+                "captured_b1": caps, "phase_s": wall,
+                "budget_s": MOE_BUDGET_S})
+    return launches, out
+
+
 def dense_trace(cfg, seed: int):
     """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
     prefill through the decode step stays short at full width."""
@@ -2116,7 +2499,7 @@ def quant_forward_phase(cfg, model, seed: int) -> dict:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        _, logits, _ = forward(model, tokens, cfg, quant=quant)
+        _, logits, _, _ = forward(model, tokens, cfg, quant=quant)
         b.record()
         torch.cuda.synchronize()
         ms = a.elapsed_time(b)
@@ -2137,7 +2520,7 @@ def quant_forward_phase(cfg, model, seed: int) -> dict:
                                                   w_fmt.frac_bits), w):
                         raise AssertionError("a fake-quantized weight is "
                                              "off the grid")
-        _, again, _ = forward(model, tokens, cfg, quant=data_only)
+        _, again, _, _ = forward(model, tokens, cfg, quant=data_only)
     if not torch.equal(again, logits):
         raise AssertionError("the quantized forward did not use the "
                              "weights' grid values")
@@ -2407,7 +2790,8 @@ def cnn_phase() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "kernels", "cnn", "tier"],
+    ap.add_argument("--phase",
+                    choices=["all", "kernels", "cnn", "tier", "moe"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -2442,6 +2826,10 @@ def main(argv=None) -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         tier_only(SEED, NUM_LAYERS)
         return 0
+    if args.phase == "moe":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        moe_phase(SEED)
+        return 0
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     hmma = kernel_build_report()
@@ -2451,6 +2839,9 @@ def main(argv=None) -> int:
     launches, runs, cnn_record = None, [], None
     if args.phase == "all":
         launches, runs = serve_phase(SEED, NUM_LAYERS)
+        moe_launches, moe_runs = moe_phase(SEED)
+        launches += moe_launches
+        runs += moe_runs
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

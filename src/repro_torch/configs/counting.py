@@ -1,10 +1,12 @@
 """Analytic parameter counting: feeds the transformer traffic model and
 ``ModelConfig.param_count``. Plain arithmetic on the config, for every
-family of the registry (the models of most families are not ported yet,
-their counts are)."""
+family of the registry (the SSM, hybrid, encoder and VLM models are not
+ported yet; their counts are). Also the layer structure the models,
+converter and quantized trees share: ``layer_signatures``,
+``layer_segments`` and ``segment_layers``."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, List, Tuple
 
 
 def layer_signatures(cfg) -> Tuple[Tuple[str, str], ...]:
@@ -22,6 +24,40 @@ def layer_signatures(cfg) -> Tuple[Tuple[str, str], ...]:
             ffn = "mlp"
         sigs.append((kind, ffn))
     return tuple(sigs)
+
+
+def layer_segments(cfg) -> List[Tuple[Tuple[Tuple[str, str], ...], int,
+                                      int]]:
+    """The reference's ``models.transformer.layer_segments``: the layers
+    split at ``first_k_dense`` into ``(pattern, periods, start)`` segments
+    whose ``pattern`` repeats exactly ``periods`` times. Layer
+    ``start + p * len(pattern) + j`` has signature ``pattern[j]``."""
+    sigs = layer_signatures(cfg)
+    bounds = [0]
+    if 0 < cfg.first_k_dense < cfg.num_layers:
+        bounds.append(cfg.first_k_dense)
+    bounds.append(cfg.num_layers)
+    segments = []
+    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+        seg = sigs[b0:b1]
+        n = len(seg)
+        period = n
+        for p in range(1, n + 1):
+            if n % p == 0 and all(seg[i] == seg[i % p] for i in range(n)):
+                period = p
+                break
+        segments.append((tuple(seg[:period]), n // period, b0))
+    return segments
+
+
+def segment_layers(cfg) -> Iterator[Tuple[int, int, int, int]]:
+    """Every layer as ``(layer, si, j, p)`` in layer order: pattern
+    position ``j`` of segment ``si`` (:func:`layer_segments`), period
+    ``p``, is layer ``start + p * len(pattern) + j``."""
+    for si, (pattern, periods, start) in enumerate(layer_segments(cfg)):
+        for p in range(periods):
+            for j in range(len(pattern)):
+                yield start + p * len(pattern) + j, si, j, p
 
 
 def _attn_params(cfg) -> int:

@@ -20,7 +20,12 @@ write harmlessly (their own dense row, or the scratch page).
 * Bucketed chunked prefill: one forward per power-of-two prompt chunk
   (``prefill_bucket`` caps it), and same-bucket chunks of several
   admissions stack into one [rows, bucket] forward. ``prefill="stepwise"``
-  keeps the token-at-a-time reference path.
+  keeps the token-at-a-time reference path, and is what a MoE model in
+  ``moe_mode="scatter"`` gets (its expert capacity depends on the
+  forward's token count), as in the reference.
+* MoE models (Llama 4, DeepSeek-V3) serve on either cache; an MLA model
+  (DeepSeek-V3) keeps its latent in dense slabs only (a paged cache
+  raises, as in the reference).
 * Fused rounds (``fused="on"``, paged and bucketed only): ONE ragged
   [batch, bucket] program per scheduler cycle, in which prefill chunks
   and the other slots' decode tokens share one forward; the steady state
@@ -73,6 +78,10 @@ Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --kv-bits 8                                    # dense cache
+  python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
+      --smoke --device cpu --page-size 16 --kv-bits 8
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --num-layers 4 \\
+      --kv-bits 8                                    # dense latent cache
   python -m repro_torch.launch.serve --arch qwen2-72b --num-layers 8 \\
       --page-size 16 --kv-bits 8 --attn-impl kernel --fused on
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
@@ -212,8 +221,11 @@ class BatchedServer:
 
     ``model`` is a ``models.transformer.Transformer`` on ``device``; the
     caches are allocated there. ``page_size`` 0 = dense caches, > 0 =
-    paged pools. ``prefill``: "auto" = bucketed when paged, stepwise when
-    dense; "bucketed" = bucketed chunked prefill (paged only);
+    paged pools (an MLA model's latent cache is dense only). ``prefill``:
+    "auto" = bucketed where it is output-equivalent to stepwise (a paged
+    cache, and exact MoE routing: no experts, or ``moe_mode`` "eval_all"),
+    else stepwise; "bucketed" = bucketed chunked prefill (raises where
+    "auto" would not take it);
     "stepwise" = the token-at-a-time reference. ``prefill_batch`` caps
     how many same-bucket prompts stack into one prefill forward (0 = the
     batch size). ``fused="on"`` runs one ragged program per scheduler
@@ -265,6 +277,8 @@ class BatchedServer:
         if tp != 1:
             raise _not_ported("tensor-parallel serving (--tp)", "13")
         self.paged = page_size > 0
+        if self.paged and cfg.attention_type == "mla":
+            raise NotImplementedError("paged KV serving supports GQA archs")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                              f"got {attn_impl!r}")
@@ -274,14 +288,22 @@ class BatchedServer:
         if prefill not in ("auto", "bucketed", "stepwise"):
             raise ValueError(f"prefill must be auto|bucketed|stepwise, "
                              f"got {prefill!r}")
-        # the port serves only dense attention-only decoders, where the
-        # bucketed path is output-equivalent to the stepwise reference
-        # whenever the cache is paged
-        if prefill == "bucketed" and not self.paged:
-            raise ValueError("bucketed prefill needs a paged cache "
-                             "(--page-size > 0); use prefill='stepwise'")
-        self.prefill_mode = ("bucketed" if self.paged and prefill != "stepwise"
-                             else "stepwise")
+        attn_only = all(k == "attn" for k in cfg.layer_kinds)
+        # bucketed prefill is only offered where it is output-equivalent to
+        # the stepwise reference: capacity-bounded scatter MoE routes
+        # differently at chunk batch shapes (capacity scales with the
+        # forward's token count)
+        bucketed_ok = (self.paged and attn_only
+                       and (cfg.num_experts == 0
+                            or cfg.moe_mode == "eval_all"))
+        if prefill == "bucketed" and not bucketed_ok:
+            raise ValueError("bucketed prefill needs a paged cache, an "
+                             "attention-only arch (SSM states are per-slot "
+                             "dense), and exact MoE routing (scatter-mode "
+                             "expert capacity depends on the forward's "
+                             "token count); use prefill='stepwise'")
+        self.prefill_mode = ("bucketed" if prefill in ("auto", "bucketed")
+                             and bucketed_ok else "stepwise")
         if kv_scale not in ("static", "page"):
             raise ValueError(f"kv_scale must be 'static' or 'page', "
                              f"got {kv_scale!r}")

@@ -1,5 +1,6 @@
 """Serving step functions: whole-prompt prefill into dense caches,
-bucketed chunk prefill, decode, and the fused ragged step.
+bucketed chunk prefill, decode, and the fused ragged step. The forward's
+aux output (a MoE model's load-balance loss) is not used in serving.
 
 Plain functions on tensors (PyTorch runs eagerly; the reference wraps the
 same bodies in ``jax.jit``). Caches are the per-layer list of
@@ -25,8 +26,8 @@ def make_prefill_step(cfg, *, max_len: int, quant=None):
     def step(model, tokens):
         caches = init_cache(cfg, quant, None, model.device,
                             batch=tokens.shape[0], max_len=max_len)
-        x, caches = forward_hidden(model, tokens, cfg, quant=quant,
-                                   caches=caches, cache_pos=0)
+        x, caches, _ = forward_hidden(model, tokens, cfg, quant=quant,
+                                      caches=caches, cache_pos=0)
         return lm_head(model.head_weight(), x)[:, -1], caches
 
     return step
@@ -44,11 +45,11 @@ def make_chunk_prefill_step(cfg, *, quant=None, attn_impl: str = "gather"):
 
     @torch.no_grad()
     def step(model, tokens, start_pos, valid_len, caches, page_table):
-        _, caches = forward_hidden(model, tokens, cfg, quant=quant,
-                                   caches=caches, cache_pos=start_pos,
-                                   page_table=page_table,
-                                   attn_impl=attn_impl,
-                                   kv_valid_len=valid_len)
+        _, caches, _ = forward_hidden(model, tokens, cfg, quant=quant,
+                                      caches=caches, cache_pos=start_pos,
+                                      page_table=page_table,
+                                      attn_impl=attn_impl,
+                                      kv_valid_len=valid_len)
         return caches
 
     return step
@@ -63,10 +64,11 @@ def make_decode_step(cfg, *, quant=None, attn_impl: str = "gather"):
 
     @torch.no_grad()
     def step(model, tokens, pos, caches, page_table):
-        x, caches = forward_hidden(model, tokens[:, None], cfg, quant=quant,
-                                   caches=caches, cache_pos=pos,
-                                   page_table=page_table,
-                                   attn_impl=attn_impl)
+        x, caches, _ = forward_hidden(model, tokens[:, None], cfg,
+                                      quant=quant,
+                                      caches=caches, cache_pos=pos,
+                                      page_table=page_table,
+                                      attn_impl=attn_impl)
         logits = lm_head(model.head_weight(), x)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
@@ -98,11 +100,11 @@ def make_fused_step(cfg, *, quant=None, attn_impl: str = "gather"):
     @torch.no_grad()
     def step(model, tokens, start_pos, valid_len, caches, page_table,
              emit_idx):
-        x, caches = forward_hidden(model, tokens, cfg, quant=quant,
-                                   caches=caches, cache_pos=start_pos,
-                                   page_table=page_table,
-                                   attn_impl=attn_impl,
-                                   kv_valid_len=valid_len)
+        x, caches, _ = forward_hidden(model, tokens, cfg, quant=quant,
+                                      caches=caches, cache_pos=start_pos,
+                                      page_table=page_table,
+                                      attn_impl=attn_impl,
+                                      kv_valid_len=valid_len)
         emit = emit_idx.to(torch.int64)
         h = x[emit]                                          # (E, S, D)
         last = valid_len.to(torch.int64)[emit] - 1           # (E,)

@@ -1,4 +1,5 @@
-"""GQA attention (with optional QKV bias) over dense or paged KV caches.
+"""Attention: GQA (with optional QKV bias) over dense or paged KV caches,
+and MLA (DeepSeek-V3) over dense latent caches.
 
 * ``gqa_apply`` — QKV projections + bias, RoPE, the cache write, attention
   and the output projection, for the reference's three cache kinds: a
@@ -18,7 +19,16 @@
   ``"gather"`` reads the pool through the dense gather and
   ``attend_chunked``'s online softmax.
 
-M-RoPE and MLA are still to port (ROADMAP queue A item 11).
+* ``mla_apply`` — DeepSeek-V3's multi-head latent attention: the query
+  LoRA, the latent ``[c_kv ; k_rope]`` (the whole KV cache: a dense
+  ``(batch, max_len, kv_lora_rank + rope_dim)`` slab of
+  ``init_mla_cache``, on a ``KVQuantSpec`` grid or in the compute dtype),
+  and either the expanded route (per-head K/V through ``attend_chunked``)
+  or the absorbed one (W_uk folded into the query, W_uv into the output,
+  float32 einsums in latent space). A paged latent cache is not offered,
+  as in the reference.
+
+M-RoPE is still to port (ROADMAP queue A item 11).
 """
 from __future__ import annotations
 
@@ -34,7 +44,7 @@ from ..core.paged_kv import paged_gather, paged_update, per_row, \
     pool_container
 from ..kernels.paged_kv_attention import (paged_kv_attention_chunk,
                                           paged_kv_attention_decode)
-from .common import apply_rope, dense_init, frozen
+from .common import apply_rope, dense_init, frozen, rmsnorm
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("gather", "kernel")
@@ -386,4 +396,129 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
         o = attend_full(q, k, v, positions,
                         torch.arange(S, device=x.device), causal=cfg.causal)
     y = o.reshape(B, S, H * hd) @ p.wo
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): the cache holds only the latent (kv_lora_rank +
+# rope_dim per token), and that latent is what the data bits quantize
+# ---------------------------------------------------------------------------
+class MLAttention(nn.Module):
+    """Projections in the reference's ``(in, out)`` layout, in the compute
+    dtype; the two norm scales in float32; allocated uninitialized (see
+    :func:`init_mla`)."""
+
+    def __init__(self, cfg, dtype, device=None):
+        super().__init__()
+        D, H = cfg.d_model, cfg.num_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        mk = lambda *shape: frozen(torch.empty(shape, dtype=dtype,
+                                               device=device))
+        self.wq_a = mk(D, qr)
+        self.q_norm = frozen(torch.empty(qr, dtype=torch.float32,
+                                         device=device))
+        self.wq_b = mk(qr, H * (dn + dr))
+        self.wkv_a = mk(D, kvr + dr)
+        self.kv_norm = frozen(torch.empty(kvr, dtype=torch.float32,
+                                          device=device))
+        self.wkv_b = mk(kvr, H * (dn + dv))
+        self.wo = mk(H * dv, D)
+
+
+def init_mla(p: MLAttention, generator: torch.Generator) -> None:
+    """The reference's distributions: fan-in truncated normal projections,
+    ``wo`` of std 1/sqrt(H * dv), unit norm scales."""
+    dev = p.wq_a.device
+    for w in (p.wq_a, p.wq_b, p.wkv_a, p.wkv_b):
+        w.copy_(dense_init(w.shape, torch.float32, generator, dev))
+    p.wo.copy_(dense_init(p.wo.shape, torch.float32, generator, dev,
+                          scale=1.0 / np.sqrt(p.wo.shape[0])))
+    p.q_norm.fill_(1.0)
+    p.kv_norm.fill_(1.0)
+
+
+def init_mla_cache(batch, max_len, cfg, dtype,
+                   quant: Optional[KVQuantSpec], device):
+    """A dense latent slab: (batch, max_len, kv_lora_rank + rope_dim) in
+    ``quant``'s integer container, or ``dtype`` without one."""
+    store = quant.dtype if quant is not None else dtype
+    width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    return {"latent": torch.zeros((batch, max_len, width), dtype=store,
+                                  device=device)}
+
+
+def mla_apply(p: MLAttention, x, positions, *, cfg, cache=None,
+              cache_pos=None, kv_quant: Optional[KVQuantSpec] = None,
+              absorbed: bool = False):
+    """Returns (y, cache). The latent ``[c_kv ; k_rope]`` is written to
+    ``cache`` (a dense slab of :func:`init_mla_cache`, in place, at
+    ``cache_pos``: scalar or (B,)) on ``kv_quant``'s grid, or, without a
+    cache, attended within the sequence.
+
+    ``absorbed=False`` expands the latent to per-head K/V at use and runs
+    :func:`attend_chunked` with scale 1/sqrt(dn + dr); ``absorbed=True``
+    folds W_uk into the query and W_uv into the output and attends in
+    latent space with float32 einsums (scores, softmax and both
+    products)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    kvr = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    cd = x.dtype
+    sm_scale = 1.0 / np.sqrt(dn + dr)
+    f32 = torch.float32
+
+    cq = rmsnorm(p.q_norm, x @ p.wq_a, cfg.norm_eps)
+    q = (cq @ p.wq_b).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+    kv_a = x @ p.wkv_a
+    c_kv = rmsnorm(p.kv_norm, kv_a[..., :kvr], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., kvr:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    latent = torch.cat([c_kv, k_rope], dim=-1)          # (B, S, kvr + dr)
+
+    if cache is not None:
+        seq_update(cache["latent"], _q_store(latent, kv_quant).to(
+            cache["latent"].dtype), cache_pos)
+        lat_all = _q_load(cache["latent"], kv_quant, cd)
+        kv_len = per_row(cache_pos, B, x.device) + S
+    else:
+        lat_all, kv_len = latent, None
+    T = lat_all.shape[1]
+    c_all, kr_all = lat_all[..., :kvr], lat_all[..., kvr:]
+
+    wkv_b = p.wkv_b.reshape(kvr, H, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+
+    if absorbed:
+        q_lat = torch.einsum("bshd,khd->bshk", q_nope, w_uk)
+        s = (torch.einsum("bshk,btk->bhst", q_lat.to(f32), c_all.to(f32))
+             + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
+                            kr_all.to(f32))) * sm_scale
+        t = torch.arange(T, device=x.device)
+        mask = torch.ones((B, S, T), dtype=torch.bool, device=x.device)
+        if cfg.causal:
+            mask = mask & (t[None, None, :] <= positions[:, :, None])
+        if kv_len is not None:
+            mask = mask & (t[None, None, :] < _len_col(kv_len, 3, x.device))
+        s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+        pr = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btk->bshk", pr, c_all.to(f32))
+        o = torch.einsum("bshk,khd->bshd", o_lat, w_uv.to(f32)).to(cd)
+    else:
+        k_nope = torch.einsum("btk,khd->bthd", c_all, w_uk)
+        vv = torch.einsum("btk,khd->bthd", c_all, w_uv)
+        k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+            B, T, H, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        o = attend_chunked(q_full, k_full, vv, positions, 0,
+                           causal=cfg.causal, kv_len=kv_len,
+                           chunk=cfg.attn_chunk, scale=sm_scale,
+                           operand_dtype=torch.bfloat16 if cfg.attn_bf16
+                           else torch.float32)
+    y = o.reshape(B, S, H * dv) @ p.wo
     return y, cache

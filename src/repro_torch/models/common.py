@@ -29,6 +29,22 @@ def dense_init(shape, dtype, generator: torch.Generator, device,
     return w.mul_(std).to(dtype)
 
 
+def dense_init_(dst: torch.Tensor, generator: torch.Generator,
+                scale: Optional[float] = None) -> None:
+    """:func:`dense_init` of ``dst``'s shape written into ``dst``. A tensor
+    of rank >= 3 (an expert stack) is drawn one leading slice at a time
+    with the whole tensor's std (fan-in = ``shape[0]``, as the reference
+    takes it), so the float32 staging is one slice, not the tensor."""
+    if dst.dim() < 3:
+        dst.copy_(dense_init(dst.shape, torch.float32, generator,
+                             dst.device, scale))
+        return
+    std = scale if scale is not None else 1.0 / np.sqrt(dst.shape[0])
+    for part in dst:
+        part.copy_(dense_init(part.shape, torch.float32, generator,
+                              dst.device, std))
+
+
 def embed_init(shape, dtype, generator: torch.Generator,
                device) -> torch.Tensor:
     """N(0, 0.02^2), drawn in float32 then cast."""

@@ -1,21 +1,26 @@
-"""Dense GQA decoder: blocks, the model module, dense and paged caches,
-the forward with the paper's per-layer fake-quant, and the converter from
-the JAX package's parameter tree.
+"""Decoder models: blocks built from each layer's signature (GQA or MLA
+attention; a SwiGLU or a MoE FFN), the model module, dense and paged
+caches, the forward with the paper's per-layer fake-quant, and the
+converter from the JAX package's parameter tree.
 
-The reference stacks each segment's layers and runs them under
-``lax.scan``; here the model is an ``nn.ModuleList`` of one
+The reference groups layers into segments of one repeated block pattern
+(``layer_segments``: e.g. DeepSeek-V3's 3 dense layers then its MoE
+layers; Llama 4's dense/MoE interleave) and runs each under ``lax.scan``
+over stacked parameters; here the model is an ``nn.ModuleList`` of one
 :class:`DecoderBlock` per layer and the forward is a Python loop, with one
 cache per layer (the layout of the reference's ``_segment_unrolled``).
 
 Per-layer quantization (all optional, driven by :class:`ModelQuant`):
   * weights: fake-quant of every >= 2-D float tensor of a block before use
-    (the paper's "weights"; :func:`_quant_weights`),
+    (the paper's "weights"; :func:`_quant_weights`), expert stacks, router
+    and MLA projections included,
   * residual stream: fake-quant of the embedding output and of each
     block's output (the paper's "data"),
-  * KV: integer-grid storage in dense slabs or paged pools.
+  * KV: integer-grid storage in dense slabs or paged pools; an MLA layer
+    stores its latent on the grid, in a dense slab only.
 
-Other families (MoE, SSM, hybrid, encoder, VLM) and the training losses
-are still to port (ROADMAP queue A items 11 and 12).
+The SSM, hybrid, encoder and VLM families and the training losses are
+still to port (ROADMAP queue A items 11 and 12).
 """
 from __future__ import annotations
 
@@ -28,14 +33,18 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..configs.counting import (layer_segments, layer_signatures,
+                                segment_layers)
 from ..core.fixedpoint import fake_quant
 from ..core.paged_kv import (PagedCacheSpec, PagedKVLayout, init_paged_pool,
                              per_row)
-from .attention import (GQAttention, KVQuantSpec, gqa_apply, init_gqa,
-                        init_kv_cache)
+from .attention import (GQAttention, KVQuantSpec, MLAttention, gqa_apply,
+                        init_gqa, init_kv_cache, init_mla, init_mla_cache,
+                        mla_apply)
 from .common import (dense_init, embed_init, embed_tokens, frozen, lm_head,
                      rmsnorm)
 from .mlp import SwiGLU, init_swiglu, swiglu_apply
+from .moe import MoE, init_moe, moe_apply
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +107,9 @@ class ModelQuant:
 def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
     """``mod`` with every >= 2-D float tensor fake-quantized to ``fmt``
     (the paper's weight quantization; 1-D tensors, biases and norm scales,
-    stay full precision). Returns a namespace read like the module, or
-    ``mod`` itself when ``fmt`` is None."""
+    stay full precision), submodules (a MoE's shared expert) included.
+    Returns a namespace read like the module, or ``mod`` itself when
+    ``fmt`` is None."""
     if fmt is None:
         return mod
     view = types.SimpleNamespace(**{k: v for k, v in vars(mod).items()
@@ -108,6 +118,8 @@ def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
         if t.dim() >= 2 and t.is_floating_point():
             t = fake_quant(t, *fmt)
         setattr(view, name, t)
+    for name, child in mod.named_children():
+        setattr(view, name, _quant_weights(child, fmt))
     return view
 
 
@@ -115,28 +127,52 @@ def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
 # Modules
 # ---------------------------------------------------------------------------
 class DecoderBlock(nn.Module):
-    """Pre-norm residual block: x += attn(norm1(x)); x += mlp(norm2(x)).
-    Norm scales stay float32 (the reference reads them as float32); the
-    projections are stored in the compute dtype."""
+    """Pre-norm residual block of signature ``sig`` = (kind, ffn):
+    x += attn(norm1(x)); x += mlp(norm2(x)). ``attn`` is an
+    :class:`MLAttention` for an MLA config, else a :class:`GQAttention`;
+    ``mlp`` (the reference's "ffn") a :class:`MoE` for ffn "moe", else a
+    SwiGLU of ``d_ff``. Norm scales stay float32 (the reference reads them
+    as float32); the projections are stored in the compute dtype."""
+
+    def __init__(self, cfg, dtype, device=None, sig=("attn", "mlp")):
+        super().__init__()
+        self.sig = tuple(sig)
+        D = cfg.d_model
+        self.norm1 = frozen(torch.empty(D, dtype=torch.float32,
+                                        device=device))
+        self.attn = (MLAttention(cfg, dtype, device)
+                     if cfg.attention_type == "mla"
+                     else GQAttention(cfg, dtype, device))
+        self.norm2 = frozen(torch.empty(D, dtype=torch.float32,
+                                        device=device))
+        self.mlp = (MoE(cfg, dtype, device) if sig[1] == "moe"
+                    else SwiGLU(D, cfg.d_ff, dtype, device))
+
+
+class MTP(nn.Module):
+    """The multi-token-prediction module (``cfg.mtp_depth`` > 0): ``proj``
+    (2D, D), an ("attn", "mlp") block and a norm. Carried as the reference
+    carries it; the served forward does not use it (its loss is ROADMAP
+    queue A item 12)."""
 
     def __init__(self, cfg, dtype, device=None):
         super().__init__()
         D = cfg.d_model
-        self.norm1 = frozen(torch.empty(D, dtype=torch.float32,
-                                        device=device))
-        self.attn = GQAttention(cfg, dtype, device)
-        self.norm2 = frozen(torch.empty(D, dtype=torch.float32,
-                                        device=device))
-        self.mlp = SwiGLU(D, cfg.d_ff, dtype, device)
+        self.proj = frozen(torch.empty(2 * D, D, dtype=dtype, device=device))
+        self.block = DecoderBlock(cfg, dtype, device, ("attn", "mlp"))
+        self.norm = frozen(torch.empty(D, dtype=torch.float32,
+                                       device=device))
 
 
 class Transformer(nn.Module):
-    """The dense decoder. ``embed`` is (V, D) and ``head`` (D, V), both in
-    the compute dtype; ``head`` is None for tied embeddings."""
+    """The decoder. ``embed`` is (V, D) and ``head`` (D, V), both in the
+    compute dtype; ``head`` is None for tied embeddings; ``layers[i]`` is
+    built from ``layer_signatures(cfg)[i]``; ``mtp`` is None without
+    multi-token prediction."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_dense(cfg)
+        _check_ported(cfg)
         self.cfg = cfg
         dt = cfg.torch_dtype
         D, V = cfg.d_model, cfg.vocab_size
@@ -145,8 +181,9 @@ class Transformer(nn.Module):
                                              device=device))
         self.head = (None if cfg.tie_embeddings else
                      frozen(torch.empty(D, V, dtype=dt, device=device)))
-        self.layers = nn.ModuleList(DecoderBlock(cfg, dt, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(DecoderBlock(cfg, dt, device, sig)
+                                    for sig in layer_signatures(cfg))
+        self.mtp = MTP(cfg, dt, device) if cfg.mtp_depth > 0 else None
 
     @property
     def device(self) -> torch.device:
@@ -156,20 +193,33 @@ class Transformer(nn.Module):
         return self.embed.T if self.head is None else self.head
 
 
-def _check_dense(cfg) -> None:
-    if (cfg.family != "dense" or cfg.attention_type != "gqa"
-            or cfg.num_experts or any(k != "attn" for k in cfg.layer_kinds)):
+def _check_ported(cfg) -> None:
+    """Refuse the families still to port: SSM and recurrent layers, the
+    hybrid, encoder and VLM families."""
+    kinds = set(cfg.layer_kinds) - {"attn"}
+    if kinds or cfg.family in ("hybrid", "encoder", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported; MoE, MLA, "
-            f"SSM, hybrid, encoder and VLM models are ROADMAP queue A "
-            f"item 11")
+            f"{cfg.name}: the {cfg.family} family"
+            + (f" ({', '.join(sorted(kinds))} layers)" if kinds else "")
+            + " is not ported yet; the port builds dense, MoE and MLA "
+            "decoders, and the SSM, hybrid, encoder and VLM families are "
+            "ROADMAP queue A item 11")
+
+
+def _init_block(blk: DecoderBlock, g: torch.Generator) -> None:
+    blk.norm1.fill_(1.0)
+    blk.norm2.fill_(1.0)
+    (init_mla if isinstance(blk.attn, MLAttention) else init_gqa)(blk.attn,
+                                                                  g)
+    (init_moe if isinstance(blk.mlp, MoE) else init_swiglu)(blk.mlp, g)
 
 
 @torch.no_grad()
 def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
     """Random model with the reference's init distributions, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the numbers
-    differ from the JAX init's)."""
+    differ from the JAX init's). Expert stacks are drawn one expert at a
+    time straight into their compute-dtype buffers."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     g = torch.Generator(device=dev)
@@ -179,11 +229,50 @@ def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
     if model.head is not None:
         model.head.copy_(dense_init(model.head.shape, torch.float32, g, dev))
     for blk in model.layers:
-        blk.norm1.fill_(1.0)
-        blk.norm2.fill_(1.0)
-        init_gqa(blk.attn, g)
-        init_swiglu(blk.mlp, g)
+        _init_block(blk, g)
+    if model.mtp is not None:
+        model.mtp.proj.copy_(dense_init(model.mtp.proj.shape, torch.float32,
+                                        g, dev))
+        _init_block(model.mtp.block, g)
+        model.mtp.norm.fill_(1.0)
     return model
+
+
+_ATTN_LEAVES = {"gqa": ("wq", "wk", "wv", "wo"),
+                "mla": ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
+                        "wkv_b", "wo")}
+
+
+def block_leaves(blk: DecoderBlock, cfg):
+    """(reference path, tensor) of every parameter of a block, the path
+    the reference's block tree gives it: ``mixer/<name>`` (a norm scale's
+    leaf is ``<name>/scale``), ``ffn/<name>`` of a SwiGLU, or
+    ``ffn/router``, ``ffn/experts/<name>`` and ``ffn/shared/<name>`` of a
+    MoE, and ``norm1/scale``, ``norm2/scale``."""
+    out = [(("norm1", "scale"), blk.norm1), (("norm2", "scale"), blk.norm2)]
+    names = list(_ATTN_LEAVES[cfg.attention_type])
+    if cfg.attention_type == "gqa" and cfg.attention_bias:
+        names += ["bq", "bk", "bv"]
+    for n in names:
+        path = (("mixer", n, "scale") if n.endswith("_norm")
+                else ("mixer", n))
+        out.append((path, getattr(blk.attn, n)))
+    swiglu = ("w_gate", "w_up", "w_down")
+    if isinstance(blk.mlp, MoE):
+        out.append((("ffn", "router"), blk.mlp.router))
+        out += [(("ffn", "experts", n), getattr(blk.mlp, n)) for n in swiglu]
+        if blk.mlp.shared is not None:
+            out += [(("ffn", "shared", n), getattr(blk.mlp.shared, n))
+                    for n in swiglu]
+    else:
+        out += [(("ffn", n), getattr(blk.mlp, n)) for n in swiglu]
+    return out
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 @torch.no_grad()
@@ -193,12 +282,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *,
 
     ``tree`` is the reference's ``init_model`` tree with every leaf already
     mapped to numpy (no jax needed here). The reference stacks layers for
-    ``lax.scan``: a dense model is one segment with a one-block pattern,
-    so every leaf of ``segments[0][0]`` carries a leading layer axis, which
-    is unstacked here into one :class:`DecoderBlock` per layer. Weights
-    keep their ``(in, out)`` layout and are cast to the compute dtype once
-    here, which equals the reference's per-use ``.astype(compute_dtype)``;
-    norm scales stay float32."""
+    ``lax.scan``: ``segments[si][j]`` holds pattern position j of segment
+    si, every leaf with a leading period axis, and period p of it is layer
+    ``start + p * len(pattern) + j`` (``segment_layers``); it is unstacked
+    here into one :class:`DecoderBlock` per layer (:func:`block_leaves`
+    names the leaves). ``mtp`` (unstacked in the reference) is carried.
+    Weights keep their ``(in, out)`` layout and are cast to the compute
+    dtype once here, which equals the reference's per-use
+    ``.astype(compute_dtype)``; norm scales stay float32."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
 
@@ -209,25 +300,25 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *,
                              f"{tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
-    if len(tree["segments"]) != 1 or len(tree["segments"][0]) != 1:
-        raise ValueError("a dense model's tree has one segment of one "
-                         "block pattern")
+    segs = layer_segments(cfg)
+    if len(tree["segments"]) != len(segs) or any(
+            len(t) != len(pat) for t, (pat, _, _) in zip(tree["segments"],
+                                                         segs)):
+        raise ValueError(f"the tree's segments do not fit {cfg.name}'s "
+                         f"layer segments {segs}")
     put(model.embed, tree["embed"]["table"])
     put(model.final_norm, tree["final_norm"]["scale"])
     if model.head is not None:
         put(model.head, tree["head"]["kernel"])
-    stacked = tree["segments"][0][0]
-    mix, ffn = stacked["mixer"], stacked["ffn"]
-    attn_names = ["wq", "wk", "wv", "wo"]
-    if cfg.attention_bias:
-        attn_names += ["bq", "bk", "bv"]
-    for li, blk in enumerate(model.layers):
-        put(blk.norm1, stacked["norm1"]["scale"][li])
-        put(blk.norm2, stacked["norm2"]["scale"][li])
-        for n in attn_names:
-            put(getattr(blk.attn, n), mix[n][li])
-        for n in ("w_gate", "w_up", "w_down"):
-            put(getattr(blk.mlp, n), ffn[n][li])
+    for li, si, j, p in segment_layers(cfg):
+        for path, dst in block_leaves(model.layers[li], cfg):
+            put(dst, _leaf(tree["segments"][si][j], path)[p])
+    if model.mtp is not None:
+        mtp = tree["mtp"]
+        put(model.mtp.proj, mtp["proj"])
+        put(model.mtp.norm, mtp["norm"]["scale"])
+        for path, dst in block_leaves(model.mtp.block, cfg):
+            put(dst, _leaf(mtp["block"], path))
     return model
 
 
@@ -239,7 +330,15 @@ def init_block_cache(cfg, batch, max_len, dtype,
                      paged: Optional[PagedCacheSpec], device):
     """One attention layer's cache: a paged pool when ``paged`` is given
     (``kv_quant`` picks its container), else a dense (batch, max_len, KV,
-    hd) slab of :func:`models.attention.init_kv_cache`."""
+    hd) slab of :func:`models.attention.init_kv_cache`; an MLA layer's is
+    a dense latent slab (:func:`models.attention.init_mla_cache`), and a
+    paged one raises the reference's NotImplementedError."""
+    if cfg.attention_type == "mla":
+        if paged is not None:
+            raise NotImplementedError(
+                "paged KV cache supports GQA attention; MLA latent "
+                "paging is future work")
+        return init_mla_cache(batch, max_len, cfg, dtype, kv_quant, device)
     if paged is not None:
         layout = PagedKVLayout(
             num_pages=paged.num_pages, page_size=paged.page_size,
@@ -260,7 +359,8 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
     dense slab stores the int8/int16 grid of ``quant.kv_container`` (int4
     raises: it exists only lane-packed in pages). A per-layer profile
     (``quant.kv_containers``) gives each layer a pool in its own
-    container, float pages for "fp" layers; it needs a paged cache."""
+    container, float pages for "fp" layers; it needs a paged cache. MLA
+    layers hold dense latent slabs only."""
     if paged is None and (batch <= 0 or max_len <= 0):
         raise ValueError("a dense cache needs batch and max_len")
     if (paged is None and quant is not None
@@ -277,29 +377,44 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
 def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
                 kv_quant=None, w_fmt=None, a_fmt=None, page_table=None,
                 attn_impl="gather", kv_valid_len=None):
-    """One pre-norm block. Returns (x, cache). ``w_fmt``/``a_fmt`` (I, F)
-    fake-quantize the block's weights before use and its output (the
-    residual stream) after it."""
+    """One pre-norm block, dispatched on its signature. Returns (x, cache,
+    aux): ``aux`` is the MoE's {"moe_lb_loss", "moe_z_loss"} for a MoE
+    block, else empty. ``w_fmt``/``a_fmt`` (I, F) fake-quantize the
+    block's weights before use and its output (the residual stream) after
+    it."""
     attn = _quant_weights(blk.attn, w_fmt)
     mlp = _quant_weights(blk.mlp, w_fmt)
     h = rmsnorm(blk.norm1, x, cfg.norm_eps)
-    y, cache = gqa_apply(attn, h, positions, cfg=cfg, cache=cache,
-                         cache_pos=cache_pos, kv_quant=kv_quant,
-                         page_table=page_table, attn_impl=attn_impl,
-                         kv_valid_len=kv_valid_len)
+    if isinstance(blk.attn, MLAttention):
+        y, cache = mla_apply(attn, h, positions, cfg=cfg, cache=cache,
+                             cache_pos=cache_pos, kv_quant=kv_quant,
+                             absorbed=cfg.mla_absorbed)
+    else:
+        y, cache = gqa_apply(attn, h, positions, cfg=cfg, cache=cache,
+                             cache_pos=cache_pos, kv_quant=kv_quant,
+                             page_table=page_table, attn_impl=attn_impl,
+                             kv_valid_len=kv_valid_len)
     x = x + y
     h = rmsnorm(blk.norm2, x, cfg.norm_eps)
-    x = x + swiglu_apply(mlp, h)
+    aux = {}
+    if isinstance(blk.mlp, MoE):
+        y, aux = moe_apply(mlp, h, cfg=cfg)
+    else:
+        y = swiglu_apply(mlp, h)
+    x = x + y
     if a_fmt is not None:
         x = fake_quant(x, *a_fmt)          # the paper's "data" bits
-    return x, cache
+    return x, cache, aux
 
 
 def forward_hidden(model: Transformer, tokens, cfg, *,
                    quant: Optional[ModelQuant] = None, caches=None,
                    cache_pos=None, page_table=None, attn_impl="gather",
                    kv_valid_len=None):
-    """Backbone only: returns (hidden after the final norm, caches).
+    """Backbone only: returns (hidden after the final norm, caches, aux);
+    ``aux["moe_lb_loss"]`` is the sum of the MoE layers' load-balance
+    losses (a float32 scalar, 0 without MoE layers), as the reference's
+    segment scans sum it.
 
     tokens: (B, S) ids; ``caches``: None (attend within the sequence: the
     training / whole-prompt forward) or :func:`init_cache`'s per-layer
@@ -318,12 +433,13 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
     positions = base[:, None] + torch.arange(S, device=x.device)[None, :]
     if quant is not None and quant.a_int is not None:
         x = fake_quant(x, *quant.layer_data(0))    # the embedding output
+    lb = None
     for li, blk in enumerate(model.layers):
         kvq = wf = af = None
         if quant is not None:
             kvq, wf, af = (quant.layer_kv(li), quant.layer_weight(li),
                            quant.layer_data(li))
-        x, cache = block_apply(
+        x, cache, aux = block_apply(
             blk, x, positions, cfg=cfg,
             cache=None if caches is None else caches[li],
             cache_pos=cache_pos, kv_quant=kvq, w_fmt=wf, a_fmt=af,
@@ -331,15 +447,19 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
             kv_valid_len=kv_valid_len)
         if caches is not None:
             caches[li] = cache
+        if "moe_lb_loss" in aux:
+            lb = aux["moe_lb_loss"] if lb is None else lb + aux["moe_lb_loss"]
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return x, caches
+    if lb is None:
+        lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, {"moe_lb_loss": lb}
 
 
 def forward(model: Transformer, tokens, cfg, **kw):
-    """Returns (hidden, logits, caches); keywords as
-    :func:`forward_hidden`."""
-    x, caches = forward_hidden(model, tokens, cfg, **kw)
-    return x, lm_head(model.head_weight(), x), caches
+    """Returns (hidden, logits, caches, aux), as the reference's
+    ``forward``; keywords as :func:`forward_hidden`."""
+    x, caches, aux = forward_hidden(model, tokens, cfg, **kw)
+    return x, lm_head(model.head_weight(), x), caches, aux
 
 
 def prefill(model: Transformer, tokens, cfg, *,
@@ -350,8 +470,8 @@ def prefill(model: Transformer, tokens, cfg, *,
     B, S = tokens.shape
     caches = init_cache(cfg, quant, None, model.device, batch=B,
                         max_len=max_len)
-    _, logits, caches = forward(model, tokens, cfg, quant=quant,
-                                caches=caches, cache_pos=0)
+    _, logits, caches, _ = forward(model, tokens, cfg, quant=quant,
+                                   caches=caches, cache_pos=0)
     return logits[:, -1], caches, S
 
 
@@ -360,7 +480,8 @@ def decode_step(model: Transformer, tokens, pos, caches, cfg, *,
                 attn_impl="gather"):
     """One decode step. tokens: (B,) int32; pos: scalar or (B,) current
     lengths. Returns (logits (B, V), caches)."""
-    _, logits, caches = forward(model, tokens[:, None], cfg, quant=quant,
-                                caches=caches, cache_pos=pos,
-                                page_table=page_table, attn_impl=attn_impl)
+    _, logits, caches, _ = forward(model, tokens[:, None], cfg, quant=quant,
+                                   caches=caches, cache_pos=pos,
+                                   page_table=page_table,
+                                   attn_impl=attn_impl)
     return logits[:, 0], caches

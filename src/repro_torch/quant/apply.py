@@ -10,7 +10,8 @@
 * ``kv_layer_container`` — a layer's KV container under its data format;
   ``kv_profile_key`` — the canonical string of a KV quantization setup
   (the prefix cache's namespace).
-* ``quantize_param_tree`` — a dense model's weights as QuantizedTensors.
+* ``quantize_param_tree`` — a model's weights as QuantizedTensors, one
+  format per layer segment.
 """
 from __future__ import annotations
 
@@ -19,11 +20,11 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..configs.counting import (kv_bytes_per_token, layer_param_count,
-                                layer_signatures)
+                                layer_segments, layer_signatures)
 from ..core.policy import PrecisionPolicy
 from ..core.qtensor import QuantizedTensor
 from ..core.traffic import LayerTraffic, TrafficModel
-from ..models.transformer import ModelQuant, Transformer
+from ..models.transformer import ModelQuant, Transformer, block_leaves
 
 
 def transformer_layer_names(cfg) -> Tuple[str, ...]:
@@ -57,7 +58,9 @@ def build_model_quant(policy: Optional[PrecisionPolicy], cfg,
     float layer "fp", whose pool stores float pages) and clips each
     layer's grid to its container (cap 8 for "fp", whose grid is unused).
     The reference's ``kv_unroll`` has no counterpart: it picks one of two
-    XLA lowerings, and the port's forward is one per-layer loop."""
+    XLA lowerings, and the port's forward is one per-layer loop. An MLA
+    layer's KV spec applies to its latent (``ModelQuant.layer_kv``), the
+    whole of its cache."""
     if policy is None:
         return None
     if len(policy) != cfg.num_layers:
@@ -168,52 +171,66 @@ def policy_footprint_report(policy: PrecisionPolicy, cfg, *, batch: int,
     }
 
 
+def _nest(leaves) -> dict:
+    """{path tuple: value} -> the nested dict those paths name."""
+    out: dict = {}
+    for path, v in leaves:
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out
+
+
 def quantize_param_tree(model: Transformer, policy: PrecisionPolicy, *,
                         pack: bool = True) -> dict:
-    """A dense model's weights on their integer grids, one QuantizedTensor
-    per floating weight of rank >= 2 of every layer; every other leaf
-    (embedding, head, norm scales, biases) passes through as the model's
-    tensor.
+    """A model's weights on their integer grids, one QuantizedTensor per
+    floating weight of rank >= 2 of every layer (expert stacks, router,
+    shared expert and MLA projections included); every other leaf
+    (embedding, head, norm scales, biases, the ``mtp`` module) passes
+    through as the model's tensor.
 
-    The format is the reference's: a dense model is one segment, and every
-    layer gets the maximum int and frac bits over the segment's weight
-    formats (Q2.6 when no layer has one); grids of at most 8 bits are
-    lane-packed when ``pack``. Returns ``{"embed": {"table"},
-    "final_norm": {"scale"}, "head": {"kernel"} (untied only), "layers":
-    [per layer {"mixer": {wq, wk, wv, wo[, bq, bk, bv]}, "ffn": {w_gate,
-    w_up, w_down}, "norm1": {"scale"}, "norm2": {"scale"}}]}``: the
-    reference's leaf names, with its scan-stacked segment split into one
-    dict per layer.
+    The formats are the reference's: each layer segment
+    (``layer_segments``) takes the maximum int and frac bits over its own
+    layers' weight formats (Q2.6 when none of them has one), and its grids
+    of at most 8 bits are lane-packed when ``pack``. Returns ``{"embed":
+    {"table"}, "final_norm": {"scale"}, "head": {"kernel"} (untied only),
+    "layers": [per layer {"mixer": {...}, "ffn": {...}, "norm1":
+    {"scale"}, "norm2": {"scale"}}], "mtp": {...} (with MTP only)}``: the
+    reference's leaf names (``block_leaves``), with its scan-stacked
+    segments split into one dict per layer.
 
     Orientation: the port stores every projection as the reference does,
     ``(d_in, d_out)`` (``x @ w``), so each grid here is the reference's
-    slice for that layer, and an unpacked grid goes to ``ops.qmatmul`` as
-    ``wq (K, N)`` unchanged, with scales ``2^-F``."""
+    slice for that layer, and an unpacked 2-D grid goes to
+    ``ops.qmatmul`` as ``wq (K, N)`` unchanged, with scales ``2^-F``."""
     cfg = model.cfg
     if len(policy) != cfg.num_layers:
         raise ValueError(f"policy has {len(policy)} layers, model has "
                          f"{cfg.num_layers}")
-    fmts = [lp.weight for lp in policy.layers if lp.weight is not None]
-    ib = max((f.int_bits for f in fmts), default=2)
-    fb = max((f.frac_bits for f in fmts), default=6)
-    packed = pack and ib + fb <= 8
+    layers = [None] * cfg.num_layers
+    for pattern, periods, start in layer_segments(cfg):
+        idx = range(start, start + periods * len(pattern))
+        fmts = [policy.layers[i].weight for i in idx
+                if policy.layers[i].weight is not None]
+        ib = max((f.int_bits for f in fmts), default=2)
+        fb = max((f.frac_bits for f in fmts), default=6)
+        packed = pack and ib + fb <= 8
 
-    def q(t):
-        if t.dim() >= 2 and t.is_floating_point():
-            return QuantizedTensor.from_float(t, ib, fb, pack=packed)
-        return t
-
-    attn = ["wq", "wk", "wv", "wo"]
-    if cfg.attention_bias:
-        attn += ["bq", "bk", "bv"]
+        def q(t):
+            if t.dim() >= 2 and t.is_floating_point():
+                return QuantizedTensor.from_float(t, ib, fb, pack=packed)
+            return t
+        for li in idx:
+            layers[li] = _nest((path, q(t)) for path, t in
+                               block_leaves(model.layers[li], cfg))
     out = {"embed": {"table": model.embed},
            "final_norm": {"scale": model.final_norm}}
     if model.head is not None:
         out["head"] = {"kernel": model.head}
-    out["layers"] = [{
-        "mixer": {n: q(getattr(blk.attn, n)) for n in attn},
-        "ffn": {n: q(getattr(blk.mlp, n))
-                for n in ("w_gate", "w_up", "w_down")},
-        "norm1": {"scale": blk.norm1}, "norm2": {"scale": blk.norm2},
-    } for blk in model.layers]
+    out["layers"] = layers
+    if model.mtp is not None:
+        out["mtp"] = {"proj": model.mtp.proj,
+                      "block": _nest(block_leaves(model.mtp.block, cfg)),
+                      "norm": {"scale": model.mtp.norm}}
     return out

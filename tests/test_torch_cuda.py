@@ -995,3 +995,73 @@ def test_cuda_cnn_eval_is_a_function(cuda, net):
     b = cnn.cnn_accuracy(gparams, x.to(cuda), y.to(cuda), spec, pol)
     assert a == b
     assert abs(a - cnn.cnn_accuracy(params, x, y, spec, pol)) * 512 <= 1
+
+
+# ---------------------------------------------------------------------------
+# The MoE and MLA families: B1 at llama4-maverick's query-group size, the
+# router's stable top-k and the MoE dispatch on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4, 0])
+@pytest.mark.parametrize("s", [1, 32])
+def test_cuda_b1_at_group_five(cuda, bits, s):
+    """40 query heads over 8 KV heads (G = 5), head_dim 128, page size 16:
+    a block packs 25 queries x 5 heads = 125 rows at S = 32 and 5 live
+    rows of 16 at decode, so a warp's rows straddle queries (G = 8 never
+    did). The tensor-core kernel against the plain version."""
+    args = _case(500 + bits + s, b=4, kv=8, g=5, hd=128, ps=16, s=s,
+                 bits=bits, start=300, qdt=torch.bfloat16)
+    assert pka.query_block(s, 5, 8, False) == min(s, 25)
+    assert pka.kernel_route(args[1], head_dim=128, G=5,
+                            block_kv=False) == "mma"
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    before = pka.paged_kv_attention_chunk.launches
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+def test_cuda_stable_topk_breaks_ties_to_the_lower_index(cuda):
+    """Scores with 3 distinct values over 256 experts (bf16 logits cast
+    to float32, as the router's): on the card the same indices as on the
+    CPU, each run of equal scores in ascending expert order."""
+    from repro_torch.models.moe import stable_topk
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 3, (64, 256)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(torch.float32)
+    for k in (1, 8):
+        vals, idx = stable_topk(x.to(cuda), k)
+        cv, ci = stable_topk(x, k)
+        assert torch.equal(idx.cpu(), ci) and torch.equal(vals.cpu(), cv)
+        same = vals[:, 1:] == vals[:, :-1]
+        assert bool((idx[:, 1:] > idx[:, :-1])[same].all())
+
+
+@pytest.mark.parametrize("mode", ["eval_all", "scatter"])
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "deepseek-v3-671b"])
+def test_cuda_moe_apply_matches_cpu(cuda, arch, mode):
+    """``moe_apply`` at the smoke widths (float32, capacity factor 0.5 so
+    scatter drops assignments): the card's routing equals the CPU's and
+    its output and load-balance loss lie within 1e-4."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              moe_capacity_factor=0.5)
+    g = torch.Generator().manual_seed(3)
+    m = moe.MoE(cfg, torch.float32, "cpu")
+    with torch.no_grad():
+        moe.init_moe(m, g)
+        m.router.normal_(0.0, 2.0 / np.sqrt(cfg.d_model), generator=g)
+    x = torch.randn((2, 16, cfg.d_model), generator=g)
+    want, aux = moe.moe_apply(m, x, cfg=cfg, mode=mode)
+    gm = copy.deepcopy(m).to(cuda)
+    got, gaux = moe.moe_apply(gm, x.to(cuda), cfg=cfg, mode=mode)
+    assert torch.equal(moe._route(gm, x.to(cuda), cfg)[1].cpu(),
+                       moe._route(m, x, cfg)[1])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    assert float(gaux["moe_lb_loss"]) == pytest.approx(
+        float(aux["moe_lb_loss"]), rel=1e-5)

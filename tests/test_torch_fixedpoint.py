@@ -8,14 +8,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import perturbed_jax_params, t, torch_model  # noqa: E402
+from _torch_parity import (perturbed_jax_params,  # noqa: E402
+                           quantized_tree_matches, t, torch_model)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import fixedpoint as jfp  # noqa: E402
 from repro.core import policy as jpol  # noqa: E402
 from repro.core import qtensor as jqt  # noqa: E402
-from repro.quant import apply as japply  # noqa: E402
 from repro_torch.core import fixedpoint as tfp  # noqa: E402
 from repro_torch.core import policy as tpol  # noqa: E402
 from repro_torch.core import qtensor as tqt  # noqa: E402
@@ -195,26 +195,8 @@ def test_quantize_param_tree_matches_reference(which):
     names = tapply.transformer_layer_names(tcfg)
     tp = list(_policies(names))[which]
     jp = jpol.PrecisionPolicy.from_json(tp.to_json())
-    got = tapply.quantize_param_tree(model, tp)
-    want = japply.quantize_param_tree(jparams, jp, jcfg)
-    np.testing.assert_array_equal(got["embed"]["table"].numpy(),
-                                  np.asarray(want["embed"]["table"]))
-    seg = want["segments"][0][0]
-    for li, layer in enumerate(got["layers"]):
-        for group in ("mixer", "ffn", "norm1", "norm2"):
-            assert set(layer[group]) == set(seg[group])
-            for name, leaf in layer[group].items():
-                ref = seg[group][name]
-                if isinstance(ref, jqt.QuantizedTensor):
-                    assert isinstance(leaf, tqt.QuantizedTensor)
-                    assert (leaf.int_bits, leaf.frac_bits, leaf.packed) == \
-                        (ref.int_bits, ref.frac_bits, ref.packed)
-                    assert leaf.shape == tuple(ref.shape[1:])
-                    np.testing.assert_array_equal(
-                        leaf.data.numpy(), np.asarray(ref.data[li]))
-                else:
-                    np.testing.assert_array_equal(leaf.numpy(),
-                                                  np.asarray(ref[li]))
+    formats = quantized_tree_matches(jcfg, tcfg, jparams, model, tp, jp)
+    assert formats == [{(1, 3, True)}, {(3, 6, False)}, {(2, 6, True)}][which]
     with pytest.raises(ValueError, match="layers"):
         tapply.quantize_param_tree(model, tpol.PrecisionPolicy.uniform(
             names[:2], None, None))

@@ -92,7 +92,7 @@ def test_forward_matches_reference(models, container, attn_impl,
         start = np.asarray(start, np.int32)
         kw = {} if valid is None else {
             "kv_valid_len": np.asarray(valid, np.int32)}
-        th, tlog, tcaches = ttr.forward(
+        th, tlog, tcaches, _ = ttr.forward(
             model, t(tok), tcfg, quant=tq, caches=tcaches,
             cache_pos=t(start), page_table=pt_t, attn_impl=attn_impl,
             **{k: t(v) for k, v in kw.items()})
@@ -173,7 +173,8 @@ def test_params_from_numpy_unstacks_layers(models):
 
 def test_entry_points_default_to_cuda():
     """Without a card, asking for the default device raises instead of
-    falling back to the CPU; non-dense families are not ported yet."""
+    falling back to the CPU; the families still to port (here the
+    hybrid) raise."""
     from repro_torch.configs.registry import get_smoke_config
     cfg = get_smoke_config("qwen2-72b")
     if torch.cuda.is_available():
@@ -181,7 +182,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttr.init_model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init_model(get_smoke_config("deepseek-v3-671b"), device="cpu")
+        ttr.init_model(get_smoke_config("jamba-v0.1-52b"), device="cpu")
     m = ttr.init_model(cfg, seed=3, device="cpu")
     m2 = ttr.init_model(cfg, seed=3, device="cpu")
     assert torch.equal(m.layers[1].attn.wq, m2.layers[1].attn.wq)

@@ -13,7 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import perturbed_jax_params, t, torch_model  # noqa: E402
+from _torch_parity import (perturbed_jax_params, quantized_blocks_match,  # noqa: E402,E501
+                           t, torch_model)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -119,7 +120,7 @@ def test_cache_free_forward_matches_reference(models, S):
     chunked online softmax (72 keys in chunks of 64, the last padded)."""
     jcfg, tcfg, jparams, model = models
     tok = _tokens(np.random.default_rng(S), tcfg.vocab_size, 2, S)
-    th, tlog, tc = ttr.forward(model, t(tok), tcfg)
+    th, tlog, tc, _ = ttr.forward(model, t(tok), tcfg)
     jh, jlog, jc, _ = jtr.forward(jparams, {"tokens": jnp.asarray(tok)},
                                   jcfg)
     assert tc is None and jc is None
@@ -147,40 +148,9 @@ def test_quantized_blocks_match_reference(models, w, d, enabled):
     within 1e-4, except at most 1% of a block's values that differ by
     exactly one grid step (2^-12 = 2.4e-4 at Q4.12); 1-3 of 1280 do."""
     jcfg, tcfg, jparams, model = models
-    tq, jq = _quants(jcfg, tcfg, w, d, kv=False, acts=True, enabled=enabled)
-    for name in ("w_int", "w_frac", "a_int", "a_frac"):
-        got, ref = getattr(tq, name), getattr(jq, name)
-        assert (got is None) == (ref is None), name
-        if got is not None:
-            assert list(got) == np.asarray(ref).astype(int).tolist(), name
-    B, S = 2, 10
-    tok = _tokens(np.random.default_rng(9), tcfg.vocab_size, B, S)
-    x = np.asarray(jparams["embed"]["table"])[tok]
-    if d is not None:
-        x = np.asarray(jfake_quant(jnp.asarray(x), *tq.layer_data(0)))
-        np.testing.assert_array_equal(
-            fake_quant(t(x), *tq.layer_data(0)).numpy(), x)
-    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
-    seg = jparams["segments"][0][0]
-    jblock = jax.jit(lambda p, x, pos, q: jtr.block_apply(
-        p, x, pos, cfg=jcfg, sig=("attn", "mlp"), quant=q)[0])
-    for li, blk in enumerate(model.layers):
-        jp = jax.tree_util.tree_map(lambda a: a[li], seg)
-        jy = jblock(jp, jnp.asarray(x), jnp.asarray(pos), jq.layer_slice(li))
-        ty, _ = ttr.block_apply(blk, t(x), t(pos), cfg=tcfg, cache=None,
-                                cache_pos=None, w_fmt=tq.layer_weight(li),
-                                a_fmt=tq.layer_data(li))
-        jy = np.asarray(jy)
-        diff = np.abs(ty.numpy() - jy)
-        near = diff <= 1e-4 + 1e-4 * np.abs(jy)
-        if d is not None:
-            # the only other difference allowed: one grid step at a tie
-            step = 2.0 ** -tq.layer_data(li)[1]
-            flips = ~near & (np.abs(diff - step) <= 1e-4 * np.abs(jy))
-            assert flips.mean() <= 0.01, (li, flips.sum())
-            near |= flips
-        assert near.all(), (li, diff[~near])
-        x = jy
+    quantized_blocks_match(jcfg, tcfg, jparams, model,
+                           *_quants(jcfg, tcfg, w, d, kv=False, acts=True,
+                                    enabled=enabled))
 
 
 def test_weight_quantized_forward_matches_reference(models):
@@ -190,12 +160,12 @@ def test_weight_quantized_forward_matches_reference(models):
     jcfg, tcfg, jparams, model = models
     tq, jq = _quants(jcfg, tcfg, (2, 6), None, kv=False, acts=True)
     tok = _tokens(np.random.default_rng(9), tcfg.vocab_size, 2, 10)
-    th, tlog, _ = ttr.forward(model, t(tok), tcfg, quant=tq)
+    th, tlog, _, _ = ttr.forward(model, t(tok), tcfg, quant=tq)
     jh, jlog, _, _ = jtr.forward(jparams, {"tokens": jnp.asarray(tok)},
                                  jcfg, quant=jq)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
-    plain, _, _ = ttr.forward(model, t(tok), tcfg)
+    plain, _, _, _ = ttr.forward(model, t(tok), tcfg)
     assert not torch.equal(plain, th)      # the quant really ran
 
 
