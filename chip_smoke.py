@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase cnn    # phase 4 alone, no kernel build
     python3 chip_smoke.py --phase tier   # the build and [tier] alone
     python3 chip_smoke.py --phase moe    # the build and [moe] alone
+    python3 chip_smoke.py --phase ssm    # the build and [ssm] alone
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -77,7 +78,20 @@ Phases, each of which raises on failure (no phase is caught):
    one captured decode step at G = 5 (int8, int4), B1 once per layer per
    program, host counters equal to the smoke configs' on the CPU (a
    child process) for the same traces, tok/s, decode-step ms and peak
-   memory of each run, the phase time against its 60 s budget;
+   memory of each run, the phase time against its 60 s budget; then,
+   those models freed, ``[ssm]``: xlstm-350m at full depth (21 mLSTM and
+   3 sLSTM blocks, d_model 1024) on dense recurrent states, bf16 and with
+   its mLSTM memories on the Q2.6 grid (kv_bits 8), and jamba-v0.1-52b at
+   its published widths cut to one 8-layer period (7 Mamba layers, one
+   attention layer at G = 32 / 8 = 4, MoE of 16 experts top-2 scatter on
+   the odd layers) on paged int8 pools through both routes and int4
+   through B1, 8 requests of 16-48 prompt tokens and 16 new at batch 4,
+   stepwise prefill: teacher-forced gates, B1 against its plain version
+   on the pools of one captured decode step at G = 4, three requests
+   served alone against the same three batched (a slot's recurrent
+   states restart on admission and stay put in the other slots), host
+   counters against the smoke configs on the CPU, the phase time against
+   its 60 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -841,11 +855,12 @@ def kv_cache_bytes(srv, peak_pages: int) -> int:
     """Device bytes of the KV the run needed: a dense server's slabs, or
     a paged server's ``peak_pages`` pages (and their scales) in every
     layer's pool."""
+    from repro_torch.core.paged_kv import iter_kv_pools
     if not srv.paged:
         return sum(t.numel() * t.element_size() for c in srv.caches
                    for t in c.values())
-    per_page = sum(t[0].numel() * t.element_size() for c in srv.caches
-                   for t in c.values())
+    per_page = sum(t[0].numel() * t.element_size()
+                   for c in iter_kv_pools(srv.caches) for t in c.values())
     return peak_pages * per_page
 
 
@@ -2416,6 +2431,308 @@ def moe_phase(seed: int):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# [ssm]: the recurrent families at published widths: xlstm-350m at full
+# depth on dense states, jamba-v0.1-52b cut to one period, its attention
+# layer served through B1 at G = 4 on paged pools
+# ---------------------------------------------------------------------------
+XLSTM, JAMBA = "xlstm-350m", "jamba-v0.1-52b"
+SSM_LAYERS = {XLSTM: 24, JAMBA: 8}    # xlstm whole; one jamba period
+SSM_TRAFFIC = dict(n=8, lo=16, hi=48, max_new=16)
+SSM_SERVE = {XLSTM: dict(batch_size=4, max_len=96, page_size=0),
+             JAMBA: dict(batch_size=4, max_len=96, page_size=PS)}
+SSM_RUNS = {
+    # label: (arch, server options, route, forced by)
+    "a": (XLSTM, dict(kv_bits=0), "gather", None),
+    "b": (XLSTM, dict(kv_bits=8), "gather", "a"),
+    "c": (JAMBA, dict(kv_bits=8), "gather", None),
+    "d": (JAMBA, dict(kv_bits=8), "kernel", "c"),
+    "e": (JAMBA, dict(kv_bits=4), "kernel", "c"),
+}
+SSM_GATED = {"d": "c"}                # teacher-forced gates
+SSM_OBSERVED = {"b": "a", "e": "c"}   # teacher-forced, no limit
+# alone vs batched, teacher-forced: the batched run's options, and jamba's
+# MoE at exact routing (scatter's expert capacity is shared by the rows
+# of a forward, so under it a request's tokens depend on its neighbours)
+SSM_ALONE = {XLSTM: ("a", {}), JAMBA: ("c", dict(moe_mode="eval_all"))}
+SSM_BUDGET_S = 60
+
+
+def ssm_trace(arch, seed: int, vocab=None):
+    """The phase's 8 requests in ``arch``'s published vocabulary, or
+    mapped into ``vocab`` position by position (:func:`map_vocab`)."""
+    from repro_torch.configs.registry import get_config
+    reqs = served_requests(get_config(arch), seed + 5, **SSM_TRAFFIC)
+    return reqs if vocab is None else map_vocab(reqs, vocab)
+
+
+def ssm_shortest(arch, seed: int, n: int):
+    """The trace's ``n`` shortest requests, in rid order (each prompt
+    token costs a whole-batch program under stepwise prefill)."""
+    short = sorted(ssm_trace(arch, seed), key=lambda r: len(r.prompt))[:n]
+    return sorted(short, key=lambda r: r.rid)
+
+
+def cpu_ssm_counters(seed: int, src: str) -> dict:
+    """Every [ssm] run's server on the CPU with the arch's smoke config
+    (the published moe_mode), the trace mapped into its vocabulary,
+    through the gather route (the counters depend on prompts and pages
+    only). Runs in a child process beside the card runs, on one thread."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    out, seen = {}, {}
+    for label, (arch, kw, _, _) in SSM_RUNS.items():
+        key = (arch, tuple(sorted(kw.items())))
+        if key not in seen:
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      moe_mode=get_config(arch).moe_mode)
+            model = init_model(cfg, seed=seed, device="cpu")
+            srv = BatchedServer(cfg, model, attn_impl="gather",
+                                prefill_bucket=32, device="cpu",
+                                **SSM_SERVE[arch], **kw)
+            srv.run(ssm_trace(arch, seed, cfg.vocab_size))
+            seen[key] = moe_counters(srv)
+        out[label] = seen[key]
+    return out
+
+
+def ssm_model(arch, seed: int):
+    """The arch at published widths, ``SSM_LAYERS`` layers, bf16, random
+    weights from a seeded generator; prints the cut."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SSM_LAYERS[arch])
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    kinds = ", ".join(f"{i}: {blk.sig[0]}"
+                      + ("+MoE" if blk.sig[1] == "moe" else "")
+                      for i, blk in enumerate(model.layers))
+    if cfg.num_experts:
+        mix = (f"GQA {cfg.num_heads}/{cfg.num_kv_heads} heads (G = "
+               f"{cfg.num_heads // cfg.num_kv_heads}), head_dim "
+               f"{cfg.head_dim}; Mamba d_inner {cfg.ssm_expand * cfg.d_model}"
+               f", state {cfg.ssm_state_dim}, head {cfg.ssm_head_dim}, "
+               f"conv {cfg.ssm_conv_dim}; d_ff {cfg.d_ff}; "
+               f"{cfg.num_experts} experts of {cfg.moe_d_ff} top-"
+               f"{cfg.experts_per_token} {cfg.moe_mode}")
+    else:
+        mix = (f"{cfg.num_heads} heads, mLSTM/sLSTM d_inner "
+               f"{cfg.ssm_expand * cfg.d_model}, tied embeddings")
+    n = sum(p.numel() for p in model.parameters())
+    cut = ("none, full depth" if cfg.num_layers == full.num_layers
+           else f"depth {full.num_layers} -> {cfg.num_layers} layers")
+    print(f"[ssm] {arch}: published widths (d_model {cfg.d_model}, {mix}, "
+          f"vocab {cfg.vocab_size}, ssm chunk {cfg.ssm_chunk}, {cfg.dtype});"
+          f" cut: {cut} ({kinds}); {n / 1e9:.4f} G parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, model
+
+
+def ssm_alone_check(cfg, model, seed: int, batched, over) -> dict:
+    """C3 on the card: the three shortest requests of the run ``batched``
+    (label), with the config overrides ``over``, each served alone on a
+    fresh server of the same batch size and options, then the three
+    batched on one server fed the alone-served tokens (teacher forcing);
+    the batched tokens must pass the gate against the alone-served
+    ones."""
+    arch, kw, impl, _ = SSM_RUNS[batched]
+    cfg = dataclasses.replace(cfg, **over)
+    three = lambda: ssm_shortest(arch, seed, 3)     # noqa: E731
+    alone = []
+    for r in three():
+        (done,), _, _ = serve_once(cfg, model, attn_impl=impl, seed=seed,
+                                   trace=lambda c, sd, r=r: [r],
+                                   **SSM_SERVE[arch], **kw)
+        alone.append(done.out)
+    reqs, _, _ = serve_once(cfg, model, attn_impl=impl, seed=seed,
+                            trace=lambda c, sd: three(),
+                            forced={r.rid: out for r, out in
+                                    zip(three(), alone)},
+                            **SSM_SERVE[arch], **kw)
+    g = accuracy_gate(alone, [r.out for r in reqs])
+    moe = f", MoE {cfg.moe_mode}" if cfg.num_experts else ""
+    print(f"[ssm] {arch} ({batched}{moe}) alone vs batched: the three "
+          f"shortest requests served one by one on fresh servers, then "
+          f"batched fed their tokens: agreement {g['agreement']:.4f} "
+          f"({g['below_floor']} "
+          f"below 0.5) -> {'pass' if g['passed'] else 'FAIL'}", flush=True)
+    if not g["passed"]:
+        raise AssertionError(f"[ssm] {arch}: batched tokens fail the gate "
+                             f"against the alone-served ones: {g}")
+    return g
+
+
+def ssm_arch_runs(arch, seed: int, runs: dict, caps: dict,
+                  alone: dict) -> int:
+    """The [ssm] runs of ``arch`` on one model (see :func:`ssm_phase`),
+    recorded in ``runs`` (label -> (requests, stats, tap)), ``caps``
+    (label -> B1 against plain on captured pools) and ``alone`` (the
+    alone-vs-batched gate). Returns the B1 launches. The model, servers
+    and taps die with the call."""
+    import torch
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.models import attention
+
+    cfg, model = ssm_model(arch, seed)
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    n_attn = sum(blk.sig[0] == "attn" for blk in model.layers)
+    labels = [lb for lb, r in SSM_RUNS.items() if r[0] == arch]
+    # one short untimed run first, so that no timed run pays the card's
+    # one-time costs
+    t0 = time.perf_counter()
+    warm = ssm_shortest(arch, seed, 2)
+    for r in warm:
+        r.max_new = 2
+    first = SSM_RUNS[labels[0]]
+    serve_once(cfg, model, attn_impl=first[2], seed=seed,
+               trace=lambda c, sd: warm, **SSM_SERVE[arch], **first[1])
+    print(f"[ssm] {arch}: untimed warm-up run (the 2 shortest requests, 2 "
+          f"new tokens, as ({labels[0]})) {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launches, taps = 0, {}
+    for label in labels:
+        _, kw, impl, by = SSM_RUNS[label]
+        cap = None
+        if impl == "kernel":
+            cap = B1Capture(attention.paged_kv_attention_decode, at=100,
+                            layers=n_attn)
+            attention.paged_kv_attention_decode = cap
+        forced = {r.rid: r.out for r in runs[by][0]} if by else None
+        keep = {}
+        paged_kv_attention_chunk.launches = 0
+        try:
+            reqs, st, taps[label] = serve_once(
+                cfg, model, attn_impl=impl, seed=seed,
+                trace=lambda c, sd: ssm_trace(arch, sd), forced=forced,
+                tap=True, keep=keep, **SSM_SERVE[arch], **kw)
+        finally:
+            if cap is not None:
+                attention.paged_kv_attention_decode = cap.fn
+        n = paged_kv_attention_chunk.launches
+        if impl == "kernel" and n != n_attn * st["program_launches"]:
+            raise AssertionError(f"[ssm] ({label}): B1 launches {n} != "
+                                 f"attention layers x programs "
+                                 f"{n_attn} x {st['program_launches']}")
+        if impl == "gather" and n:
+            raise AssertionError(f"[ssm] ({label}): the gather route "
+                                 f"launched B1 {n} times")
+        launches += n
+        st.update(label=label, arch=arch, b1_launches=n,
+                  weights_gib=weights_gib,
+                  counters=moe_counters(keep["srv"]))
+        if by:
+            st.update(compare_logits(taps[by], taps[label]))
+        if cap is not None:
+            caps[label] = check_captured_b1(
+                cap.saved, f"({label}) kv_bits={kw['kv_bits']} G="
+                f"{cfg.num_heads // cfg.num_kv_heads}", tag="[ssm]")
+        runs[label] = (reqs, st, None)
+        print(f"[ssm] ({label}) {arch} kv_bits={kw['kv_bits']} {impl}"
+              f"{f' forced by ({by})' if by else ''}: "
+              f"{st['tok_per_s']:.1f} tok/s, decode step "
+              f"{st['decode_step_ms']:.2f} ms x {st['decode_steps']} "
+              f"(and the stepwise prefill's programs), B1 x {n}, peak "
+              f"{st['max_memory_allocated_gib']:.2f} GiB (weights "
+              f"{weights_gib:.2f}); {st['counters']}"
+              + (f"; logits vs ({by}) on identical inputs differ by at "
+                 f"most {st['max_abs_logit_diff']:.4g} (median "
+                 f"{st['median_max_abs_logit_diff']:.4g}, "
+                 f"{st['top2_tied_steps']} steps with the top two tied)"
+                 if by else ""), flush=True)
+    alone[arch] = ssm_alone_check(cfg, model, seed, *SSM_ALONE[arch])
+    return launches
+
+
+def ssm_phase(seed: int):
+    """``[ssm]``: xlstm-350m at full depth (21 mLSTM + 3 sLSTM blocks) on
+    dense recurrent states, batch 4, 8 requests of 16-48 prompt tokens and
+    16 new, stepwise prefill (the server's rule for archs that are not
+    attention-only): (a) bf16 states, (b) kv_bits 8, which puts the
+    mLSTM memories on the Q2.6 grid each chunk, teacher-forced by (a);
+    then jamba-v0.1-52b cut to one 8-layer period (7 Mamba layers, the
+    attention layer 4 at G = 4, MoE of 16 experts top-2 scatter on the
+    odd layers) on paged pools, page size 16: (c) int8 gather, (d) int8
+    kernel teacher-forced by (c), (e) int4 kernel fed (c)'s tokens. One
+    model on the card at a time, each after an untimed warm-up. Fails
+    unless every request finishes, B1 runs once per attention layer per
+    program on the kernel runs, (d) passes the gate against (c), B1 equals
+    its plain version on the pools of one captured decode step of (d) and
+    (e), three requests served alone equal (by the gate) their batched
+    tokens, and every run's host counters equal the smoke configs' on the
+    CPU for the same trace (a child process). Returns (B1 launches, run
+    records)."""
+    import concurrent.futures
+    import gc
+    import multiprocessing
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    print(f"[ssm] card memory held before the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    runs, caps, alone, launches = {}, {}, {}, 0
+    try:
+        cpu_future = rehearsal.submit(cpu_ssm_counters, seed, src)
+        for arch in (XLSTM, JAMBA):
+            launches += ssm_arch_runs(arch, seed, runs, caps, alone)
+            gc.collect()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            print(f"[ssm] {arch} freed: {held:.2f} GiB still allocated",
+                  flush=True)
+            if held > 1.0:
+                raise AssertionError(f"[ssm] {arch}'s model stayed on the "
+                                     f"card ({held:.2f} GiB)")
+        t_card = time.perf_counter() - t_phase
+        cpu = cpu_future.result()
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+    gates = {}
+    for label, ref in {**SSM_GATED, **SSM_OBSERVED}.items():
+        g = accuracy_gate([r.out for r in runs[ref][0]],
+                          [r.out for r in runs[label][0]])
+        gated = label in SSM_GATED
+        print(f"[ssm] ({label}) vs ({ref}), teacher-forced"
+              f"{'' if gated else ' (observed, no limit)'}: agreement "
+              f"{g['agreement']:.4f} ({g['below_floor']} below 0.5)"
+              + (f" -> {'pass' if g['passed'] else 'FAIL'}" if gated
+                 else ""), flush=True)
+        if gated and not g["passed"]:
+            raise AssertionError(f"[ssm] ({label}) fails the gate: {g}")
+        gates[label] = g["agreement"]
+    for label, (_, st, _) in runs.items():
+        if st["counters"] != cpu[label]:
+            raise AssertionError(f"[ssm] ({label}): counters "
+                                 f"{st['counters']} != CPU {cpu[label]}")
+    print(f"[ssm] host counters equal the smoke configs' on the CPU for "
+          f"the same token traces, runs (a)-(e)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[ssm] main path: {launches} B1 launches = attention layers x "
+          f"programs over the kernel runs; phase {wall:.1f} s against a "
+          f"{SSM_BUDGET_S} s budget (card runs and model init "
+          f"{t_card:.1f} s, the CPU rehearsal beside them)", flush=True)
+    out = [dict(st, phase="ssm") for _, st, _ in runs.values()]
+    out.append({"phase": "ssm", "gates": gates, "cpu_counters": cpu,
+                "captured_b1": caps, "alone": alone, "phase_s": wall,
+                "budget_s": SSM_BUDGET_S})
+    return launches, out
+
+
 def dense_trace(cfg, seed: int):
     """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
     prefill through the decode step stays short at full width."""
@@ -2791,7 +3108,8 @@ def cnn_phase() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
-                    choices=["all", "kernels", "cnn", "tier", "moe"],
+                    choices=["all", "kernels", "cnn", "tier", "moe",
+                             "ssm"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -2830,6 +3148,10 @@ def main(argv=None) -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         moe_phase(SEED)
         return 0
+    if args.phase == "ssm":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        ssm_phase(SEED)
+        return 0
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     hmma = kernel_build_report()
@@ -2840,8 +3162,9 @@ def main(argv=None) -> int:
     if args.phase == "all":
         launches, runs = serve_phase(SEED, NUM_LAYERS)
         moe_launches, moe_runs = moe_phase(SEED)
-        launches += moe_launches
-        runs += moe_runs
+        ssm_launches, ssm_runs = ssm_phase(SEED)
+        launches += moe_launches + ssm_launches
+        runs += moe_runs + ssm_runs
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

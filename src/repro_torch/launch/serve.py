@@ -22,10 +22,17 @@ write harmlessly (their own dense row, or the scratch page).
   admissions stack into one [rows, bucket] forward. ``prefill="stepwise"``
   keeps the token-at-a-time reference path, and is what a MoE model in
   ``moe_mode="scatter"`` gets (its expert capacity depends on the
-  forward's token count), as in the reference.
+  forward's token count) and an arch with recurrent layers, as in the
+  reference.
 * MoE models (Llama 4, DeepSeek-V3) serve on either cache; an MLA model
   (DeepSeek-V3) keeps its latent in dense slabs only (a paged cache
   raises, as in the reference).
+* Recurrent archs (xLSTM; Jamba's Mamba layers beside paged or dense
+  attention) keep one dense state row per slot. Admission restarts the
+  slot's rows from their initial values, and a stepwise prefill step
+  leaves the other slots' rows as they were (the reference does
+  neither). The prefix cache, a per-layer KV profile, fused rounds and
+  preemption are refused for them.
 * Fused rounds (``fused="on"``, paged and bucketed only): ONE ragged
   [batch, bucket] program per scheduler cycle, in which prefill chunks
   and the other slots' decode tokens share one forward; the steady state
@@ -82,6 +89,8 @@ Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
       --smoke --device cpu --page-size 16 --kv-bits 8
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --num-layers 4 \\
       --kv-bits 8                                    # dense latent cache
+  python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
+      --device cpu --page-size 16 --kv-bits 8        # Mamba + attention
   python -m repro_torch.launch.serve --arch qwen2-72b --num-layers 8 \\
       --page-size 16 --kv-bits 8 --attn-impl kernel --fused on
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
@@ -103,6 +112,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..configs.counting import layer_signatures
 from ..configs.registry import get_config, get_smoke_config
 from ..core.fixedpoint import FixedPointFormat
 from ..core.page_store import (HostPageStore, QuantTierStore, TieredPager,
@@ -290,9 +300,9 @@ class BatchedServer:
                              f"got {prefill!r}")
         attn_only = all(k == "attn" for k in cfg.layer_kinds)
         # bucketed prefill is only offered where it is output-equivalent to
-        # the stepwise reference: capacity-bounded scatter MoE routes
-        # differently at chunk batch shapes (capacity scales with the
-        # forward's token count)
+        # the stepwise reference: SSM states are per-slot dense, and
+        # capacity-bounded scatter MoE routes differently at chunk batch
+        # shapes (capacity scales with the forward's token count)
         bucketed_ok = (self.paged and attn_only
                        and (cfg.num_experts == 0
                             or cfg.moe_mode == "eval_all"))
@@ -319,6 +329,11 @@ class BatchedServer:
         if prefix_cache == "on" and not self.paged:
             raise ValueError("--prefix-cache on shares pool pages; it needs "
                              "--page-size > 0")
+        if prefix_cache == "on" and not attn_only:
+            raise ValueError("prefix sharing needs an attention-only arch: "
+                             "an SSM state folds the whole prefix, so "
+                             "cached KV pages cannot stand in for skipped "
+                             "prefill forwards")
         if kv_offload not in ("none", "host"):
             raise ValueError(f"kv_offload must be 'none' or 'host', "
                              f"got {kv_offload!r}")
@@ -348,6 +363,13 @@ class BatchedServer:
         if preempt and sched != "slo":
             raise ValueError("preemption is driven by the SLO scheduler; "
                              "it needs --sched slo")
+        if preempt and not attn_only:
+            # the reference parks a victim's pages but not its recurrent
+            # states, and resumes it on whatever state its slot holds
+            raise NotImplementedError(
+                "preemption parks KV pages, not recurrent states: serving "
+                f"{cfg.name} with preemption is ROADMAP queue C item C4 "
+                "(pass preempt=False, --no-preempt)")
         if predictor not in ("off", "on"):
             raise ValueError(f"predictor must be 'off' or 'on', "
                              f"got {predictor!r}")
@@ -373,7 +395,8 @@ class BatchedServer:
         if fused == "on" and self.prefill_mode != "bucketed":
             raise ValueError("--fused on runs ONE ragged prefill+decode "
                              "program per scheduler cycle; it needs the "
-                             "bucketed prefill path (a paged cache)")
+                             "bucketed prefill path (paged cache, "
+                             "attention-only arch, exact MoE routing)")
         if prefill_bucket < 1:
             raise ValueError("prefill_bucket must be >= 1")
         if prefill_batch < 0:
@@ -404,7 +427,7 @@ class BatchedServer:
             if kv_bits:
                 raise ValueError("--kv-profile supersedes --kv-bits; "
                                  "pass only one")
-            if not self.paged:
+            if not (self.paged and attn_only):
                 raise ValueError("--kv-profile (per-layer KV containers) "
                                  "needs a paged cache and an attention-only "
                                  "arch")
@@ -487,6 +510,12 @@ class BatchedServer:
                 self.allocator.reclaim = self.prefix_cache.evict
         self.caches = init_cache(cfg, self.quant, spec, self.device,
                                  batch=batch_size, max_len=max_len)
+        # recurrent layers' per-slot states, each layer's initial row: a
+        # slot admitting a request restarts from it
+        self._state0 = {li: {k: t[:1].clone()
+                             for k, t in self.caches[li].items()}
+                        for li, (kind, _) in enumerate(layer_signatures(cfg))
+                        if kind != "attn"}
         # the adaptation tier probes the pools' geometry, so it follows
         # the caches
         self.quant_tier: Optional[QuantTierStore] = None
@@ -590,18 +619,45 @@ class BatchedServer:
         self.prefill_forwards += 1
         self.program_launches += 1
 
+    def _reset_states(self, slot: int):
+        """The slot's rows of every recurrent state back to its initial
+        value (the sLSTM stabilizer's is -1e30, not 0)."""
+        for li, init in self._state0.items():
+            for k, t in self.caches[li].items():
+                t[slot] = init[k][0]
+
+    def _keep_other_states(self, held, slot: int):
+        """After a stepwise prefill step: every recurrent state row but
+        ``slot``'s back to ``held`` (the states before the step; a mixer
+        returns new tensors and never writes the ones it is given)."""
+        if not held:
+            return
+        rows = torch.arange(self.B, device=self.device) == slot
+        for li, old in held.items():
+            new = self.caches[li]
+            self.caches[li] = {
+                k: torch.where(rows.view(-1, *[1] * (t.dim() - 1)), t,
+                               old[k]) for k, t in new.items()}
+
     def _prefill_slot(self, slot: int, req: Request, start: int = 0):
         """Feed prompt[start:-1] through shared decode steps, leaving the
         last prompt token in ``tokens`` for the decode loop (``start`` > 0:
         a prefix hit already backs positions [0, start)). Other slots
-        rewrite their current position with identical values."""
+        rewrite their current position with identical values. Recurrent
+        states restart from their initial value in ``slot`` and stay as
+        they were in the other slots (the reference carries a slot's
+        states over from its last request and advances the other slots'
+        states with every step)."""
         t0 = time.perf_counter()
         self.pos[slot] = start
+        self._reset_states(slot)
         for t in req.prompt[start:-1]:
             if self.paged:
                 self._ensure_page(slot, int(self.pos[slot]))
             self.tokens[slot] = int(t)
+            held = {li: dict(self.caches[li]) for li in self._state0}
             self._sync_step()
+            self._keep_other_states(held, slot)
             self.pos[slot] += 1
         self.tokens[slot] = int(req.prompt[-1])
         self.prefill_forwards_saved += start

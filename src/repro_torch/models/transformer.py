@@ -1,7 +1,8 @@
-"""Decoder models: blocks built from each layer's signature (GQA or MLA
-attention; a SwiGLU or a MoE FFN), the model module, dense and paged
-caches, the forward with the paper's per-layer fake-quant, and the
-converter from the JAX package's parameter tree.
+"""Decoder models: blocks built from each layer's signature (a GQA or MLA
+attention, Mamba, mLSTM or sLSTM mixer; a SwiGLU, a MoE or no FFN), the
+model module, dense and paged caches beside dense recurrent states, the
+forward with the paper's per-layer fake-quant, and the converter from the
+JAX package's parameter tree.
 
 The reference groups layers into segments of one repeated block pattern
 (``layer_segments``: e.g. DeepSeek-V3's 3 dense layers then its MoE
@@ -17,10 +18,12 @@ Per-layer quantization (all optional, driven by :class:`ModelQuant`):
   * residual stream: fake-quant of the embedding output and of each
     block's output (the paper's "data"),
   * KV: integer-grid storage in dense slabs or paged pools; an MLA layer
-    stores its latent on the grid, in a dense slab only.
+    stores its latent on the grid, in a dense slab only,
+  * recurrent state: a Mamba or mLSTM layer puts its state on the layer's
+    KV grid at chunk boundaries (``state_quant``).
 
-The SSM, hybrid, encoder and VLM families and the training losses are
-still to port (ROADMAP queue A items 11 and 12).
+The encoder and VLM families and the training losses are still to port
+(ROADMAP queue A items 11 and 12).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from .common import (dense_init, embed_init, embed_tokens, frozen, lm_head,
                      rmsnorm)
 from .mlp import SwiGLU, init_swiglu, swiglu_apply
 from .moe import MoE, init_moe, moe_apply
+from .ssm import MIXERS
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +107,13 @@ class ModelQuant:
         return None if self.a_int is None else (self.a_int[li],
                                                 self.a_frac[li])
 
+    def layer_state(self, li: int) -> Optional[Tuple[int, int]]:
+        """Layer ``li``'s recurrent-state (I, F): its KV format, None
+        where the layer's KV stays float."""
+        if self.layer_container(li) == "fp":
+            return None
+        return self.kv_int[li], self.kv_frac[li]
+
 
 def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
     """``mod`` with every >= 2-D float tensor fake-quantized to ``fmt``
@@ -128,25 +139,38 @@ def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
 # ---------------------------------------------------------------------------
 class DecoderBlock(nn.Module):
     """Pre-norm residual block of signature ``sig`` = (kind, ffn):
-    x += attn(norm1(x)); x += mlp(norm2(x)). ``attn`` is an
-    :class:`MLAttention` for an MLA config, else a :class:`GQAttention`;
-    ``mlp`` (the reference's "ffn") a :class:`MoE` for ffn "moe", else a
-    SwiGLU of ``d_ff``. Norm scales stay float32 (the reference reads them
-    as float32); the projections are stored in the compute dtype."""
+    x += mixer(norm1(x)); x += mlp(norm2(x)). For kind "attn" the mixer
+    is ``attn``, an :class:`MLAttention` for an MLA config, else a
+    :class:`GQAttention`; for "mamba", "mlstm" and "slstm" it is
+    ``mixer``, the :mod:`models.ssm` module of that kind (``attn`` is
+    then None). ``mlp`` (the reference's "ffn") is a :class:`MoE` for ffn
+    "moe", a SwiGLU of ``d_ff`` for "mlp", and for "none" (the xLSTM
+    blocks) ``mlp`` and ``norm2`` are None. Norm scales stay float32 (the
+    reference reads them as float32); the projections are stored in the
+    compute dtype."""
 
     def __init__(self, cfg, dtype, device=None, sig=("attn", "mlp")):
         super().__init__()
         self.sig = tuple(sig)
+        kind, ffn = self.sig
         D = cfg.d_model
         self.norm1 = frozen(torch.empty(D, dtype=torch.float32,
                                         device=device))
-        self.attn = (MLAttention(cfg, dtype, device)
-                     if cfg.attention_type == "mla"
-                     else GQAttention(cfg, dtype, device))
-        self.norm2 = frozen(torch.empty(D, dtype=torch.float32,
-                                        device=device))
-        self.mlp = (MoE(cfg, dtype, device) if sig[1] == "moe"
-                    else SwiGLU(D, cfg.d_ff, dtype, device))
+        self.attn = self.mixer = None
+        if kind == "attn":
+            self.attn = (MLAttention(cfg, dtype, device)
+                         if cfg.attention_type == "mla"
+                         else GQAttention(cfg, dtype, device))
+        elif kind in MIXERS:
+            self.mixer = MIXERS[kind].module(cfg, dtype, device)
+        else:
+            raise ValueError(kind)
+        self.norm2 = self.mlp = None
+        if ffn != "none":
+            self.norm2 = frozen(torch.empty(D, dtype=torch.float32,
+                                            device=device))
+            self.mlp = (MoE(cfg, dtype, device) if ffn == "moe"
+                        else SwiGLU(D, cfg.d_ff, dtype, device))
 
 
 class MTP(nn.Module):
@@ -194,24 +218,24 @@ class Transformer(nn.Module):
 
 
 def _check_ported(cfg) -> None:
-    """Refuse the families still to port: SSM and recurrent layers, the
-    hybrid, encoder and VLM families."""
-    kinds = set(cfg.layer_kinds) - {"attn"}
-    if kinds or cfg.family in ("hybrid", "encoder", "vlm"):
+    """Refuse the families still to port: the encoder and VLM families."""
+    if cfg.family in ("encoder", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family"
-            + (f" ({', '.join(sorted(kinds))} layers)" if kinds else "")
-            + " is not ported yet; the port builds dense, MoE and MLA "
-            "decoders, and the SSM, hybrid, encoder and VLM families are "
-            "ROADMAP queue A item 11")
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
+            "port builds dense, MoE, MLA, SSM and hybrid decoders, and the "
+            "encoder and VLM families are ROADMAP queue A item 11")
 
 
 def _init_block(blk: DecoderBlock, g: torch.Generator) -> None:
     blk.norm1.fill_(1.0)
-    blk.norm2.fill_(1.0)
-    (init_mla if isinstance(blk.attn, MLAttention) else init_gqa)(blk.attn,
-                                                                  g)
-    (init_moe if isinstance(blk.mlp, MoE) else init_swiglu)(blk.mlp, g)
+    if blk.attn is not None:
+        (init_mla if isinstance(blk.attn, MLAttention)
+         else init_gqa)(blk.attn, g)
+    else:
+        MIXERS[blk.sig[0]].init(blk.mixer, g)
+    if blk.mlp is not None:
+        blk.norm2.fill_(1.0)
+        (init_moe if isinstance(blk.mlp, MoE) else init_swiglu)(blk.mlp, g)
 
 
 @torch.no_grad()
@@ -238,9 +262,14 @@ def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
     return model
 
 
-_ATTN_LEAVES = {"gqa": ("wq", "wk", "wv", "wo"),
-                "mla": ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
-                        "wkv_b", "wo")}
+_MIXER_LEAVES = {"gqa": ("wq", "wk", "wv", "wo"),
+                 "mla": ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
+                         "wkv_b", "wo"),
+                 "mamba": ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias",
+                           "D_skip", "norm", "out_proj"),
+                 "mlstm": ("up_proj", "wq", "wk", "wv", "w_i", "w_f",
+                           "f_bias", "norm", "down_proj"),
+                 "slstm": ("w_in", "r", "b", "norm", "out_proj")}
 
 
 def block_leaves(blk: DecoderBlock, cfg):
@@ -248,15 +277,22 @@ def block_leaves(blk: DecoderBlock, cfg):
     the reference's block tree gives it: ``mixer/<name>`` (a norm scale's
     leaf is ``<name>/scale``), ``ffn/<name>`` of a SwiGLU, or
     ``ffn/router``, ``ffn/experts/<name>`` and ``ffn/shared/<name>`` of a
-    MoE, and ``norm1/scale``, ``norm2/scale``."""
-    out = [(("norm1", "scale"), blk.norm1), (("norm2", "scale"), blk.norm2)]
-    names = list(_ATTN_LEAVES[cfg.attention_type])
-    if cfg.attention_type == "gqa" and cfg.attention_bias:
-        names += ["bq", "bk", "bv"]
+    MoE, and ``norm1/scale``, ``norm2/scale`` (no ``norm2`` or ``ffn``
+    without an FFN)."""
+    out = [(("norm1", "scale"), blk.norm1)]
+    if blk.attn is not None:
+        mixer, names = blk.attn, list(_MIXER_LEAVES[cfg.attention_type])
+        if cfg.attention_type == "gqa" and cfg.attention_bias:
+            names += ["bq", "bk", "bv"]
+    else:
+        mixer, names = blk.mixer, _MIXER_LEAVES[blk.sig[0]]
     for n in names:
-        path = (("mixer", n, "scale") if n.endswith("_norm")
+        path = (("mixer", n, "scale") if n.endswith("norm")
                 else ("mixer", n))
-        out.append((path, getattr(blk.attn, n)))
+        out.append((path, getattr(mixer, n)))
+    if blk.mlp is None:
+        return out
+    out.append((("norm2", "scale"), blk.norm2))
     swiglu = ("w_gate", "w_up", "w_down")
     if isinstance(blk.mlp, MoE):
         out.append((("ffn", "router"), blk.mlp.router))
@@ -327,12 +363,18 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *,
 # ---------------------------------------------------------------------------
 def init_block_cache(cfg, batch, max_len, dtype,
                      kv_quant: Optional[KVQuantSpec],
-                     paged: Optional[PagedCacheSpec], device):
-    """One attention layer's cache: a paged pool when ``paged`` is given
-    (``kv_quant`` picks its container), else a dense (batch, max_len, KV,
-    hd) slab of :func:`models.attention.init_kv_cache`; an MLA layer's is
-    a dense latent slab (:func:`models.attention.init_mla_cache`), and a
-    paged one raises the reference's NotImplementedError."""
+                     paged: Optional[PagedCacheSpec], device,
+                     kind: str = "attn"):
+    """One layer's cache. An attention layer's: a paged pool when
+    ``paged`` is given (``kv_quant`` picks its container), else a dense
+    (batch, max_len, KV, hd) slab of :func:`models.attention.init_kv_cache`;
+    an MLA layer's is a dense latent slab
+    (:func:`models.attention.init_mla_cache`), and a paged one raises the
+    reference's NotImplementedError. A recurrent layer's (``kind``
+    "mamba", "mlstm" or "slstm") is its dense ``(batch, ...)`` state at
+    its initial value (:mod:`models.ssm`), paged cache or not."""
+    if kind != "attn":
+        return MIXERS[kind].init_state(batch, cfg, dtype, device)
     if cfg.attention_type == "mla":
         if paged is not None:
             raise NotImplementedError(
@@ -360,9 +402,14 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
     raises: it exists only lane-packed in pages). A per-layer profile
     (``quant.kv_containers``) gives each layer a pool in its own
     container, float pages for "fp" layers; it needs a paged cache. MLA
-    layers hold dense latent slabs only."""
+    layers hold dense latent slabs only; recurrent layers hold dense
+    ``(batch, ...)`` states beside paged pools too."""
+    kinds = [sig[0] for sig in layer_signatures(cfg)]
     if paged is None and (batch <= 0 or max_len <= 0):
         raise ValueError("a dense cache needs batch and max_len")
+    if batch <= 0 and any(k != "attn" for k in kinds):
+        raise ValueError("recurrent states are per row: the cache needs "
+                         "batch")
     if (paged is None and quant is not None
             and quant.kv_containers is not None):
         raise ValueError("per-layer KV containers require a paged cache "
@@ -370,38 +417,44 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
     dev = resolve_device(device)
     return [init_block_cache(cfg, batch, max_len, cfg.torch_dtype,
                              quant.layer_kv(li) if quant is not None
-                             else None, paged, dev)
-            for li in range(cfg.num_layers)]
+                             else None, paged, dev, kind)
+            for li, kind in enumerate(kinds)]
 
 
 def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
                 kv_quant=None, w_fmt=None, a_fmt=None, page_table=None,
-                attn_impl="gather", kv_valid_len=None):
+                attn_impl="gather", kv_valid_len=None, state_quant=None):
     """One pre-norm block, dispatched on its signature. Returns (x, cache,
     aux): ``aux`` is the MoE's {"moe_lb_loss", "moe_z_loss"} for a MoE
     block, else empty. ``w_fmt``/``a_fmt`` (I, F) fake-quantize the
     block's weights before use and its output (the residual stream) after
-    it."""
-    attn = _quant_weights(blk.attn, w_fmt)
-    mlp = _quant_weights(blk.mlp, w_fmt)
+    it. A recurrent block reads and returns its state as ``cache`` (None:
+    from the initial state, and the new state is returned) and puts it on
+    the ``state_quant`` (I, F) grid at chunk boundaries."""
     h = rmsnorm(blk.norm1, x, cfg.norm_eps)
-    if isinstance(blk.attn, MLAttention):
-        y, cache = mla_apply(attn, h, positions, cfg=cfg, cache=cache,
-                             cache_pos=cache_pos, kv_quant=kv_quant,
-                             absorbed=cfg.mla_absorbed)
+    if blk.attn is None:
+        y, cache = MIXERS[blk.sig[0]].apply(
+            _quant_weights(blk.mixer, w_fmt), h, cfg=cfg, state=cache,
+            state_quant=state_quant)
+    elif isinstance(blk.attn, MLAttention):
+        y, cache = mla_apply(_quant_weights(blk.attn, w_fmt), h, positions,
+                             cfg=cfg, cache=cache, cache_pos=cache_pos,
+                             kv_quant=kv_quant, absorbed=cfg.mla_absorbed)
     else:
-        y, cache = gqa_apply(attn, h, positions, cfg=cfg, cache=cache,
-                             cache_pos=cache_pos, kv_quant=kv_quant,
-                             page_table=page_table, attn_impl=attn_impl,
-                             kv_valid_len=kv_valid_len)
+        y, cache = gqa_apply(_quant_weights(blk.attn, w_fmt), h, positions,
+                             cfg=cfg, cache=cache, cache_pos=cache_pos,
+                             kv_quant=kv_quant, page_table=page_table,
+                             attn_impl=attn_impl, kv_valid_len=kv_valid_len)
     x = x + y
-    h = rmsnorm(blk.norm2, x, cfg.norm_eps)
     aux = {}
-    if isinstance(blk.mlp, MoE):
-        y, aux = moe_apply(mlp, h, cfg=cfg)
-    else:
-        y = swiglu_apply(mlp, h)
-    x = x + y
+    if blk.mlp is not None:
+        mlp = _quant_weights(blk.mlp, w_fmt)
+        h = rmsnorm(blk.norm2, x, cfg.norm_eps)
+        if isinstance(blk.mlp, MoE):
+            y, aux = moe_apply(mlp, h, cfg=cfg)
+        else:
+            y = swiglu_apply(mlp, h)
+        x = x + y
     if a_fmt is not None:
         x = fake_quant(x, *a_fmt)          # the paper's "data" bits
     return x, cache, aux
@@ -422,11 +475,13 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
     row's first token; ``page_table`` (B, NP) int32 drives paged caches;
     ``attn_impl`` ("gather" | "kernel") picks the paged attention route
     for every chunk shape; ``kv_valid_len`` masks padded prefill chunk
-    tails. ``quant`` fake-quantizes the embedding output with layer 0's
-    data format, then each block as :func:`block_apply`; under a per-layer
-    KV profile each layer writes and reads its own pool at its own width
-    (both of the reference's ``kv_profile_scan`` lowerings are this one
-    per-layer loop)."""
+    tails. A recurrent layer's entry of ``caches`` is its (B, ...) state,
+    read and replaced. ``quant`` fake-quantizes the embedding output with
+    layer 0's data format, then each block as :func:`block_apply`, a
+    recurrent layer's state on its KV format; under a per-layer KV profile
+    each layer writes and reads its own pool at its own width (both of the
+    reference's ``kv_profile_scan`` lowerings are this one per-layer
+    loop)."""
     x = embed_tokens(model.embed, tokens)
     B, S = x.shape[0], x.shape[1]
     base = per_row(0 if cache_pos is None else cache_pos, B, x.device)
@@ -435,16 +490,16 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
         x = fake_quant(x, *quant.layer_data(0))    # the embedding output
     lb = None
     for li, blk in enumerate(model.layers):
-        kvq = wf = af = None
+        kvq = wf = af = sq = None
         if quant is not None:
-            kvq, wf, af = (quant.layer_kv(li), quant.layer_weight(li),
-                           quant.layer_data(li))
+            kvq, wf, af, sq = (quant.layer_kv(li), quant.layer_weight(li),
+                               quant.layer_data(li), quant.layer_state(li))
         x, cache, aux = block_apply(
             blk, x, positions, cfg=cfg,
             cache=None if caches is None else caches[li],
             cache_pos=cache_pos, kv_quant=kvq, w_fmt=wf, a_fmt=af,
             page_table=page_table, attn_impl=attn_impl,
-            kv_valid_len=kv_valid_len)
+            kv_valid_len=kv_valid_len, state_quant=sq)
         if caches is not None:
             caches[li] = cache
         if "moe_lb_loss" in aux:

@@ -70,18 +70,30 @@ def perturbed_jax_params(arch: str = "qwen2-72b", seed: int = 0, *,
     def uniform(a):
         return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
 
+    def normal(a, mean=0.0, std=0.5):
+        return rng.normal(mean, std, a.shape).astype(np.float32)
+
     def perturb_block(blk, stacked=True):
+        mixer = blk["mixer"]
         for name in ("bq", "bk", "bv"):
-            if name in blk["mixer"]:
-                blk["mixer"][name] = rng.normal(
-                    0, 0.5, blk["mixer"][name].shape).astype(np.float32)
+            if name in mixer:
+                mixer[name] = normal(mixer[name])
         for norm in ("norm1", "norm2"):
-            blk[norm]["scale"] = uniform(blk[norm]["scale"])
-        for norm in ("q_norm", "kv_norm"):
-            if norm in blk["mixer"]:
-                blk["mixer"][norm]["scale"] = uniform(
-                    blk["mixer"][norm]["scale"])
-        if "router" in blk["ffn"]:
+            if norm in blk:
+                blk[norm]["scale"] = uniform(blk[norm]["scale"])
+        for norm in ("q_norm", "kv_norm", "norm"):
+            if norm in mixer:
+                mixer[norm]["scale"] = uniform(mixer[norm]["scale"])
+        # the recurrent mixers' biases and skips (A_log keeps its
+        # deterministic linspace init)
+        for name in ("conv_b", "dt_bias", "b"):
+            if name in mixer:
+                mixer[name] = normal(mixer[name])
+        if "D_skip" in mixer:
+            mixer["D_skip"] = uniform(mixer["D_skip"])
+        if "f_bias" in mixer:
+            mixer["f_bias"] = normal(mixer["f_bias"], 2.0, 1.0)
+        if "router" in blk.get("ffn", {}):
             r = blk["ffn"]["router"]
             blk["ffn"]["router"] = rng.normal(
                 0, 2.0 / np.sqrt(r.shape[-2]), r.shape).astype(np.float32)

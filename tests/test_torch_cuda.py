@@ -1065,3 +1065,60 @@ def test_cuda_moe_apply_matches_cpu(cuda, arch, mode):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
     assert float(gaux["moe_lb_loss"]) == pytest.approx(
         float(aux["moe_lb_loss"]), rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: B1 at jamba's query-group size and the recurrent
+# mixers on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4, 0])
+@pytest.mark.parametrize("s", [1, 32])
+def test_cuda_b1_at_group_four(cuda, bits, s):
+    """32 query heads over 8 KV heads (G = 4, jamba-v0.1's attention),
+    head_dim 128, page size 16: a block packs 32 queries x 4 heads = 128
+    rows at S = 32 and 4 live rows of 16 at decode. The tensor-core kernel
+    against the plain version."""
+    args = _case(400 + bits + s, b=4, kv=8, g=4, hd=128, ps=16, s=s,
+                 bits=bits, start=300, qdt=torch.bfloat16)
+    assert pka.query_block(s, 4, 8, False) == s
+    assert pka.kernel_route(args[1], head_dim=128, G=4,
+                            block_kv=False) == "mma"
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    before = pka.paged_kv_attention_chunk.launches
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("kind,arch", [("mamba", "jamba-v0.1-52b"),
+                                       ("mlstm", "xlstm-350m"),
+                                       ("slstm", "xlstm-350m")])
+def test_cuda_ssm_mixer_matches_cpu(cuda, kind, arch):
+    """A recurrent mixer at its published widths in float32 (jamba's
+    Mamba: di 8192, 128 heads, state 16; xlstm's mLSTM: 4 heads of 512;
+    its sLSTM: 4 heads of 256): 64 tokens (one chunk) from the initial
+    state, then one token from the returned state, on the card against
+    the CPU within 1e-4, states included (TF32 off)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    mod_cls, init, apply, _ = ssm.MIXERS[kind]
+    g = torch.Generator().manual_seed(5)
+    m = mod_cls(cfg, torch.float32, "cpu")
+    with torch.no_grad():
+        init(m, g)
+    gm = copy.deepcopy(m).to(cuda)
+    x = torch.randn((2, 65, cfg.d_model), generator=g)
+    y, st = apply(m, x[:, :64], cfg=cfg)
+    y1, st1 = apply(m, x[:, 64:], cfg=cfg, state=st)
+    gy, gst = apply(gm, x[:, :64].to(cuda), cfg=cfg)
+    gy1, gst1 = apply(gm, x[:, 64:].to(cuda), cfg=cfg, state=gst)
+    for a, b in ((gy, y), (gy1, y1)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), **TOL)
+    for k in st1:
+        np.testing.assert_allclose(gst1[k].cpu().numpy(), st1[k].numpy(),
+                                   err_msg=k, **TOL)

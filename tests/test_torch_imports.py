@@ -84,7 +84,8 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.runtime.telemetry",
                   "repro_torch.core.page_store",
                   "repro_torch.launch.scheduler",
-                  "repro_torch.models.moe", "repro_torch.models.attention"]
+                  "repro_torch.models.moe", "repro_torch.models.attention",
+                  "repro_torch.models.ssm"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():

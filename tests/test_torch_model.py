@@ -174,7 +174,7 @@ def test_params_from_numpy_unstacks_layers(models):
 def test_entry_points_default_to_cuda():
     """Without a card, asking for the default device raises instead of
     falling back to the CPU; the families still to port (here the
-    hybrid) raise."""
+    encoder) raise."""
     from repro_torch.configs.registry import get_smoke_config
     cfg = get_smoke_config("qwen2-72b")
     if torch.cuda.is_available():
@@ -182,7 +182,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttr.init_model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init_model(get_smoke_config("jamba-v0.1-52b"), device="cpu")
+        ttr.init_model(get_smoke_config("hubert-xlarge"), device="cpu")
     m = ttr.init_model(cfg, seed=3, device="cpu")
     m2 = ttr.init_model(cfg, seed=3, device="cpu")
     assert torch.equal(m.layers[1].attn.wq, m2.layers[1].attn.wq)

@@ -131,13 +131,17 @@ def test_deepseek_dense_matches_reference(absorbed, kv_bits):
 
 
 def test_refusals_use_the_reference_words():
-    """A paged MLA cache raises NotImplementedError and bucketed prefill
-    under scatter MoE raises ValueError, in the reference's words; without
-    experts in scatter mode nothing is refused."""
+    """A paged MLA cache raises NotImplementedError, and bucketed prefill
+    under scatter MoE and fused rounds where prefill is not bucketed (a
+    dense cache, scatter MoE) raise ValueError, in the reference's words;
+    without experts in scatter mode nothing is refused."""
     for arch, cfg_kw, kw, exc in (
             (DSV3, {}, dict(page_size=16, kv_bits=8), NotImplementedError),
             (LLAMA, dict(moe_mode="scatter"),
-             dict(page_size=16, prefill="bucketed"), ValueError)):
+             dict(page_size=16, prefill="bucketed"), ValueError),
+            (DSV3, {}, dict(kv_bits=8, fused="on"), ValueError),
+            (LLAMA, dict(moe_mode="scatter"),
+             dict(page_size=16, fused="on"), ValueError)):
         jcfg, tcfg, jparams, model = _models(arch)
         jcfg = dataclasses.replace(jcfg, **cfg_kw)
         tcfg = dataclasses.replace(tcfg, **cfg_kw)

@@ -31,6 +31,8 @@ from repro_torch.benchmarks import traffic as tbench  # noqa: E402
 from repro_torch.core.traffic import generate_trace  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.serve import BatchedServer, Request  # noqa: E402
+from repro.runtime import telemetry as jtelemetry  # noqa: E402
+from repro_torch.runtime import telemetry as ttelemetry  # noqa: E402
 from repro_torch.runtime.telemetry import PAGER_TID  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -88,8 +90,27 @@ _CASES = {
 }
 
 
+class _FakeClock:
+    """Stands in for the ``time`` module a telemetry module sees: each
+    ``perf_counter`` call advances a fixed step, so the SLO monitor's
+    wall-clock features (TTFT, TPOT and the predictor's TPOT slowdown)
+    count the monitor's own calls and not the machine's load."""
+
+    def __init__(self, step: float = 1e-3):
+        self.now, self.step = 0.0, step
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+
 @pytest.mark.parametrize("case", list(_CASES))
-def test_overload_trace_counters_match_reference(models, case):
+def test_overload_trace_counters_match_reference(models, case, monkeypatch):
+    """Both servers' telemetry reads its own fake clock (one a package),
+    so the predictor's gated admissions are decided by the trace and not
+    by how busy the machine is."""
+    monkeypatch.setattr(jtelemetry, "time", _FakeClock())
+    monkeypatch.setattr(ttelemetry, "time", _FakeClock())
     jcfg, tcfg, jparams, model = models
     kw = dict(_TIER_KW, **_CASES[case])
     jsrv = JServer(jcfg, jparams, **kw)
