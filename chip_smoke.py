@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase tier   # the build and [tier] alone
     python3 chip_smoke.py --phase moe    # the build and [moe] alone
     python3 chip_smoke.py --phase ssm    # the build and [ssm] alone
+    python3 chip_smoke.py --phase frontend   # the build and [frontend]
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -90,8 +91,28 @@ Phases, each of which raises on failure (no phase is caught):
    on the pools of one captured decode step at G = 4, three requests
    served alone against the same three batched (a slot's recurrent
    states restart on admission and stay put in the other slots), host
-   counters against the smoke configs on the CPU, the phase time against
-   its 60 s budget;
+   counters against the smoke configs on the CPU, and (f) jamba at exact
+   routing with SLO scheduling, the host tier and preemption at batch
+   size 1 (three requests, two preemptions: a preempted request resumes
+   on its parked recurrent state rows) teacher-forced by the same
+   requests served uninterrupted, its counters against the CPU's; the
+   phase time against its 60 s budget; then, those models freed,
+   ``[frontend]``: hubert-xlarge at its published widths and depth (48
+   layers, bidirectional, GELU FFN) on stub frame embeddings at 4 x 1024
+   (``attend_full``) and 2 x 2048 frames (the non-causal chunked
+   attention): ms a forward, frames/s against the bound, a
+   non-causality probe and a forward at weights Q2.6 / data Q4.12; then
+   qwen2-vl-2b at its published widths and depth (28 layers, B1 at G =
+   12 / 2 = 6) served from tokens (8 requests of 16-48 prompt tokens and
+   16 new, batch 4, bucketed prefill): int8 gather, int8 kernel
+   teacher-forced by it (gated), int4 kernel; B1 against its plain
+   version on a captured decode step and a bucketed S = 32 prefill
+   forward of each kernel run, counters against qwen2-vl-2b-smoke's on
+   the CPU; and its embeds path: ``prefill`` of stub patch embeddings
+   with M-RoPE ids (a 16 x 16 grid, then 32 text positions) and 8
+   embed-decode steps, each against a forward over the extended sequence
+   within the reference's decode-consistency bound; the phase time
+   against its 45 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -996,6 +1017,73 @@ class ProfiledSteps:
         return out
 
 
+def device_activity(prof):
+    """A closed profiler window's device events, the microseconds the
+    device was busy (the union of their intervals) and (count, us) by
+    event name."""
+    import torch
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, by_name = 0.0, {}
+    if evs:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+        cur_s, cur_e = spans[0]
+        for s0, e0 in spans[1:]:
+            if s0 > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s0, e0
+            else:
+                cur_e = max(cur_e, e0)
+        busy += cur_e - cur_s
+    for e in evs:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.end - e.time_range.start
+    return evs, busy, by_name
+
+
+def profiled(fn, n: int, tag: str, what: str) -> dict:
+    """``n`` calls of ``fn`` in a ``torch.profiler`` window (CUDA activity
+    only) opened and closed at a device sync: the window's host ms a call,
+    the device's busy ms and idle share, the share of device time in
+    GEMM kernels and the top kernels; printed under ``tag``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs, busy, by_name = device_activity(prof)
+    if not evs:
+        print(f"{tag} {what}: torch.profiler recorded no device activity",
+              flush=True)
+        return {"window_us": wall_us, "device_events": 0}
+    kernel_us = sum(t for _, t in by_name.values())
+    gemm_us = sum(t for k, (_, t) in by_name.items()
+                  if "gemm" in k.lower() or "cutlass" in k.lower()
+                  or "nvjet" in k.lower())
+    res = {"calls": n, "ms_a_call": wall_us / n / 1e3,
+           "device_busy_ms_a_call": busy / n / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "gemm_share_of_device_time": gemm_us / kernel_us,
+           "kernels_a_call": len(evs) / n,
+           "top": sorted(((t / n, c // n, k[:70]) for k, (c, t)
+                          in by_name.items()), reverse=True)[:5]}
+    print(f"{tag} {what}, profiled over {n} calls: {res['ms_a_call']:.2f} "
+          f"ms a call (host clock), device busy "
+          f"{res['device_busy_ms_a_call']:.2f} ms, idle share "
+          f"{res['device_idle_share']:.3f}; {res['kernels_a_call']:.0f} "
+          f"device kernels a call, GEMMs "
+          f"{res['gemm_share_of_device_time']:.3f} of device time",
+          flush=True)
+    for t, c, k in res["top"]:
+        print(f"{tag}   {t / 1e3:8.3f} ms in {c:4d} x {k}", flush=True)
+    return res
+
+
 def decode_profile(cfg, model, seed: int, *, start: int = 8,
                    steps: int = 8) -> dict:
     """The int8 kernel-route served run again, with a profiler window over
@@ -1003,8 +1091,6 @@ def decode_profile(cfg, model, seed: int, *, start: int = 8,
     tensor-core kernel and the merge of its splits) of the device time and
     of the window, and the device's idle share of the window (1 - the
     union of kernel and copy intervals over the window's wall time)."""
-    import torch
-
     prof = {}
 
     def wrap(fn):
@@ -1017,27 +1103,12 @@ def decode_profile(cfg, model, seed: int, *, start: int = 8,
     if win.wall_s is None:
         raise AssertionError(f"the served run took fewer than "
                              f"{start + steps} decode steps")
-    evs = [e for e in win.prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
     window_us = win.wall_s * 1e6
+    evs, busy, by_name = device_activity(win.prof)
     if not evs:
         print("[profile] torch.profiler recorded no device activity on "
               "this machine", flush=True)
         return {"window_us": window_us, "device_events": 0}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    by_name = {}
-    for e in evs:
-        d = by_name.setdefault(e.name, [0, 0.0])
-        d[0] += 1
-        d[1] += e.time_range.end - e.time_range.start
     kernel_us = sum(t for _, t in by_name.values())
     b1 = {k: v for k, v in by_name.items()
           if "paged_attn" in k or "merge_partials" in k}
@@ -1326,17 +1397,20 @@ class B1ChunkCapture:
     bucketed prefill): keeps a copy of the inputs of every layer's call in
     the first prefill forward of ``S`` queries a row in which a row's chunk
     starts past position 0, so its queries also see the keys of earlier
-    chunks."""
+    chunks (with ``past_start=False``: the first such forward, wherever
+    its rows start)."""
 
-    def __init__(self, fn, *, layers: int, S: int):
+    def __init__(self, fn, *, layers: int, S: int, past_start: bool = True):
         self.fn, self.layers, self.S = fn, layers, S
+        self.past_start = past_start
         self.n, self.saved = 0, []
 
     def __call__(self, q, kp, vp, ks, vs, pt, q_start, kv_len, *, bits):
         if len(self.saved) < self.layers and (
                 self.saved or (self.n % self.layers == 0
                                and q.shape[1] == self.S
-                               and bool((q_start > 0).any()))):
+                               and (not self.past_start
+                                    or bool((q_start > 0).any())))):
             self.saved.append(dict(
                 q=q.clone(), k_pages=kp.clone(), v_pages=vp.clone(),
                 k_scale=ks.clone(), v_scale=vs.clone(), page_table=pt.clone(),
@@ -2456,6 +2530,14 @@ SSM_OBSERVED = {"b": "a", "e": "c"}   # teacher-forced, no limit
 # of a forward, so under it a request's tokens depend on its neighbours)
 SSM_ALONE = {XLSTM: ("a", {}), JAMBA: ("c", dict(moe_mode="eval_all"))}
 SSM_BUDGET_S = 60
+# run (f), C4 on the card: jamba at exact routing on int8 pages through
+# B1, SLO scheduling with the host tier and preemption, batch size 1 on a
+# pool that holds one request's pages, the trace's 3 shortest requests
+# (rid order) with these (new tokens, priority, arrival step): the second
+# preempts the first, the third the second
+SSM_PREEMPT_SERVE = dict(batch_size=1, max_len=96, page_size=PS, kv_bits=8)
+SSM_PREEMPT_POOL = dict(num_pages=4, sched="slo", kv_offload="host")
+SSM_PREEMPT_PLAN = ((8, 0, 0), (6, 5, 3), (4, 9, 6))
 
 
 def ssm_trace(arch, seed: int, vocab=None):
@@ -2473,11 +2555,34 @@ def ssm_shortest(arch, seed: int, n: int):
     return sorted(short, key=lambda r: r.rid)
 
 
+def ssm_preempt_trace(seed: int, vocab=None):
+    """Run (f)'s requests (``SSM_PREEMPT_PLAN``), in jamba's published
+    vocabulary or mapped into ``vocab``."""
+    from repro_torch.launch.serve import Request
+    reqs = [Request(r.rid, r.prompt, n, priority=p, arrive_step=a)
+            for r, (n, p, a) in zip(ssm_shortest(JAMBA, seed, 3),
+                                    SSM_PREEMPT_PLAN)]
+    return reqs if vocab is None else map_vocab(reqs, vocab)
+
+
+def preempt_counters(srv, reqs) -> dict:
+    """Run (f)'s host counters: :func:`moe_counters`, the scheduler's and
+    the host tier's in pages (bytes depend on the widths), and each
+    request's preemptions."""
+    return dict(moe_counters(srv), preempt=srv.preempt_count,
+                resume=srv.resume_count,
+                defers=srv.metrics.counter("sched.defers").value,
+                host_puts=srv.host_store.puts,
+                host_peak=srv.host_store.peak_pages,
+                preemptions=[r.preemptions for r in reqs])
+
+
 def cpu_ssm_counters(seed: int, src: str) -> dict:
     """Every [ssm] run's server on the CPU with the arch's smoke config
-    (the published moe_mode), the trace mapped into its vocabulary,
-    through the gather route (the counters depend on prompts and pages
-    only). Runs in a child process beside the card runs, on one thread."""
+    (the published moe_mode; run (f) at the smoke jamba's eval_all), the
+    trace mapped into its vocabulary, through the gather route (the
+    counters depend on prompts and pages only). Runs in a child process
+    beside the card runs, on one thread."""
     sys.path.insert(0, src)
     import torch
     torch.set_num_threads(1)
@@ -2497,6 +2602,12 @@ def cpu_ssm_counters(seed: int, src: str) -> dict:
             srv.run(ssm_trace(arch, seed, cfg.vocab_size))
             seen[key] = moe_counters(srv)
         out[label] = seen[key]
+    cfg = get_smoke_config(JAMBA)
+    srv = BatchedServer(cfg, init_model(cfg, seed=seed, device="cpu"),
+                        attn_impl="gather", device="cpu",
+                        **SSM_PREEMPT_SERVE, **SSM_PREEMPT_POOL)
+    out["f"] = preempt_counters(
+        srv, srv.run(ssm_preempt_trace(seed, cfg.vocab_size)))
     return out
 
 
@@ -2649,6 +2760,64 @@ def ssm_arch_runs(arch, seed: int, runs: dict, caps: dict,
                  f"{st['top2_tied_steps']} steps with the top two tied)"
                  if by else ""), flush=True)
     alone[arch] = ssm_alone_check(cfg, model, seed, *SSM_ALONE[arch])
+    if arch == JAMBA:
+        launches += ssm_preempt_check(cfg, model, seed, runs)
+    return launches
+
+
+def ssm_preempt_check(cfg, model, seed: int, runs: dict) -> int:
+    """Run (f), C4 on the card: jamba at exact routing (eval_all) on int8
+    pages through B1, SLO scheduling with the host tier and preemption
+    (``SSM_PREEMPT_*``), teacher-forced by the same requests served
+    uninterrupted (batch size 1, no SLO scheduling, the same route); it
+    must preempt at least twice and pass the gate. Records (f) in
+    ``runs``; returns the B1 launches of both runs."""
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+
+    cfg = dataclasses.replace(cfg, moe_mode="eval_all")
+    n_attn = sum(blk.sig[0] == "attn" for blk in model.layers)
+    launches, taps, out = 0, {}, {}
+    for label, pool, by in (("f0", {}, None), ("f", SSM_PREEMPT_POOL, "f0")):
+        keep = {}
+        paged_kv_attention_chunk.launches = 0
+        out[label], st, taps[label] = serve_once(
+            cfg, model, attn_impl="kernel", seed=seed,
+            trace=lambda c, sd: ssm_preempt_trace(sd),
+            forced=({r.rid: r.out for r in out[by]} if by else None),
+            tap=True, keep=keep, **SSM_PREEMPT_SERVE, **pool)
+        n = paged_kv_attention_chunk.launches
+        if n != n_attn * st["program_launches"]:
+            raise AssertionError(f"[ssm] ({label}): B1 launches {n} != "
+                                 f"{n_attn} x {st['program_launches']}")
+        launches += n
+        srv = keep["srv"]
+        st.update(label=label, arch=JAMBA, b1_launches=n,
+                  counters=preempt_counters(srv, out[label]) if pool else
+                  moe_counters(srv))
+        print(f"[ssm] ({label}) {JAMBA} eval_all kv_bits=8 kernel, "
+              + (f"SLO + host tier + preemption forced by ({by})"
+                 if pool else "uninterrupted")
+              + f": {st['tok_per_s']:.1f} tok/s, decode step "
+              f"{st['decode_step_ms']:.2f} ms x {st['decode_steps']}, B1 x "
+              f"{n}; {st['counters']}", flush=True)
+        if label == "f":
+            if srv.preempt_count < 2:
+                raise AssertionError(f"[ssm] (f) preempted "
+                                     f"{srv.preempt_count} times, not 2")
+            st.update(compare_logits(taps[by], taps[label]))
+            g = accuracy_gate([r.out for r in out[by]],
+                              [r.out for r in out[label]])
+            st["gate"] = g
+            print(f"[ssm] (f) vs (f0), teacher-forced: {srv.preempt_count} "
+                  f"preemptions and {srv.resume_count} resumes on parked "
+                  f"state rows; agreement {g['agreement']:.4f} "
+                  f"({g['below_floor']} below 0.5) -> "
+                  f"{'pass' if g['passed'] else 'FAIL'}", flush=True)
+            if not g["passed"]:
+                raise AssertionError(f"[ssm] (f) fails the gate against "
+                                     f"the uninterrupted run: {g}")
+            runs[label] = (out[label], st, None)
     return launches
 
 
@@ -2667,9 +2836,11 @@ def ssm_phase(seed: int):
     program on the kernel runs, (d) passes the gate against (c), B1 equals
     its plain version on the pools of one captured decode step of (d) and
     (e), three requests served alone equal (by the gate) their batched
-    tokens, and every run's host counters equal the smoke configs' on the
-    CPU for the same trace (a child process). Returns (B1 launches, run
-    records)."""
+    tokens, (f) (:func:`ssm_preempt_check`: C4 on the card) preempts at
+    least twice and passes the gate against the same requests served
+    uninterrupted, and every run's host counters equal the smoke configs'
+    on the CPU for the same trace (a child process). Returns (B1
+    launches, run records)."""
     import concurrent.futures
     import gc
     import multiprocessing
@@ -2720,7 +2891,7 @@ def ssm_phase(seed: int):
             raise AssertionError(f"[ssm] ({label}): counters "
                                  f"{st['counters']} != CPU {cpu[label]}")
     print(f"[ssm] host counters equal the smoke configs' on the CPU for "
-          f"the same token traces, runs (a)-(e)", flush=True)
+          f"the same token traces, runs (a)-(f)", flush=True)
     wall = time.perf_counter() - t_phase
     print(f"[ssm] main path: {launches} B1 launches = attention layers x "
           f"programs over the kernel runs; phase {wall:.1f} s against a "
@@ -2730,6 +2901,452 @@ def ssm_phase(seed: int):
     out.append({"phase": "ssm", "gates": gates, "cpu_counters": cpu,
                 "captured_b1": caps, "alone": alone, "phase_s": wall,
                 "budget_s": SSM_BUDGET_S})
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# [frontend]: the encoder and VLM families at published widths and depth:
+# hubert-xlarge's bidirectional forward on stub frame embeddings, and
+# qwen2-vl-2b served from tokens through B1 at G = 6 and decoded from stub
+# patch embeddings with M-RoPE
+# ---------------------------------------------------------------------------
+HUBERT, QWENVL = "hubert-xlarge", "qwen2-vl-2b"
+ENC_SHAPES = ((4, 1024), (2, 2048))   # (B, S): attend_full; chunked
+ENC_REPS = 3                          # timed forwards a shape
+VLM_TRAFFIC = dict(n=8, lo=16, hi=48, max_new=16)
+VLM_SERVE = dict(batch_size=4, max_len=96, page_size=PS)
+VLM_RUNS = {
+    # label: (server options, route, forced by)
+    "b1": (dict(kv_bits=8), "gather", None),
+    "b2": (dict(kv_bits=8), "kernel", "b1"),
+    "b3": (dict(kv_bits=4), "kernel", "b1"),
+}
+VLM_GATED = {"b2": "b1"}              # teacher-forced gate
+VLM_OBSERVED = {"b3": "b1"}           # teacher-forced, no limit
+VLM_GRID, VLM_TEXT, VLM_DECODE = (1, 16, 16), 32, 8   # (c)
+DECODE_RTOL, DECODE_ATOL = 0.12, 0.08  # tests/test_models.py's bound
+BF16_FLOP_PER_S = 989e12               # H100 SXM dense bf16 (data sheet)
+FRONTEND_BUDGET_S = 45
+
+
+def vlm_trace(seed: int, vocab=None):
+    """(b)'s 8 requests in qwen2-vl-2b's published vocabulary, or mapped
+    into ``vocab`` position by position (:func:`map_vocab`)."""
+    from repro_torch.configs.registry import get_config
+    reqs = served_requests(get_config(QWENVL), seed + 9, **VLM_TRAFFIC)
+    return reqs if vocab is None else map_vocab(reqs, vocab)
+
+
+def cpu_frontend_counters(seed: int, src: str) -> dict:
+    """Every (b) run's server on the CPU with qwen2-vl-2b's smoke config,
+    the trace mapped into its vocabulary, through the gather route (the
+    counters depend on prompts and pages only). Runs in a child process
+    beside the card runs, on one thread."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config(QWENVL)
+    model = init_model(cfg, seed=seed, device="cpu")
+    out, seen = {}, {}
+    for label, (kw, _, _) in VLM_RUNS.items():
+        key = tuple(sorted(kw.items()))
+        if key not in seen:
+            srv = BatchedServer(cfg, model, attn_impl="gather",
+                                prefill_bucket=32, device="cpu",
+                                **VLM_SERVE, **kw)
+            srv.run(vlm_trace(seed, cfg.vocab_size))
+            seen[key] = moe_counters(srv)
+        out[label] = seen[key]
+    return out
+
+
+def frontend_model(arch, seed: int):
+    """The arch at published widths and depth, bf16, random weights from
+    a seeded generator; prints its shape."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[frontend] {arch}: published widths and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim} (G = "
+          f"{cfg.num_heads // cfg.num_kv_heads}), d_ff {cfg.d_ff} "
+          f"{'GELU' if cfg.family == 'encoder' else 'SwiGLU'}, vocab "
+          f"{cfg.vocab_size}, {'bidirectional' if not cfg.causal else 'causal'}"
+          f"{', M-RoPE, QKV bias, tied' if cfg.mrope else ''}, {cfg.dtype}); "
+          f"{n / 1e9:.4f} G parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card, "
+          f"init {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, model
+
+
+def encoder_runs(seed: int) -> dict:
+    """(a): hubert-xlarge's whole forward (``make_prefill_step``'s encoder
+    branch: every frame's logits, no cache) on stub frame embeddings from
+    ``make_batch``, at B = 4, S = 1024 (``attend_full``) and B = 2, S =
+    2048 (the non-causal ``attend_chunked``): ms a forward (CUDA events,
+    median of ``ENC_REPS`` after one untimed), frames/s, peak memory and
+    the bound (the larger of 2 N frames + 4 S^2 d_model layers B FLOPs
+    at the bf16 peak and the weights' bytes at the memory rate; N counts
+    the parameters a frame uses, the token table left out). Fails unless
+    the logits are finite and of shape (B, S, V), and changing the last
+    frame's embedding changes frame 0's logits in every row. Last, one
+    forward under weights Q2.6 / data Q4.12: its top-1 unit agreement
+    with the float forward (observed, no limit)."""
+    import torch
+    from repro_torch.configs.shapes import ShapeConfig, make_batch
+    from repro_torch.core.fixedpoint import FixedPointFormat
+    from repro_torch.core.policy import PrecisionPolicy
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.quant.apply import (build_model_quant,
+                                         transformer_layer_names)
+
+    cfg, model = frontend_model(HUBERT, seed)
+    n_all = sum(p.numel() for p in model.parameters())
+    n_used = n_all - model.embed.numel()
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    out, first = {}, None
+
+    def timed(step, emb):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, caches = step(model, embeds=emb)
+        b.record()
+        torch.cuda.synchronize()
+        return logits, caches, a.elapsed_time(b)
+
+    for B, S in ENC_SHAPES:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + S)
+        emb = make_batch(cfg, ShapeConfig(f"frames_{S}", S, B, "prefill"),
+                         generator=g, device="cuda")["embeds"]
+        step = make_prefill_step(cfg, max_len=S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logits, caches, _ = timed(step, emb)          # untimed first call
+        ms = float(np.median([timed(step, emb)[2]
+                              for _ in range(ENC_REPS)]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if caches is not None or logits.shape != (B, S, cfg.vocab_size) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"[frontend] (a) S={S}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        flops = 2 * n_used * B * S + 4 * S * S * cfg.d_model \
+            * cfg.num_layers * B
+        bound = max(flops / BF16_FLOP_PER_S, w_bytes / HBM_BYTES_PER_S) * 1e3
+        path = ("attend_full" if S * S <= cfg.attn_chunk ** 2
+                else f"attend_chunked (chunk {cfg.attn_chunk}, non-causal)")
+        rec = {"B": B, "S": S, "path": path, "forward_ms": ms,
+               "frames_per_s": B * S / ms * 1e3, "peak_gib": peak,
+               "flops": flops, "bound_ms": bound,
+               "bound_by": "operations" if flops / BF16_FLOP_PER_S
+               >= w_bytes / HBM_BYTES_PER_S else "bytes"}
+        out[f"S{S}"] = rec
+        print(f"[frontend] (a) hubert-xlarge B = {B}, S = {S} ({path}): "
+              f"{ms:.2f} ms a forward (median of {ENC_REPS}), "
+              f"{rec['frames_per_s']:.0f} frames/s, peak {peak:.2f} GiB; "
+              f"bound {bound:.2f} ms ({flops / 1e12:.2f} TFLOP at the bf16 "
+              f"peak; {rec['bound_by']}), {bound / ms:.2%} of it", flush=True)
+        rec["profile"] = profiled(lambda: step(model, embeds=emb), 1,
+                                  "[frontend]", f"(a) B = {B}, S = {S}")
+        if first is None:
+            first = (step, emb, logits)
+    step, emb, logits = first
+    moved = emb.clone()
+    moved[:, -1] += 1.0
+    with torch.no_grad():
+        other = step(model, embeds=moved)[0]
+    delta = (other[:, 0] - logits[:, 0]).abs().amax(dim=-1)
+    print(f"[frontend] (a) non-causality: the last frame's embedding moved "
+          f"by 1.0 moves frame 0's logits by at most "
+          f"{[round(float(d), 4) for d in delta]} per row", flush=True)
+    if not bool((delta > 0).all()):
+        raise AssertionError("[frontend] (a) frame 0 did not see the last "
+                             "frame: the encoder attends causally")
+    names = transformer_layer_names(cfg)
+    quant = build_model_quant(
+        PrecisionPolicy.uniform(names, FixedPointFormat(2, 6),
+                                FixedPointFormat(4, 12)),
+        cfg, quantize_kv=False)
+    qlogits, _, qms = timed(make_prefill_step(cfg, max_len=emb.shape[1],
+                                              quant=quant), emb)
+    if not bool(torch.isfinite(qlogits).all()):
+        raise AssertionError("[frontend] (a) quantized logits not finite")
+    agree = float((qlogits.argmax(-1) == logits.argmax(-1)).float().mean())
+    out["quant"] = {"forward_ms": qms, "top1_agreement": agree}
+    print(f"[frontend] (a) weights Q2.6 / data Q4.12 (the [quant] policy): "
+          f"forward {qms:.2f} ms, top-1 unit agreement with the float "
+          f"forward {agree:.4f} over {logits.shape[0] * logits.shape[1]} "
+          f"frames (observed, no limit)", flush=True)
+    out["parameters"] = n_all
+    return out
+
+
+def vlm_serve_runs(cfg, model, seed: int, runs: dict, caps: dict) -> int:
+    """(b): qwen2-vl-2b served from token ids by ``BatchedServer`` (plain
+    RoPE, as the reference serves it), recorded in ``runs`` and ``caps``
+    (B1 against plain on captured pools); returns the B1 launches."""
+    import torch
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.models import attention
+
+    L = cfg.num_layers
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    warm = sorted(vlm_trace(seed), key=lambda r: len(r.prompt))[:2]
+    for r in warm:
+        r.max_new = 2
+    kw, impl, _ = VLM_RUNS["b1"]
+    serve_once(cfg, model, attn_impl=impl, seed=seed,
+               trace=lambda c, sd: warm, **VLM_SERVE, **kw)
+    print(f"[frontend] (b) untimed warm-up run (the 2 shortest requests, 2 "
+          f"new tokens, as (b1)) {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    launches, taps = 0, {}
+    for label, (kw, impl, by) in VLM_RUNS.items():
+        cap = chunk_cap = None
+        if impl == "kernel":
+            cap = B1Capture(attention.paged_kv_attention_decode, at=6 * L,
+                            layers=L)
+            attention.paged_kv_attention_decode = cap
+            chunk_cap = B1ChunkCapture(attention.paged_kv_attention_chunk,
+                                       layers=L, S=32, past_start=False)
+            attention.paged_kv_attention_chunk = chunk_cap
+        forced = {r.rid: r.out for r in runs[by][0]} if by else None
+        keep = {}
+        paged_kv_attention_chunk.launches = 0
+        try:
+            reqs, st, taps[label] = serve_once(
+                cfg, model, attn_impl=impl, seed=seed,
+                trace=lambda c, sd: vlm_trace(sd), forced=forced, tap=True,
+                keep=keep, **VLM_SERVE, **kw)
+        finally:
+            if cap is not None:
+                attention.paged_kv_attention_decode = cap.fn
+                attention.paged_kv_attention_chunk = chunk_cap.fn
+        n = paged_kv_attention_chunk.launches
+        if impl == "kernel" and n != L * st["program_launches"]:
+            raise AssertionError(f"[frontend] ({label}): B1 launches {n} "
+                                 f"!= layers x programs "
+                                 f"{L} x {st['program_launches']}")
+        if impl == "gather" and n:
+            raise AssertionError(f"[frontend] ({label}): the gather route "
+                                 f"launched B1 {n} times")
+        launches += n
+        st.update(label=label, arch=QWENVL, b1_launches=n,
+                  weights_gib=weights_gib,
+                  counters=moe_counters(keep["srv"]))
+        if by:
+            st.update(compare_logits(taps[by], taps[label]))
+        if cap is not None:
+            what = (f"({label}) kv_bits={kw['kv_bits']} G="
+                    f"{cfg.num_heads // cfg.num_kv_heads}")
+            caps[label] = {
+                "decode": check_captured_b1(cap.saved, what,
+                                            tag="[frontend]"),
+                "prefill": check_captured_b1_chunk(chunk_cap.saved, what,
+                                                   tag="[frontend]")}
+        runs[label] = (reqs, st, None)
+        print(f"[frontend] ({label}) {QWENVL} kv_bits={kw['kv_bits']} "
+              f"{impl}{f' forced by ({by})' if by else ''}: "
+              f"{st['tok_per_s']:.1f} tok/s, decode step "
+              f"{st['decode_step_ms']:.2f} ms x {st['decode_steps']}, "
+              f"prefill forward {st['prefill_forward_ms']:.2f} ms, B1 x {n}, "
+              f"peak {st['max_memory_allocated_gib']:.2f} GiB (weights "
+              f"{weights_gib:.2f}); {st['counters']}"
+              + (f"; logits vs ({by}) on identical inputs differ by at "
+                 f"most {st['max_abs_logit_diff']:.4g} (median "
+                 f"{st['median_max_abs_logit_diff']:.4g})" if by else ""),
+              flush=True)
+    return launches
+
+
+def vlm_embeds_check(cfg, model, seed: int, *, gated: bool) -> dict:
+    """(c): qwen2-vl-2b's embeds path on dense caches in the model's
+    dtype: ``prefill`` of 2 rows of stub patch embeddings with M-RoPE ids
+    (a 16 x 16 grid at t = 0, then 32 text positions whose three ids are
+    equal, continuing after the grid's largest id; ``make_batch``), then
+    ``VLM_DECODE`` ``make_embed_decode_step`` steps, each fed the
+    embedding of the last token chosen (plain RoPE at the cache
+    position). Each step's logits, and the prefill's last, are held
+    against one forward over the whole extended sequence (the decoded
+    positions' three ids equal to their cache positions) at the
+    reference's decode-consistency bound (rtol 0.12, atol 0.08, set for
+    its float32 test): ``gated`` fails the run outside it, else (the
+    bf16 run, whose decode steps are profiled) the excess is printed as
+    observed. Prints the argmax agreement."""
+    import torch
+    from repro_torch.configs.shapes import ShapeConfig, make_batch, mrope_ids
+    from repro_torch.launch.steps import make_embed_decode_step
+    from repro_torch.models.transformer import forward, prefill
+
+    S = VLM_GRID[0] * VLM_GRID[1] * VLM_GRID[2] + VLM_TEXT
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 11)
+    batch = make_batch(cfg, ShapeConfig("patches", S, 2, "prefill"),
+                       generator=g, device="cuda")
+    emb, ids = batch["embeds"], batch["mrope_positions"]
+    if ids[1].tolist() != mrope_ids(VLM_GRID, VLM_TEXT).tolist():
+        raise AssertionError("[frontend] (c) the batch's ids are not a "
+                             "16 x 16 grid then text")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last, caches, pos = prefill(model, None, cfg, max_len=S + VLM_DECODE,
+                                embeds=emb, mrope_positions=ids)
+    dec = StepTimer(make_embed_decode_step(cfg))
+    st = {"nxt": last.argmax(-1), "caches": caches}
+    feeds, logits = [], [last]
+
+    def one():
+        feeds.append(model.embed[st["nxt"].long()][:, None])
+        st["nxt"], lg, st["caches"] = dec(model, feeds[-1],
+                                          pos + len(feeds) - 1, st["caches"])
+        logits.append(lg)
+    prof = None if gated else profiled(
+        one, 2, "[frontend]", f"(c) {cfg.dtype} embed-decode steps, batch 2")
+    while len(feeds) < VLM_DECODE:
+        one()
+    ext = torch.arange(pos, pos + VLM_DECODE, device="cuda", dtype=ids.dtype)
+    ext_ids = torch.cat([ids, ext[None, :, None].expand(2, -1, 3)], dim=1)
+    with torch.no_grad():
+        full = forward(model, None, cfg, embeds=torch.cat([emb] + feeds, 1),
+                       mrope_positions=ext_ids)[1]
+    torch.cuda.synchronize()
+    worst, agree = -np.inf, 0
+    for i, lg in enumerate(logits):
+        ref = full[:, pos - 1 + i].float()
+        excess = ((lg.float() - ref).abs()
+                  - (DECODE_ATOL + DECODE_RTOL * ref.abs())).amax()
+        worst = max(worst, float(excess))
+        agree += int((lg.argmax(-1) == ref.argmax(-1)).sum())
+    n = 2 * len(logits)
+    res = {"dtype": cfg.dtype, "prompt_positions": S,
+           "decode_steps": VLM_DECODE, "decode_step_ms": dec.ms(),
+           "argmax_agreement": agree / n, "worst_excess_over_tol": worst,
+           "within": worst <= 0, "gated": gated, "profile": prof,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"[frontend] (c) {QWENVL} embeds path, {cfg.dtype}: prefill of "
+          f"2 x {S} stub patch embeddings (M-RoPE: a {VLM_GRID[1]} x "
+          f"{VLM_GRID[2]} grid, then {VLM_TEXT} text ids) and {VLM_DECODE} "
+          f"embed-decode steps ({res['decode_step_ms']:.2f} ms each) on "
+          f"dense {cfg.dtype} caches, each against a forward over the "
+          f"extended sequence at rtol {DECODE_RTOL}, atol {DECODE_ATOL}: "
+          f"largest |difference| less its allowance {worst:.4g} -> "
+          + ("within" if res["within"] else "outside")
+          + ("" if gated else " (observed, no limit)")
+          + f"; argmax agreement {res['argmax_agreement']:.4f}; peak "
+          f"{res['peak_gib']:.2f} GiB", flush=True)
+    if not bool(torch.isfinite(full).all()) or (gated
+                                                and not res["within"]):
+        raise AssertionError(f"[frontend] (c) decode logits leave the "
+                             f"reference's bound: {res}")
+    return res
+
+
+def frontend_phase(seed: int):
+    """``[frontend]``: (a) hubert-xlarge at its published widths and depth
+    (48 layers) on stub frame embeddings (:func:`encoder_runs`); then,
+    that model freed, qwen2-vl-2b at its published widths and depth (28
+    layers, B1 at G = 12 / 2 = 6): (b) 8 requests of 16-48 prompt tokens
+    and 16 new at batch 4, page size 16, bucketed prefill, after an
+    untimed warm-up: (b1) int8 gather, (b2) int8 kernel teacher-forced by
+    (b1), (b3) int4 kernel fed (b1)'s tokens; (c) the embeds path
+    (:func:`vlm_embeds_check`). Fails unless every request finishes, B1
+    runs once per layer per program on the kernel runs, (b2) passes the
+    gate against (b1), B1 equals its plain version on the pools of one
+    captured decode step and one bucketed S = 32 prefill forward of (b2)
+    and (b3) at G = 6, every (b) run's host counters equal qwen2-vl-2b-
+    smoke's on the CPU for the same trace (a child process), (a) passes
+    its checks and (c) holds the reference's decode bound on the model
+    cast to float32 ((c) in bf16 is printed as observed). Returns (B1
+    launches, run records)."""
+    import concurrent.futures
+    import gc
+    import multiprocessing
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[frontend] card memory held before the phase: {held:.2f} GiB",
+          flush=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    runs, caps, part_s = {}, {}, {}
+    try:
+        cpu_future = rehearsal.submit(cpu_frontend_counters, seed, src)
+        enc = encoder_runs(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["a"] = time.perf_counter() - t_phase
+        cfg, model = frontend_model(QWENVL, seed)
+        launches = vlm_serve_runs(cfg, model, seed, runs, caps)
+        part_s["b"] = time.perf_counter() - t_phase - part_s["a"]
+        embeds = {"bf16": vlm_embeds_check(cfg, model, seed, gated=False)}
+        # the reference's bound is set for float32: the same check on
+        # the model cast to float32 (TF32 off) is the gate
+        embeds["float32"] = vlm_embeds_check(
+            dataclasses.replace(cfg, dtype="float32"), model.float(), seed,
+            gated=True)
+        part_s["c"] = (time.perf_counter() - t_phase - part_s["a"]
+                       - part_s["b"])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        print(f"[frontend] models freed: {held:.2f} GiB still allocated",
+              flush=True)
+        if held > 1.0:
+            raise AssertionError(f"[frontend] a model stayed on the card "
+                                 f"({held:.2f} GiB)")
+        t_card = time.perf_counter() - t_phase
+        cpu = cpu_future.result()
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+    gates = {}
+    for label, ref in {**VLM_GATED, **VLM_OBSERVED}.items():
+        g = accuracy_gate([r.out for r in runs[ref][0]],
+                          [r.out for r in runs[label][0]])
+        gated = label in VLM_GATED
+        print(f"[frontend] ({label}) vs ({ref}), teacher-forced"
+              f"{'' if gated else ' (observed, no limit)'}: agreement "
+              f"{g['agreement']:.4f} ({g['below_floor']} below 0.5)"
+              + (f" -> {'pass' if g['passed'] else 'FAIL'}" if gated
+                 else ""), flush=True)
+        if gated and not g["passed"]:
+            raise AssertionError(f"[frontend] ({label}) fails the gate: {g}")
+        gates[label] = g["agreement"]
+    for label, (_, st, _) in runs.items():
+        if st["counters"] != cpu[label]:
+            raise AssertionError(f"[frontend] ({label}): counters "
+                                 f"{st['counters']} != CPU {cpu[label]}")
+    print(f"[frontend] host counters equal qwen2-vl-2b-smoke's on the CPU "
+          f"for the same token trace, runs (b1)-(b3)", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[frontend] main path: {launches} B1 launches = layers x "
+          f"programs over the kernel runs; phase {wall:.1f} s against a "
+          f"{FRONTEND_BUDGET_S} s budget (card runs and model init "
+          f"{t_card:.1f} s: (a) {part_s['a']:.1f}, (b) {part_s['b']:.1f}, "
+          f"(c) {part_s['c']:.1f}; the CPU rehearsal beside them)",
+          flush=True)
+    out = [dict(st, phase="frontend") for _, st, _ in runs.values()]
+    out.append({"phase": "frontend", "encoder": enc, "embeds": embeds,
+                "gates": gates, "cpu_counters": cpu, "captured_b1": caps,
+                "phase_s": wall, "part_s": part_s,
+                "budget_s": FRONTEND_BUDGET_S})
     return launches, out
 
 
@@ -3109,7 +3726,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
-                             "ssm"],
+                             "ssm", "frontend"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -3152,6 +3769,10 @@ def main(argv=None) -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         ssm_phase(SEED)
         return 0
+    if args.phase == "frontend":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        frontend_phase(SEED)
+        return 0
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     hmma = kernel_build_report()
@@ -3163,8 +3784,9 @@ def main(argv=None) -> int:
         launches, runs = serve_phase(SEED, NUM_LAYERS)
         moe_launches, moe_runs = moe_phase(SEED)
         ssm_launches, ssm_runs = ssm_phase(SEED)
-        launches += moe_launches + ssm_launches
-        runs += moe_runs + ssm_runs
+        fe_launches, fe_runs = frontend_phase(SEED)
+        launches += moe_launches + ssm_launches + fe_launches
+        runs += moe_runs + ssm_runs + fe_runs
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

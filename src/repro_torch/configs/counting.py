@@ -1,7 +1,6 @@
 """Analytic parameter counting: feeds the transformer traffic model and
 ``ModelConfig.param_count``. Plain arithmetic on the config, for every
-family of the registry (the encoder and VLM models are not ported yet;
-their counts are). Also the layer structure the models,
+family of the registry. Also the layer structure the models,
 converter and quantized trees share: ``layer_signatures``,
 ``layer_segments`` and ``segment_layers``."""
 from __future__ import annotations

@@ -31,8 +31,13 @@ write harmlessly (their own dense row, or the scratch page).
   attention) keep one dense state row per slot. Admission restarts the
   slot's rows from their initial values, and a stepwise prefill step
   leaves the other slots' rows as they were (the reference does
-  neither). The prefix cache, a per-layer KV profile, fused rounds and
-  preemption are refused for them.
+  neither). A preempted request parks its rows with its pages and
+  resumes on them (the reference parks pages only). The prefix cache, a
+  per-layer KV profile and fused rounds are refused for them.
+* The VLM (Qwen2-VL) serves from token ids with plain RoPE, as the
+  reference does (M-RoPE with three equal ids); the encoder
+  (hubert-xlarge) has no decode, and the CLI refuses it in the
+  reference's words.
 * Fused rounds (``fused="on"``, paged and bucketed only): ONE ragged
   [batch, bucket] program per scheduler cycle, in which prefill chunks
   and the other slots' decode tokens share one forward; the steady state
@@ -74,8 +79,9 @@ write harmlessly (their own dense row, or the scratch page).
   (priority, deadline, arrival), may admit up to ``admit_window``
   requests past a deferred head, and (with the host tier) preempts a
   strictly less urgent running request: its private pages go to the host
-  tier, its cached prompt pages stay pinned, and it resumes later from
-  the same bytes without a re-prefill. ``predictor="on"`` gates new
+  tier, its cached prompt pages stay pinned, its recurrent state rows
+  stay on the device, and it resumes later from the same bytes without a
+  re-prefill. ``predictor="on"`` gates new
   no-deadline admissions on an online deadline-miss model.
 
 Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
@@ -91,6 +97,8 @@ Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
       --kv-bits 8                                    # dense latent cache
   python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
       --device cpu --page-size 16 --kv-bits 8        # Mamba + attention
+  python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke \\
+      --device cpu --page-size 16 --kv-bits 8        # the VLM, from tokens
   python -m repro_torch.launch.serve --arch qwen2-72b --num-layers 8 \\
       --page-size 16 --kv-bits 8 --attn-impl kernel --fused on
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
@@ -106,7 +114,7 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -138,16 +146,20 @@ from .steps import make_chunk_prefill_step, make_decode_step, \
 @dataclasses.dataclass
 class PreemptedState:
     """A preempted request's slot state, captured at a span boundary: the
-    cache position, the next token, the generated count, and one entry per
+    cache position, the next token, the generated count, one entry per
     slot page in page-table order, either ``("host", handle)`` (the page's
     bytes went to the host tier) or ``("alias", node)`` (the page is a
     still-resident prefix-cache node: the slot's reference was dropped and
-    the node pinned, and resume aliases it again)."""
+    the node pinned, and resume aliases it again), and the slot's row of
+    every recurrent state (layer -> name -> a copy on the device; empty for
+    an attention-only arch). The reference parks no states and resumes a
+    request on whatever its new slot holds (ROADMAP queue C item C4)."""
 
     pos: int
     token: int
     gen: int
     entries: List[tuple]
+    states: Dict[int, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -363,13 +375,6 @@ class BatchedServer:
         if preempt and sched != "slo":
             raise ValueError("preemption is driven by the SLO scheduler; "
                              "it needs --sched slo")
-        if preempt and not attn_only:
-            # the reference parks a victim's pages but not its recurrent
-            # states, and resumes it on whatever state its slot holds
-            raise NotImplementedError(
-                "preemption parks KV pages, not recurrent states: serving "
-                f"{cfg.name} with preemption is ROADMAP queue C item C4 "
-                "(pass preempt=False, --no-preempt)")
         if predictor not in ("off", "on"):
             raise ValueError(f"predictor must be 'off' or 'on', "
                              f"got {predictor!r}")
@@ -1336,8 +1341,9 @@ class BatchedServer:
         """Evict the request in slot ``i`` at a span boundary: each private
         page goes to the host tier (``pager.offload``) and each
         cache-aliased page stays resident as a pinned node; the slot's
-        pages and reservation are released and the resume state captured.
-        Returns the request, to re-queue."""
+        pages and reservation are released and the resume state captured,
+        the slot's recurrent state rows included. Returns the request, to
+        re-queue."""
         if plan is None:
             plan = self._realias_plan(i)
         req = self.slots[i]
@@ -1361,10 +1367,12 @@ class BatchedServer:
         self.page_table[i, :] = SCRATCH_PAGE
         self._pt_dirty = True
         self.slot_reserved[i] = 0
+        states = {li: {k: t[i].clone() for k, t in self.caches[li].items()}
+                  for li in self._state0}
         req._paused = PreemptedState(pos=int(self.pos[i]),
                                      token=int(self.tokens[i]),
                                      gen=int(self.slot_gen[i]),
-                                     entries=entries)
+                                     entries=entries, states=states)
         req.preemptions += 1
         self.preempt_count += 1
         self.pos[i] = 0
@@ -1377,8 +1385,8 @@ class BatchedServer:
         """Re-admit a preempted request: its host pages go into freshly
         allocated pages (the same bytes; ``pager.resume`` uses the upload
         ``_prefetch_promotes`` staged), its pinned nodes are aliased again,
-        and the slot's clock, token and count are restored. No prefill
-        runs."""
+        and the slot's clock, token, count and recurrent state rows are
+        restored. No prefill runs (so no state reset)."""
         st = req._paused
         self.slot_reserved[i] = total
         with self.tracer.req_span(req.rid, "resume",
@@ -1395,6 +1403,9 @@ class BatchedServer:
                 self.page_table[i, j] = page
                 self.slot_pages[i].append(page)
                 self._pt_dirty = True
+        for li, rows in st.states.items():
+            for k, t in self.caches[li].items():
+                t[i] = rows[k]
         self.pos[i] = st.pos
         self.tokens[i] = st.token
         self.slot_gen[i] = st.gen

@@ -1,6 +1,8 @@
-"""Serving step functions: whole-prompt prefill into dense caches,
-bucketed chunk prefill, decode, and the fused ragged step. The forward's
-aux output (a MoE model's load-balance loss) is not used in serving.
+"""Serving step functions: whole-prompt prefill into dense caches (an
+encoder's whole forward), bucketed chunk prefill, decode (from token ids
+or, for a stub-frontend arch, from embeddings), and the fused ragged step.
+The forward's aux output (a MoE model's load-balance loss) is not used in
+serving.
 
 Plain functions on tensors (PyTorch runs eagerly; the reference wraps the
 same bodies in ``jax.jit``). Caches are the per-layer list of
@@ -16,18 +18,27 @@ from ..models.transformer import forward_hidden, init_cache
 
 
 def make_prefill_step(cfg, *, max_len: int, quant=None):
-    """fn(model, tokens (B, S)) -> (last logits (B, V), caches).
+    """fn(model, tokens (B, S) or None, **inputs) -> (last logits (B, V),
+    caches); ``inputs`` (``embeds`` (B, S, D) in place of tokens,
+    ``positions``, ``mrope_positions``) as
+    ``models.transformer.forward_hidden``. An encoder returns (logits
+    (B, S, V), None): its whole forward, no cache.
 
     The whole-prompt prefill against fresh DENSE ``max_len`` caches; the
     server prefills incrementally into its caches through
     :func:`make_chunk_prefill_step` (paged) or decode steps (dense)."""
 
     @torch.no_grad()
-    def step(model, tokens):
-        caches = init_cache(cfg, quant, None, model.device,
-                            batch=tokens.shape[0], max_len=max_len)
+    def step(model, tokens=None, **inputs):
+        if cfg.family == "encoder":
+            x, _, _ = forward_hidden(model, tokens, cfg, quant=quant,
+                                     **inputs)
+            return lm_head(model.head_weight(), x), None
+        B = (tokens if tokens is not None else inputs["embeds"]).shape[0]
+        caches = init_cache(cfg, quant, None, model.device, batch=B,
+                            max_len=max_len)
         x, caches, _ = forward_hidden(model, tokens, cfg, quant=quant,
-                                      caches=caches, cache_pos=0)
+                                      caches=caches, cache_pos=0, **inputs)
         return lm_head(model.head_weight(), x)[:, -1], caches
 
     return step
@@ -111,6 +122,25 @@ def make_fused_step(cfg, *, quant=None, attn_impl: str = "gather"):
         h = torch.gather(h, 1, last[:, None, None].expand(
             -1, 1, h.shape[-1]))                             # (E, 1, D)
         logits = lm_head(model.head_weight(), h)[:, 0]
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt, logits, caches
+
+    return step
+
+
+def make_embed_decode_step(cfg, *, quant=None):
+    """fn(model, embeds (B, 1, D), pos, caches) -> (next_tokens (B,) int32,
+    logits (B, V), caches): the decode step of a stub-frontend arch, its
+    input an embedding, on dense caches. No M-RoPE ids reach it, so an
+    M-RoPE arch decodes with plain RoPE at ``pos``, as the reference's
+    does (M-RoPE with three equal ids)."""
+
+    @torch.no_grad()
+    def step(model, embeds, pos, caches):
+        x, caches, _ = forward_hidden(model, None, cfg, embeds=embeds,
+                                      quant=quant, caches=caches,
+                                      cache_pos=pos)
+        logits = lm_head(model.head_weight(), x)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
 

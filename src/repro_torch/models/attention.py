@@ -1,7 +1,8 @@
 """Attention: GQA (with optional QKV bias) over dense or paged KV caches,
 and MLA (DeepSeek-V3) over dense latent caches.
 
-* ``gqa_apply`` — QKV projections + bias, RoPE, the cache write, attention
+* ``gqa_apply`` — QKV projections + bias, RoPE (M-RoPE for Qwen2-VL when
+  given its (B, S, 3) ids), the cache write, attention
   and the output projection, for the reference's three cache kinds: a
   paged pool (``route_paged_attention``), a dense ``max_len`` slab
   (``cache_update`` + ``attend_chunked``), and no cache at all (training
@@ -28,7 +29,8 @@ and MLA (DeepSeek-V3) over dense latent caches.
   float32 einsums in latent space). A paged latent cache is not offered,
   as in the reference.
 
-M-RoPE is still to port (ROADMAP queue A item 11).
+Non-causal configs (the encoder) attend without a cache only; the paged
+route keeps them off the kernel, as the reference does.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from ..core.paged_kv import paged_gather, paged_update, per_row, \
     pool_container
 from ..kernels.paged_kv_attention import (paged_kv_attention_chunk,
                                           paged_kv_attention_decode)
-from .common import apply_rope, dense_init, frozen, rmsnorm
+from .common import apply_mrope, apply_rope, dense_init, frozen, rmsnorm
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("gather", "kernel")
@@ -345,9 +347,12 @@ def init_gqa(p: GQAttention, generator: torch.Generator) -> None:
 
 def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
               cache_pos=None, kv_quant: Optional[KVQuantSpec] = None,
-              page_table=None, attn_impl: str = "gather",
-              kv_valid_len=None):
-    """Returns (y, cache). ``positions``: (B, S) absolute positions.
+              mrope_positions=None, page_table=None,
+              attn_impl: str = "gather", kv_valid_len=None):
+    """Returns (y, cache). ``positions``: (B, S) absolute positions;
+    ``mrope_positions`` (B, S, 3), given to an M-RoPE config, rotates q
+    and k by M-RoPE in their place (without them, plain RoPE at
+    ``positions``, as the reference serves Qwen2-VL text).
 
     ``cache`` is None (attend within the sequence, causal per cfg), a dense
     slab of :func:`init_kv_cache` (written at ``cache_pos``, scalar or
@@ -367,8 +372,13 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
         q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd)
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     v = v.reshape(B, S, KV, hd)
     odt = torch.bfloat16 if cfg.attn_bf16 else torch.float32
     if cache is not None and "k_pages" in cache:

@@ -1,9 +1,9 @@
-"""Shared model components: initializers, RMSNorm, RoPE, embedding and the
-LM head.
+"""Shared model components: initializers, RMSNorm and LayerNorm, RoPE and
+M-RoPE, embedding and the LM head.
 
 Weights keep the reference's ``(in, out)`` layout, so ``x @ w`` is the same
-product on both sides. LayerNorm, M-RoPE and the loss helpers are still to
-port (ROADMAP queue A items 11 and 12).
+product on both sides. The loss helpers are still to port (ROADMAP queue A
+item 12).
 """
 from __future__ import annotations
 
@@ -70,8 +70,30 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     return (y * scale.to(torch.float32)).to(dt)
 
 
+def init_layernorm(d: int, dtype, device=None) -> dict:
+    """LayerNorm parameters: unit ``scale``, zero ``bias``. No forward of
+    the served families calls it (the encoder's blocks use RMSNorm, as the
+    reference's do); kept with the reference's."""
+    return {"scale": torch.ones(d, dtype=dtype, device=device),
+            "bias": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm computed in float32 (biased variance), output in x's
+    dtype."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)
+            + params["bias"].to(torch.float32)).to(dt)
+
+
 # ---------------------------------------------------------------------------
-# Rotary position embeddings. ``positions`` is (B, S) integer.
+# Rotary position embeddings. ``positions`` is (B, S) integer; M-RoPE takes
+# (B, S, 3) temporal / height / width ids (Qwen2-VL) and rotates three bands
+# of the half-dim frequency axis by one id stream each.
 # ---------------------------------------------------------------------------
 def rope_angles(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, computed in numpy float32 exactly as the
@@ -89,19 +111,49 @@ def _device_rope_angles(head_dim: int, theta: float,
     return rope_angles(head_dim, theta, device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S)."""
-    dt = x.dtype
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) with its two halves rotated by the float32 angles
+    ``ang`` (B, S, D/2), in float32, cast back to x's dtype."""
     half = x.shape[-1] // 2
-    inv = _device_rope_angles(x.shape[-1], float(theta), x.device)
-    ang = positions[..., None].to(torch.float32) * inv     # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1 = x[..., :half].to(torch.float32)
     x2 = x[..., half:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(dt)
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S)."""
+    inv = _device_rope_angles(x.shape[-1], float(theta), x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * inv)
+
+
+MROPE_SECTIONS = (0.25, 0.375, 0.375)   # temporal / height / width bands
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_bands(half: int, device: torch.device) -> torch.Tensor:
+    """(half,) id stream of each frequency: 0 below ``b0``, 1 up to
+    ``b1``, 2 above, with the reference's truncating band bounds
+    (head_dim 128: 16 and 40; 80: 10 and 25; 16: 2 and 5)."""
+    b0 = int(half * MROPE_SECTIONS[0])
+    b1 = b0 + int(half * MROPE_SECTIONS[1])
+    sel = torch.zeros(half, dtype=torch.int64)
+    sel[b0:b1] = 1
+    sel[b1:] = 2
+    return sel.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D); positions3: (B, S, 3).
+    The angles use :func:`apply_rope`'s float32 inverse frequencies; with
+    the three ids equal it is :func:`apply_rope` at that id."""
+    inv = _device_rope_angles(x.shape[-1], float(theta), x.device)
+    bands = _mrope_bands(x.shape[-1] // 2, x.device)
+    return _rotate(x, positions3.to(torch.float32)[..., bands] * inv)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Decoder models: blocks built from each layer's signature (a GQA or MLA
-attention, Mamba, mLSTM or sLSTM mixer; a SwiGLU, a MoE or no FFN), the
-model module, dense and paged caches beside dense recurrent states, the
-forward with the paper's per-layer fake-quant, and the converter from the
-JAX package's parameter tree.
+"""Transformer models: blocks built from each layer's signature (a GQA or
+MLA attention, Mamba, mLSTM or sLSTM mixer; a SwiGLU, the encoder's GELU
+MLP, a MoE or no FFN), the model module, dense and paged caches beside
+dense recurrent states, the forward (from token ids, or from a stub
+frontend's embeddings with optional explicit and M-RoPE positions) with
+the paper's per-layer fake-quant, and the converter from the JAX
+package's parameter tree.
 
 The reference groups layers into segments of one repeated block pattern
 (``layer_segments``: e.g. DeepSeek-V3's 3 dense layers then its MoE
@@ -22,8 +24,10 @@ Per-layer quantization (all optional, driven by :class:`ModelQuant`):
   * recurrent state: a Mamba or mLSTM layer puts its state on the layer's
     KV grid at chunk boundaries (``state_quant``).
 
-The encoder and VLM families and the training losses are still to port
-(ROADMAP queue A items 11 and 12).
+The encoder (hubert-xlarge) differs from a dense decoder only in its GELU
+FFN and its bidirectional attention (``cfg.causal``); its norms are
+RMSNorm, as the reference's. The training losses are still to port
+(ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from .attention import (GQAttention, KVQuantSpec, MLAttention, gqa_apply,
                         mla_apply)
 from .common import (dense_init, embed_init, embed_tokens, frozen, lm_head,
                      rmsnorm)
-from .mlp import SwiGLU, init_swiglu, swiglu_apply
+from .mlp import (GeluMLP, SwiGLU, gelu_mlp_apply, init_gelu_mlp,
+                  init_swiglu, swiglu_apply)
 from .moe import MoE, init_moe, moe_apply
 from .ssm import MIXERS
 
@@ -145,7 +150,8 @@ class DecoderBlock(nn.Module):
     ``mixer``, the :mod:`models.ssm` module of that kind (``attn`` is
     then None). ``mlp`` (the reference's "ffn") is a :class:`MoE` for ffn
     "moe", a SwiGLU of ``d_ff`` for "mlp", and for "none" (the xLSTM
-    blocks) ``mlp`` and ``norm2`` are None. Norm scales stay float32 (the
+    blocks) ``mlp`` and ``norm2`` are None; an encoder's "mlp" is a
+    :class:`GeluMLP`. Norm scales stay float32 (the
     reference reads them as float32); the projections are stored in the
     compute dtype."""
 
@@ -169,8 +175,12 @@ class DecoderBlock(nn.Module):
         if ffn != "none":
             self.norm2 = frozen(torch.empty(D, dtype=torch.float32,
                                             device=device))
-            self.mlp = (MoE(cfg, dtype, device) if ffn == "moe"
-                        else SwiGLU(D, cfg.d_ff, dtype, device))
+            if ffn == "moe":
+                self.mlp = MoE(cfg, dtype, device)
+            elif cfg.family == "encoder":
+                self.mlp = GeluMLP(D, cfg.d_ff, dtype, device)
+            else:
+                self.mlp = SwiGLU(D, cfg.d_ff, dtype, device)
 
 
 class MTP(nn.Module):
@@ -196,7 +206,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         dt = cfg.torch_dtype
         D, V = cfg.d_model, cfg.vocab_size
@@ -217,15 +226,6 @@ class Transformer(nn.Module):
         return self.embed.T if self.head is None else self.head
 
 
-def _check_ported(cfg) -> None:
-    """Refuse the families still to port: the encoder and VLM families."""
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            "port builds dense, MoE, MLA, SSM and hybrid decoders, and the "
-            "encoder and VLM families are ROADMAP queue A item 11")
-
-
 def _init_block(blk: DecoderBlock, g: torch.Generator) -> None:
     blk.norm1.fill_(1.0)
     if blk.attn is not None:
@@ -235,7 +235,9 @@ def _init_block(blk: DecoderBlock, g: torch.Generator) -> None:
         MIXERS[blk.sig[0]].init(blk.mixer, g)
     if blk.mlp is not None:
         blk.norm2.fill_(1.0)
-        (init_moe if isinstance(blk.mlp, MoE) else init_swiglu)(blk.mlp, g)
+        init = {MoE: init_moe, GeluMLP: init_gelu_mlp}.get(type(blk.mlp),
+                                                           init_swiglu)
+        init(blk.mlp, g)
 
 
 @torch.no_grad()
@@ -275,7 +277,8 @@ _MIXER_LEAVES = {"gqa": ("wq", "wk", "wv", "wo"),
 def block_leaves(blk: DecoderBlock, cfg):
     """(reference path, tensor) of every parameter of a block, the path
     the reference's block tree gives it: ``mixer/<name>`` (a norm scale's
-    leaf is ``<name>/scale``), ``ffn/<name>`` of a SwiGLU, or
+    leaf is ``<name>/scale``), ``ffn/<name>`` of a SwiGLU or a GELU MLP
+    (its biases are 1-D, so weight fake-quant leaves them float), or
     ``ffn/router``, ``ffn/experts/<name>`` and ``ffn/shared/<name>`` of a
     MoE, and ``norm1/scale``, ``norm2/scale`` (no ``norm2`` or ``ffn``
     without an FFN)."""
@@ -301,7 +304,9 @@ def block_leaves(blk: DecoderBlock, cfg):
             out += [(("ffn", "shared", n), getattr(blk.mlp.shared, n))
                     for n in swiglu]
     else:
-        out += [(("ffn", n), getattr(blk.mlp, n)) for n in swiglu]
+        names = (("w_in", "b_in", "w_out", "b_out")
+                 if isinstance(blk.mlp, GeluMLP) else swiglu)
+        out += [(("ffn", n), getattr(blk.mlp, n)) for n in names]
     return out
 
 
@@ -423,14 +428,17 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
 
 def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
                 kv_quant=None, w_fmt=None, a_fmt=None, page_table=None,
-                attn_impl="gather", kv_valid_len=None, state_quant=None):
+                attn_impl="gather", kv_valid_len=None, state_quant=None,
+                mrope_positions=None):
     """One pre-norm block, dispatched on its signature. Returns (x, cache,
     aux): ``aux`` is the MoE's {"moe_lb_loss", "moe_z_loss"} for a MoE
     block, else empty. ``w_fmt``/``a_fmt`` (I, F) fake-quantize the
     block's weights before use and its output (the residual stream) after
     it. A recurrent block reads and returns its state as ``cache`` (None:
     from the initial state, and the new state is returned) and puts it on
-    the ``state_quant`` (I, F) grid at chunk boundaries."""
+    the ``state_quant`` (I, F) grid at chunk boundaries.
+    ``mrope_positions`` (B, S, 3) reach a GQA attention (M-RoPE); MLA
+    ignores them, as the reference does."""
     h = rmsnorm(blk.norm1, x, cfg.norm_eps)
     if blk.attn is None:
         y, cache = MIXERS[blk.sig[0]].apply(
@@ -443,8 +451,10 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
     else:
         y, cache = gqa_apply(_quant_weights(blk.attn, w_fmt), h, positions,
                              cfg=cfg, cache=cache, cache_pos=cache_pos,
-                             kv_quant=kv_quant, page_table=page_table,
-                             attn_impl=attn_impl, kv_valid_len=kv_valid_len)
+                             kv_quant=kv_quant,
+                             mrope_positions=mrope_positions,
+                             page_table=page_table, attn_impl=attn_impl,
+                             kv_valid_len=kv_valid_len)
     x = x + y
     aux = {}
     if blk.mlp is not None:
@@ -452,6 +462,8 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
         h = rmsnorm(blk.norm2, x, cfg.norm_eps)
         if isinstance(blk.mlp, MoE):
             y, aux = moe_apply(mlp, h, cfg=cfg)
+        elif isinstance(blk.mlp, GeluMLP):
+            y = gelu_mlp_apply(mlp, h)
         else:
             y = swiglu_apply(mlp, h)
         x = x + y
@@ -460,7 +472,8 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
     return x, cache, aux
 
 
-def forward_hidden(model: Transformer, tokens, cfg, *,
+def forward_hidden(model: Transformer, tokens, cfg, *, embeds=None,
+                   positions=None, mrope_positions=None,
                    quant: Optional[ModelQuant] = None, caches=None,
                    cache_pos=None, page_table=None, attn_impl="gather",
                    kv_valid_len=None):
@@ -469,7 +482,13 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
     losses (a float32 scalar, 0 without MoE layers), as the reference's
     segment scans sum it.
 
-    tokens: (B, S) ids; ``caches``: None (attend within the sequence: the
+    tokens: (B, S) ids, or None with ``embeds`` (B, S, D), a stub
+    frontend's frame or patch embeddings, cast to the compute dtype (and,
+    under ``quant``, fake-quantized with layer 0's data format as the
+    token embedding would be); ``positions`` (B, S): explicit RoPE
+    positions (default ``cache_pos`` + arange(S); cache writes still go
+    to ``cache_pos``); ``mrope_positions`` (B, S, 3): M-RoPE ids for an
+    M-RoPE config. ``caches``: None (attend within the sequence: the
     training / whole-prompt forward) or :func:`init_cache`'s per-layer
     list, updated in place; ``cache_pos``: scalar or (B,) position of each
     row's first token; ``page_table`` (B, NP) int32 drives paged caches;
@@ -482,10 +501,14 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
     each layer writes and reads its own pool at its own width (both of the
     reference's ``kv_profile_scan`` lowerings are this one per-layer
     loop)."""
-    x = embed_tokens(model.embed, tokens)
+    if embeds is not None:
+        x = embeds.to(cfg.torch_dtype)
+    else:
+        x = embed_tokens(model.embed, tokens)
     B, S = x.shape[0], x.shape[1]
-    base = per_row(0 if cache_pos is None else cache_pos, B, x.device)
-    positions = base[:, None] + torch.arange(S, device=x.device)[None, :]
+    if positions is None:
+        base = per_row(0 if cache_pos is None else cache_pos, B, x.device)
+        positions = base[:, None] + torch.arange(S, device=x.device)[None, :]
     if quant is not None and quant.a_int is not None:
         x = fake_quant(x, *quant.layer_data(0))    # the embedding output
     lb = None
@@ -499,7 +522,8 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
             cache=None if caches is None else caches[li],
             cache_pos=cache_pos, kv_quant=kvq, w_fmt=wf, a_fmt=af,
             page_table=page_table, attn_impl=attn_impl,
-            kv_valid_len=kv_valid_len, state_quant=sq)
+            kv_valid_len=kv_valid_len, state_quant=sq,
+            mrope_positions=mrope_positions)
         if caches is not None:
             caches[li] = cache
         if "moe_lb_loss" in aux:
@@ -512,21 +536,24 @@ def forward_hidden(model: Transformer, tokens, cfg, *,
 
 def forward(model: Transformer, tokens, cfg, **kw):
     """Returns (hidden, logits, caches, aux), as the reference's
-    ``forward``; keywords as :func:`forward_hidden`."""
+    ``forward``; ``tokens`` and keywords as :func:`forward_hidden`."""
     x, caches, aux = forward_hidden(model, tokens, cfg, **kw)
     return x, lm_head(model.head_weight(), x), caches, aux
 
 
 def prefill(model: Transformer, tokens, cfg, *,
-            quant: Optional[ModelQuant] = None, max_len: int):
+            quant: Optional[ModelQuant] = None, max_len: int, **inputs):
     """Run the prompt (B, S) through the model into fresh dense
-    ``max_len`` caches. Returns (logits at the last position (B, V),
-    caches, next position S)."""
-    B, S = tokens.shape
+    ``max_len`` caches; ``tokens`` may be None with ``embeds`` (B, S, D),
+    which then gives B and S; ``inputs`` (``embeds``, ``positions``,
+    ``mrope_positions``) as :func:`forward_hidden`. Returns (logits at the
+    last position (B, V), caches, next position S)."""
+    emb = inputs.get("embeds")
+    B, S = tokens.shape if emb is None else emb.shape[:2]
     caches = init_cache(cfg, quant, None, model.device, batch=B,
                         max_len=max_len)
     _, logits, caches, _ = forward(model, tokens, cfg, quant=quant,
-                                   caches=caches, cache_pos=0)
+                                   caches=caches, cache_pos=0, **inputs)
     return logits[:, -1], caches, S
 
 

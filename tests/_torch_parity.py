@@ -89,6 +89,10 @@ def perturbed_jax_params(arch: str = "qwen2-72b", seed: int = 0, *,
         for name in ("conv_b", "dt_bias", "b"):
             if name in mixer:
                 mixer[name] = normal(mixer[name])
+        # the encoder's GELU MLP biases
+        for name in ("b_in", "b_out"):
+            if name in blk.get("ffn", {}):
+                blk["ffn"][name] = normal(blk["ffn"][name])
         if "D_skip" in mixer:
             mixer["D_skip"] = uniform(mixer["D_skip"])
         if "f_bias" in mixer:

@@ -1122,3 +1122,122 @@ def test_cuda_ssm_mixer_matches_cpu(cuda, kind, arch):
     for k in st1:
         np.testing.assert_allclose(gst1[k].cpu().numpy(), st1[k].numpy(),
                                    err_msg=k, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# The encoder and VLM families: B1 at qwen2-vl's query-group size, an
+# encoder block, M-RoPE and the tanh GELU on the card, and a preempted
+# recurrent request's parked states
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4, 0])
+@pytest.mark.parametrize("s", [1, 32])
+def test_cuda_b1_at_group_six(cuda, bits, s):
+    """12 query heads over 2 KV heads (G = 6, qwen2-vl-2b), head_dim 128,
+    page size 16: a block packs 21 queries x 6 heads = 126 of 128 rows at
+    S = 32 and 6 live rows of 16 at decode. The tensor-core kernel against
+    the plain version."""
+    args = _case(600 + bits + s, b=4, kv=2, g=6, hd=128, ps=16, s=s,
+                 bits=bits, start=300, qdt=torch.bfloat16)
+    assert pka.query_block(s, 6, 2, False) == min(s, 21)
+    assert pka.kernel_route(args[1], head_dim=128, G=6,
+                            block_kv=False) == "mma"
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    before = pka.paged_kv_attention_chunk.launches
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("chunk", [1024, 128], ids=["full", "chunked"])
+def test_cuda_frontend_hubert_block_matches_cpu(cuda, chunk):
+    """One hubert-xlarge block at its published widths (d_model 1280, 16
+    heads of 80, GELU FFN of 5120) in float32, 256 frames, bidirectional:
+    through ``attend_full`` and (attn_chunk 128) the non-causal
+    ``attend_chunked``, on the card against the CPU within 1e-4 (TF32
+    off)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as ttr
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), dtype="float32",
+                              attn_chunk=chunk)
+    assert not cfg.causal and cfg.head_dim == 80
+    g = torch.Generator().manual_seed(7)
+    blk = ttr.DecoderBlock(cfg, torch.float32, "cpu")
+    with torch.no_grad():
+        ttr._init_block(blk, g)
+        blk.mlp.b_in.normal_(0.0, 1.0, generator=g)
+    gblk = copy.deepcopy(blk).to(cuda)
+    x = torch.randn((2, 256, cfg.d_model), generator=g)
+    pos = torch.arange(256)[None].expand(2, 256)
+    want, _, _ = ttr.block_apply(blk, x, pos, cfg=cfg, cache=None,
+                                 cache_pos=None)
+    got, _, _ = ttr.block_apply(gblk, x.to(cuda), pos.to(cuda), cfg=cfg,
+                                cache=None, cache_pos=None)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+def test_cuda_frontend_mrope_and_tanh_gelu_match_cpu(cuda):
+    """qwen2-vl's M-RoPE at head_dim 128 (bands at 16 and 40) over
+    4096-range ids, and the tanh-form GELU MLP at qwen2-vl's d_model, on
+    the card against the CPU within 1e-4."""
+    from repro_torch.models import common, mlp
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 64, 12, 128), generator=g)
+    ids = torch.randint(0, 4096, (2, 64, 3), generator=g)
+    np.testing.assert_allclose(
+        common.apply_mrope(x.to(cuda), ids.to(cuda), 1e6).cpu().numpy(),
+        common.apply_mrope(x, ids, 1e6).numpy(), **TOL)
+    m = mlp.GeluMLP(1536, 1024, torch.float32, "cpu")
+    with torch.no_grad():
+        mlp.init_gelu_mlp(m, g)
+        m.b_in.normal_(0.0, 1.0, generator=g)
+    h = torch.randn((2, 16, 1536), generator=g)
+    gm = mlp.GeluMLP(1536, 1024, torch.float32, cuda)
+    gm.load_state_dict(m.state_dict())
+    np.testing.assert_allclose(mlp.gelu_mlp_apply(gm, h.to(cuda)).cpu()
+                               .numpy(), mlp.gelu_mlp_apply(m, h).numpy(),
+                               **TOL)
+
+
+def test_cuda_frontend_preempted_states_resume_on_the_card(cuda):
+    """jamba-smoke (eval_all, Mamba states beside a paged int8 attention
+    layer through B1) with SLO scheduling and the host tier at batch
+    size 1: two requests are preempted, their state rows parked on the
+    card and written back on resume, and every request gets exactly the
+    tokens of an uninterrupted batch-size-1 run on the card."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    assert cfg.moe_mode == "eval_all"
+    model = init_model(cfg, seed=0, device=cuda)
+
+    def trace():
+        rng = np.random.default_rng(11)
+        return [Request(i, rng.integers(0, cfg.vocab_size, L).astype(
+            np.int32), n, priority=p, arrive_step=a)
+            for i, (L, n, p, a) in enumerate(((9, 14, 0, 0), (9, 5, 5, 4),
+                                              (5, 6, 1, 8), (4, 4, 9, 12)))]
+    kw = dict(batch_size=1, max_len=48, page_size=8, kv_bits=8,
+              attn_impl="kernel", device=cuda)
+    srv = BatchedServer(cfg, model, num_pages=4, sched="slo",
+                        kv_offload="host", **kw)
+    parked = []
+    resume = srv._resume_slot
+
+    def tap(i, req, total):
+        parked.append({li: {k: v.clone() for k, v in rows.items()}
+                       for li, rows in req._paused.states.items()})
+        resume(i, req, total)
+        for li, rows in parked[-1].items():
+            for k, v in rows.items():
+                assert v.is_cuda and torch.equal(srv.caches[li][k][i], v)
+    srv._resume_slot = tap
+    reqs = srv.run(trace())
+    assert srv.preempt_count == srv.resume_count == len(parked) == 2
+    assert all(parked)
+    want = BatchedServer(cfg, model, **kw).run(trace())
+    assert [r.out for r in reqs] == [r.out for r in want]

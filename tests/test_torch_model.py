@@ -173,16 +173,19 @@ def test_params_from_numpy_unstacks_layers(models):
 
 def test_entry_points_default_to_cuda():
     """Without a card, asking for the default device raises instead of
-    falling back to the CPU; the families still to port (here the
-    encoder) raise."""
+    falling back to the CPU; every family builds on the CPU (the encoder
+    with its GELU FFN, the VLM with tied embeddings)."""
     from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.mlp import GeluMLP
     cfg = get_smoke_config("qwen2-72b")
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttr.init_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init_model(get_smoke_config("hubert-xlarge"), device="cpu")
+    enc = ttr.init_model(get_smoke_config("hubert-xlarge"), device="cpu")
+    assert all(isinstance(b.mlp, GeluMLP) for b in enc.layers)
+    vlm = ttr.init_model(get_smoke_config("qwen2-vl-2b"), device="cpu")
+    assert vlm.head is None and vlm.layers[0].attn.has_bias
     m = ttr.init_model(cfg, seed=3, device="cpu")
     m2 = ttr.init_model(cfg, seed=3, device="cpu")
     assert torch.equal(m.layers[1].attn.wq, m2.layers[1].attn.wq)

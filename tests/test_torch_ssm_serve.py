@@ -17,8 +17,12 @@ to the port —
   tokens bit for bit);
 * the reference's refusals for archs that are not attention-only
   (bucketed prefill, the prefix cache, a per-layer KV profile, fused
-  rounds) in its exception types and words, and the port's refusal of
-  preemption (ROADMAP queue C item C4);
+  rounds) in its exception types and words;
+* SLO scheduling with the host tier, with and without preemption: every
+  host counter equals the reference server's, and a preempted request
+  resumes on the recurrent states it was preempted with (the reference
+  resumes it on whatever its new slot holds, ROADMAP queue C item C4), so
+  every request gets bit for bit its uninterrupted tokens;
 * the CLI serves both archs on the CPU."""
 import numpy as np
 import pytest
@@ -203,20 +207,61 @@ def test_refusals_use_the_reference_words():
     assert srv.prefill_mode == "stepwise"
 
 
-def test_preemption_is_refused():
-    """The reference parks a preempted request's pages but not its
-    recurrent states, so its resumed tokens follow another request's
-    states (ROADMAP queue C item C4); the port refuses preemption on such
-    an arch and serves SLO scheduling with the host tier without it."""
-    _, tcfg, _, model = _models(JAMBA)
-    kw = dict(batch_size=2, max_len=32, page_size=8, kv_bits=8, device=CPU,
-              sched="slo", kv_offload="host")
-    with pytest.raises(NotImplementedError, match="queue C item C4"):
-        BatchedServer(tcfg, model, **kw)
-    srv = BatchedServer(tcfg, model, preempt=False, **kw)
-    reqs = srv.run(_requests(Request, tcfg.vocab_size, [5, 9, 3]))
+def _slo_trace(cls, vocab):
+    """The scheduler tests' identity trace and a fourth, most urgent
+    request arriving while the third runs: at batch size 1 the second
+    preempts the first and the fourth the third."""
+    rng = np.random.default_rng(11)
+    lens_new_prio_arrive = ((9, 14, 0, 0), (9, 5, 5, 4), (5, 6, 1, 8),
+                            (4, 4, 9, 12))
+    return [cls(i, rng.integers(0, vocab, L).astype(np.int32), n,
+                priority=p, arrive_step=a)
+            for i, (L, n, p, a) in enumerate(lens_new_prio_arrive)]
+
+
+def _slo_counters(srv):
+    m = srv.metrics
+    return dict(_counters(srv), preempt=srv.preempt_count,
+                resume=srv.resume_count, realias=srv.realias_skipped,
+                reclaims=m.value("alloc.reclaims"),
+                defers=m.counter("sched.defers").value,
+                rejects=m.counter("sched.rejects").value,
+                ooo=srv.scheduler.ooo_admissions,
+                host_puts=srv.host_store.puts,
+                host_peak=srv.host_store.peak_pages,
+                host_peak_bytes=srv.host_store.peak_bytes)
+
+
+@pytest.mark.parametrize("preempt", [True, False],
+                         ids=["preempt", "no-preempt"])
+def test_slo_with_host_tier_resumes_on_parked_states(preempt):
+    """jamba-smoke (eval_all) with SLO scheduling and the host tier on a
+    4-page pool at batch size 1: with preemption two requests are
+    preempted and resumed, without it none; either way every host counter
+    equals the reference server's on the same trace, and every request
+    gets bit for bit the tokens of a roomy batch-size-1 FIFO server (equal
+    batch shapes: one-row products round differently on the CPU). With
+    the states left out of the parked state (the reference's behaviour)
+    the two resumed requests' tokens differ (checked in a scratch copy)."""
+    jcfg, tcfg, jparams, model = _models(JAMBA)
+    assert tcfg.moe_mode == "eval_all"
+    kw = dict(batch_size=1, max_len=48, page_size=8, num_pages=4,
+              kv_bits=8, sched="slo", kv_offload="host", preempt=preempt)
+    jsrv = JServer(jcfg, jparams, **kw)
+    jreqs = jsrv.run(_slo_trace(JRequest, jcfg.vocab_size))
+    srv = BatchedServer(tcfg, model, device=CPU, **kw)
+    reqs = srv.run(_slo_trace(Request, tcfg.vocab_size))
     assert all(r.done and r.error is None for r in reqs)
-    assert srv.preempt_count == 0
+    assert _slo_counters(srv) == _slo_counters(jsrv)
+    assert [r.preemptions for r in reqs] == [r.preemptions for r in jreqs]
+    assert srv.preempt_count == srv.resume_count == (2 if preempt else 0)
+    assert srv.host_store.num_pages == 0
+    alone = BatchedServer(tcfg, model, batch_size=1, max_len=48,
+                          page_size=8, kv_bits=8, device=CPU)
+    want = alone.run(_slo_trace(Request, tcfg.vocab_size))
+    assert alone.preempt_count == 0
+    for r, w in zip(reqs, want):
+        assert r.out == w.out, (preempt, r.rid, r.preemptions)
 
 
 @pytest.mark.parametrize("argv", [
