@@ -1,5 +1,5 @@
-"""Shared substrate of the paper's CNN benches: train and cache the three
-CNNs, build accuracy eval_fns, result IO.
+"""Shared substrate of the benches: train and cache the paper's three
+CNNs, build accuracy eval_fns, result IO and the serving trajectory.
 
 The paper evaluates pretrained zoo models; here each network is trained
 once on its procedural dataset (``data.synthetic``) with the JAX package's
@@ -10,10 +10,14 @@ Results go under ``results/`` at the repository root with a ``torch_``
 prefix (``results/torch_cnn/{net}.npz``, ``results/torch_*.json``), beside
 and never over the reference's files. A cached network is an ``.npz`` in
 the reference's own layout and keys (``{layer}_w`` HWIO, ``{layer}_b``),
-so either package can read the other's.
+so either package can read the other's. The serving benches append one
+point a run to ``results/torch_BENCH_serve.json``
+(:func:`append_trajectory`); the repository's ``BENCH_serve.json`` is the
+reference's own record, which the port never reads or writes.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -50,6 +54,39 @@ def save_json(name: str, obj) -> Path:
 
 def load_json(name: str):
     return json.loads((RESULTS / f"torch_{name}").read_text())
+
+
+@contextlib.contextmanager
+def results_in(path):
+    """Write every result under ``path`` for the duration of the block,
+    then under the previous directory again."""
+    global RESULTS
+    saved, RESULTS = RESULTS, Path(path)
+    try:
+        yield RESULTS
+    finally:
+        RESULTS = saved
+
+
+def trajectory_path() -> Path:
+    """The port's serving trajectory: ``results/torch_BENCH_serve.json``."""
+    return RESULTS / "torch_BENCH_serve.json"
+
+
+def append_trajectory(point: dict) -> Path:
+    """Append one serving bench point to :func:`trajectory_path` (a file
+    that does not parse starts a fresh trajectory). Returns the path."""
+    path = trajectory_path()
+    traj = {"bench": "paged_serve", "trajectory": []}
+    if path.exists():
+        try:
+            traj = json.loads(path.read_text())
+        except (OSError, json.JSONDecodeError):
+            pass
+    traj.setdefault("trajectory", []).append(point)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(traj, indent=1))
+    return path
 
 
 def _params_path(net: str) -> Path:

@@ -1,10 +1,17 @@
 """The paper tables (§Repro) rendered from the port's result files
 (``results/torch_{uniform_sweep,perlayer_sweep,traffic,pareto_search}.json``),
-as the reference's ``benchmarks/report.py::repro_section`` renders its own.
+as the reference's ``benchmarks/report.py::repro_section`` renders its own,
+and (``--serve``) the serving trajectory's latest point against its first
+per workload, from ``results/torch_BENCH_serve.json`` as the reference's
+``serve_section`` reads its own record. The dry-run, roofline and perf
+sections analyze XLA programs and wait for ROADMAP queue A item 13.
 
-    python -m repro_torch.benchmarks.report
+    python -m repro_torch.benchmarks.report [--serve]
 """
 from __future__ import annotations
+
+import argparse
+import json
 
 from . import common
 from .pareto_search import PAPER_TR_1PCT
@@ -74,5 +81,106 @@ def repro_section() -> str:
     return "\n".join(out)
 
 
+# scalar fields worth trending, per workload result (a nested dict, as
+# the mixed bench's per-row tokens_per_s, expands per sub-key)
+_SERVE_METRICS = ("tokens_per_s", "goodput", "goodput_off", "goodput_delta",
+                  "ttft_p99_s", "token_agreement", "program_reduction",
+                  "prefill_forwards_reduction", "goodput_1rep",
+                  "goodput_2rep", "token_agreement_2rep",
+                  "blocked_speedup_geomean", "grid_step_ratio")
+
+
+def _serve_points():
+    """The trajectory grouped into (workload, fast) series. A mixed-bench
+    point carries its metrics at the summary's top level (keyed by
+    ``tokens_per_s``); a workload point nests them under the workload's
+    name. An ``all`` point feeds both."""
+    try:
+        traj = json.loads(common.trajectory_path().read_text()).get(
+            "trajectory", [])
+    except (OSError, json.JSONDecodeError):
+        return {}
+    series = {}
+    for p in traj:
+        summary = p.get("summary") or {}
+        items = []
+        if "tokens_per_s" in summary:
+            items.append(("mixed", summary))
+        items += [(k, v) for k, v in summary.items()
+                  if isinstance(v, dict) and k != "tokens_per_s"
+                  and any(m in v for m in _SERVE_METRICS)]
+        for wl, res in items:
+            series.setdefault((wl, bool(p.get("fast"))), []).append(
+                (p.get("when", "?"), res))
+    return series
+
+
+def _flat_metrics(res: dict) -> dict:
+    out = {}
+    for m in _SERVE_METRICS:
+        if m not in res:
+            continue
+        v = res[m]
+        if isinstance(v, dict):
+            for k, vv in v.items():
+                if isinstance(vv, (int, float)):
+                    out[f"{m}[{k}]"] = float(vv)
+        elif isinstance(v, (int, float)):
+            out[m] = float(v)
+        else:
+            # present but not a number (an SLO field a run left None):
+            # the row stays, as an explicit n/a
+            out[m] = None
+    return out
+
+
+def _fmt_metric(v) -> str:
+    return f"{v:.4g}" if isinstance(v, (int, float)) else "n/a"
+
+
+def serve_section() -> str:
+    series = _serve_points()
+    out = ["## §Serve — torch_BENCH_serve.json trajectory "
+           "(latest vs first, per workload)", ""]
+    if not series:
+        out.append("(no torch_BENCH_serve.json trajectory recorded yet)")
+        return "\n".join(out)
+    for (wl, fast), points in sorted(series.items()):
+        first_when, first = points[0]
+        last_when, last = points[-1]
+        f0, f1 = _flat_metrics(first), _flat_metrics(last)
+        label = f"{wl} ({'fast' if fast else 'full'}, {len(points)} point"
+        label += "s)" if len(points) != 1 else ")"
+        out += [f"### {label}",
+                f"first {first_when} -> latest {last_when}", "",
+                "| metric | first | latest | delta |", "|---|---|---|---|"]
+        keys = [k for k in f1 if k in f0] \
+            + [k for k in f1 if k not in f0] \
+            + [k for k in f0 if k not in f1]
+        for k in keys:
+            v0, v1 = f0.get(k), f1.get(k)
+            if isinstance(v0, float) and isinstance(v1, float):
+                d = v1 - v0
+                rel = f" ({d / abs(v0):+.1%})" if v0 else ""
+                out.append(f"| {k} | {v0:.4g} | {v1:.4g} | "
+                           f"{d:+.4g}{rel} |")
+            elif k not in f0:
+                out.append(f"| {k} | n/a | {_fmt_metric(v1)} | new |")
+            else:
+                out.append(f"| {k} | {_fmt_metric(v0)} | "
+                           f"{_fmt_metric(v1)} | n/a |")
+        out.append("")
+    return "\n".join(out)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--serve", action="store_true",
+                    help="print the serving trajectory's per-workload "
+                         "latest-vs-first summary")
+    args = ap.parse_args(argv)
+    print(serve_section() if args.serve else repro_section())
+
+
 if __name__ == "__main__":
-    print(repro_section())
+    main()

@@ -1,33 +1,69 @@
-"""Paper Fig. 4 byte-traffic accounting: single-image vs batch use cases,
-weights vs intermediate data, per network, extended with the transformer
-analogue (prefill weight-dominated, decode KV-data-dominated per LM arch).
-Host arithmetic, equal to the reference's ``benchmarks/traffic.py``
-accounting. ``overload_trace_config`` and ``to_requests`` are the
-reference harness's trace and its conversion to serve requests, and
-``replay_overload`` serves that trace once under the harness's tiered
-settings; the harness's gated runs (``run_serve``, ``run_replicas``) are
-still to port (ROADMAP queue A item 10).
+"""Traffic benches: the paper's Fig. 4 byte-traffic accounting and the
+traffic-at-scale serving harness, as the reference's
+``benchmarks/traffic.py``.
 
-    python -m repro_torch.benchmarks.traffic              # accounting
-    python -m repro_torch.benchmarks.traffic --mode replay --fast \
-        --device cpu          # the overload trace, host tier + SLO sched
+**Accounting** (``run_accounting``, ``--mode accounting``): paper Fig. 4
+access counts, single-image vs batch use cases, weights vs intermediate
+data, per network, extended with the transformer analogue (prefill
+weight-dominated, decode KV-data-dominated per LM arch). Host arithmetic,
+equal to the reference's. Results: ``results/torch_traffic.json``.
 
-Results: ``results/torch_traffic.json`` (accounting).
+**Serving harness** (``run_serve``, ``--mode serve``): replays the seeded
+bursty overload trace (``overload_trace_config``: 2-state MMPP arrivals, a
+deadlined interactive tenant over Zipf-weighted shared system prompts, a
+no-deadline batch tenant) through the SLO scheduler with the async host
+pager, predictor off and on, and raises, in the reference's words,
+unless
+
+  * the trace overloads: burst arrivals >= 1.5x the sustainable decode
+    throughput (``Trace.overload_ratio``);
+  * predictor-on goodput is strictly above predictor-off (the predictor's
+    TPOT-slowdown feature reads the wall clock, so on a busy machine this
+    gate follows the machine's load; ROADMAP queue C);
+  * both arms agree >= 0.9 with an ample-pool reference server
+    (``teacher_force=True``: each arm served once more fed the
+    reference's tokens, that agreement gated, the free-running one
+    reported);
+  * the exported Chrome trace shows an async ``pager.*`` span on the
+    pager track overlapping a ``decode_span``;
+  * the predictor-on run streamed its JSONL snapshots.
+
+Results: ``results/torch_traffic_serve.json``, the snapshot stream
+``results/torch_metrics_traffic.jsonl``, the Chrome trace
+``results/torch_trace_traffic.json`` and a point appended to
+``results/torch_BENCH_serve.json``.
+
+``--mode replay`` serves the trace once with the harness's settings
+(``replay_overload``). The multi-replica A/B (``--mode replicas``,
+``run_replicas``) is not ported yet and raises (ROADMAP queue A item 13);
+``--mode all`` runs the accounting and the serving harness.
+
+    python -m repro_torch.benchmarks.traffic --mode serve --fast \
+        --device cpu
+    python -m repro_torch.benchmarks.traffic --mode accounting
+
+Serving runs on the CUDA card by default and raises without one.
 """
 from __future__ import annotations
 
 import argparse
+import time
+from pathlib import Path
 
 import numpy as np
 
 from .. import resolve_device
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
-from ..core.traffic import TenantSpec, TraceConfig, generate_trace
-from ..launch.serve import BatchedServer, Request
+from ..core.traffic import (TenantSpec, TraceConfig, generate_trace,
+                            trace_fingerprint)
+from ..launch.serve import BatchedServer, Request, _not_ported
 from ..models.transformer import init_model
 from ..models.cnn import SPECS, cnn_traffic_model
 from ..quant.apply import transformer_traffic_model
+from ..runtime.telemetry import PAGER_TID
+from . import common
 from .common import cnn_nets, save_json
+from .lm_precision import teacher_force as _teacher_force
 
 
 def cnn_traffic(batch=50):
@@ -148,16 +184,262 @@ def replay_overload(*, arch="qwen2-72b", fast=False, device="cuda",
     return srv, reqs
 
 
-if __name__ == "__main__":
+def _token_agreement(reqs, ref_by_rid) -> float:
+    """Mean per-request agreement over each pair's common length (1 for
+    two empty outputs, 0 when only one is empty)."""
+    per_req = []
+    for r in reqs:
+        ref = ref_by_rid[r.rid].out
+        if not ref and not r.out:
+            per_req.append(1.0)
+            continue
+        n = min(len(r.out), len(ref))
+        if n == 0:
+            per_req.append(0.0)
+            continue
+        per_req.append(float(np.mean(
+            np.asarray(r.out[:n]) == np.asarray(ref[:n]))))
+    return float(np.mean(per_req))
+
+
+def _pager_overlaps_decode(events) -> bool:
+    """Does an async ``pager.*`` span on the pager track overlap a
+    ``decode_span`` in time (half-open intervals of Chrome X events)?"""
+    pager = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("tid") == PAGER_TID
+             and str(e.get("name", "")).startswith("pager.")
+             and (e.get("args") or {}).get("async")]
+    decode = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("ph") == "X" and e.get("name") == "decode_span"]
+    return any(p0 < d1 and d0 < p1
+               for p0, p1 in pager for d0, d1 in decode)
+
+
+def _slo_gauges(registry) -> dict:
+    snap = registry.snapshot()["gauges"]
+    return {k: v for k, v in sorted(snap.items())
+            if k.startswith("slo.")}
+
+
+def run_serve(cfg, model, *, arch="qwen2-72b", verbose=True, fast=False,
+              teacher_force=False, vocab=None):
+    """Replay the overload trace predictor off vs on and gate the control
+    loop's win (see the module docstring). ``cfg`` and ``model`` come
+    from the caller; ``vocab`` (default: the config's) bounds the trace's
+    token ids."""
+    vocab = vocab or cfg.vocab_size
+    batch, page_size, max_len = 3, 8, 64
+    # a pool well below the working set: cached prefixes demote to the
+    # host tier under pressure (the async pager's traffic)
+    num_pages = 1 + 13
+    trace = generate_trace(overload_trace_config(vocab, fast=fast))
+    overload = trace.overload_ratio(batch)
+    if overload < 1.5:
+        raise RuntimeError(
+            f"traffic trace is not an overload: burst arrivals are only "
+            f"{overload:.2f}x sustainable throughput (need >= 1.5) — "
+            f"{len(trace.requests)} requests, burst rate "
+            f"{trace.burst_rate_observed():.2f}/step")
+
+    common_kw = dict(batch_size=batch, max_len=max_len, page_size=page_size,
+                     num_pages=num_pages, kv_bits=8, prefix_cache="on",
+                     kv_offload="host", sched="slo", preempt=False,
+                     metrics="on", pager_async="on")
+    results = common.RESULTS
+    results.mkdir(parents=True, exist_ok=True)
+    snap_path = results / "torch_metrics_traffic.jsonl"
+    if snap_path.exists():
+        snap_path.unlink()   # an append-mode stream: one bench, one stream
+
+    def arm(predictor, forced=None, **extra):
+        srv = BatchedServer(cfg, model, predictor=predictor,
+                            device=model.device, **common_kw, **extra)
+        if forced is not None:
+            _teacher_force(srv, forced)
+        t0 = time.perf_counter()
+        reqs = srv.run(to_requests(trace))
+        return srv, reqs, time.perf_counter() - t0
+
+    srv_off, reqs_off, t_off = arm("off")
+    srv_on, reqs_on, t_on = arm("on", snapshot_out=str(snap_path),
+                                snapshot_every=5)
+    slo_off = srv_off.tracer.slo_summary()
+    slo_on = srv_on.tracer.slo_summary()
+
+    # the agreement reference: an ample pool, every request fits on
+    # arrival, so no admission policy stands in the way
+    ref = BatchedServer(cfg, model, batch_size=batch, max_len=max_len,
+                        page_size=page_size, kv_bits=8, device=model.device)
+    ref_reqs = ref.run(to_requests(trace))
+    ref_by_rid = {r.rid: r for r in ref_reqs}
+    agree_off = _token_agreement(reqs_off, ref_by_rid)
+    agree_on = _token_agreement(reqs_on, ref_by_rid)
+    free = None
+    if teacher_force:
+        free = (agree_off, agree_on)
+        forced = {r.rid: list(r.out) for r in ref_reqs}
+        agree_off = _token_agreement(arm("off", forced)[1], ref_by_rid)
+        agree_on = _token_agreement(arm("on", forced)[1], ref_by_rid)
+
+    trace_path = srv_on.tracer.export_chrome(
+        str(results / "torch_trace_traffic.json"))
+
+    if min(agree_off, agree_on) < 0.9:
+        raise RuntimeError(
+            f"traffic replay broke decode numerics: token agreement "
+            f"off={agree_off:.1%} on={agree_on:.1%} vs reference "
+            f"(need >= 0.9 — admission policy must not touch math)")
+    if slo_on["goodput"] is None or slo_off["goodput"] is None:
+        raise RuntimeError("traffic replay produced no goodput — empty "
+                           "trace or no finished requests")
+    if slo_on["goodput"] <= slo_off["goodput"]:
+        raise RuntimeError(
+            f"deadline-miss predictor failed to buy goodput on the "
+            f"overload trace: on={slo_on['goodput']:.3f} <= "
+            f"off={slo_off['goodput']:.3f} "
+            f"(misses {slo_on['deadline_misses']} vs "
+            f"{slo_off['deadline_misses']})")
+    if not _pager_overlaps_decode(srv_on.tracer.events):
+        raise RuntimeError(
+            "async pager produced no pager.* span overlapping a "
+            "decode_span — D2H transfers are not hiding under decode")
+    if not snap_path.exists():
+        raise RuntimeError("predictor-on run emitted no JSONL metrics "
+                           "snapshot stream")
+
+    gauges = _slo_gauges(srv_on.metrics)
+    res = {
+        "arch": arch, "fast": fast, "batch": batch,
+        "page_size": page_size, "num_pages": num_pages,
+        "trace": {
+            "requests": len(trace.requests),
+            "horizon": trace.config.horizon,
+            "offered_rate": trace.offered_rate,
+            "burst_rate": trace.burst_rate_observed(),
+            "burst_steps": len(trace.burst_steps),
+            "overload_ratio": overload,
+            "fingerprint": trace_fingerprint(trace),
+        },
+        "predictor_off": {
+            "goodput": slo_off["goodput"],
+            "deadline_misses": slo_off["deadline_misses"],
+            "ttft_p50_s": slo_off["ttft_p50_s"],
+            "ttft_p99_s": slo_off["ttft_p99_s"],
+            "tpot_p50_s": slo_off["tpot_p50_s"],
+            "tpot_p99_s": slo_off["tpot_p99_s"],
+            "wall_s": t_off,
+            "token_agreement": agree_off,
+        },
+        "predictor_on": {
+            "goodput": slo_on["goodput"],
+            "deadline_misses": slo_on["deadline_misses"],
+            "ttft_p50_s": slo_on["ttft_p50_s"],
+            "ttft_p99_s": slo_on["ttft_p99_s"],
+            "tpot_p50_s": slo_on["tpot_p50_s"],
+            "tpot_p99_s": slo_on["tpot_p99_s"],
+            "wall_s": t_on,
+            "token_agreement": agree_on,
+            "predictor_updates":
+                srv_on.metrics.counter("sched.predictor_updates").value,
+            "predictor_gated":
+                srv_on.metrics.counter("sched.predictor_gated").value,
+            "pager_demotions":
+                srv_on.metrics.counter("pager.demotions").value,
+            "pager_promotions":
+                srv_on.metrics.counter("pager.promotions").value,
+        },
+        "goodput_delta": slo_on["goodput"] - slo_off["goodput"],
+        "slo_gauges_on": gauges,
+        "trace_path": trace_path,
+        "metrics_jsonl": str(snap_path),
+    }
+    if free is not None:
+        res["predictor_off"]["token_agreement_free_running"] = free[0]
+        res["predictor_on"]["token_agreement_free_running"] = free[1]
+    if verbose:
+        def note(i):
+            return ("" if free is None else
+                    f" (teacher-forced; free-running {free[i]:.1%})")
+        print(f"[traffic] {len(trace.requests)} requests over "
+              f"{trace.config.horizon} steps "
+              f"({len(trace.burst_steps)} burst steps, "
+              f"{overload:.1f}x overload at batch={batch})")
+        print(f"  predictor off: goodput {slo_off['goodput']:.3f} "
+              f"({slo_off['deadline_misses']} misses), "
+              f"ttft p99 {1e3 * (slo_off['ttft_p99_s'] or 0):.1f} ms, "
+              f"agreement {agree_off:.1%}{note(0)}")
+        print(f"  predictor on:  goodput {slo_on['goodput']:.3f} "
+              f"({slo_on['deadline_misses']} misses, "
+              f"{res['predictor_on']['predictor_gated']} admissions "
+              f"gated, {res['predictor_on']['predictor_updates']} SGD "
+              f"updates), ttft p99 "
+              f"{1e3 * (slo_on['ttft_p99_s'] or 0):.1f} ms, "
+              f"agreement {agree_on:.1%}{note(1)}")
+        print(f"  goodput delta +{res['goodput_delta']:.3f}; async pager "
+              f"{res['predictor_on']['pager_demotions']} demotions / "
+              f"{res['predictor_on']['pager_promotions']} promotions "
+              f"overlapping decode -> {Path(trace_path).name}")
+        print("  windowed gauges: "
+              + ", ".join(f"{k.split('.', 1)[1]}={v:.3g}"
+                          for k, v in gauges.items()))
+    save_json("traffic_serve.json", res)
+    point = {"when": time.strftime("%Y-%m-%d %H:%M:%S"), "arch": arch,
+             "fast": fast, "summary": {"traffic": {
+                 "goodput": slo_on["goodput"],
+                 "goodput_off": slo_off["goodput"],
+                 "goodput_delta": res["goodput_delta"],
+                 "ttft_p99_s": slo_on["ttft_p99_s"],
+                 "tpot_p50_s": slo_on["tpot_p50_s"],
+                 "token_agreement": agree_on,
+                 "overload_ratio": overload}}}
+    path = common.append_trajectory(point)
+    if verbose:
+        print(f"  trajectory point appended to {path.name}")
+    return res
+
+
+def run_replicas(*args, **kwargs):
+    """The multi-replica A/B needs the replica frontend, which is not
+    ported yet."""
+    raise _not_ported("the multi-replica frontend (--mode replicas)", "13")
+
+
+def run(cfg=None, model=None, *, verbose=True, fast=False, mode="all"):
+    """``accounting``, ``serve`` (needs ``cfg`` and ``model``) or ``all``
+    (both); ``replicas`` raises."""
+    if mode not in ("all", "serve", "accounting", "replicas"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "replicas":
+        run_replicas()
+    res = {}
+    if mode in ("all", "accounting"):
+        res["accounting"] = run_accounting(verbose=verbose)
+    if mode in ("all", "serve"):
+        res["serve"] = run_serve(cfg, model, verbose=verbose, fast=fast)
+    return res
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["accounting", "replay"],
-                    default="accounting")
+    ap.add_argument("--mode",
+                    choices=["all", "serve", "accounting", "replicas",
+                             "replay"],
+                    default="all")
     ap.add_argument("--fast", action="store_true",
-                    help="replay: the short trace")
+                    help="the short trace")
     ap.add_argument("--device", default="cuda",
-                    help="replay: cuda (default) or cpu")
-    args = ap.parse_args()
+                    help="serve / replay: cuda (the default) or cpu")
+    args = ap.parse_args(argv)
     if args.mode == "replay":
-        replay_overload(fast=args.fast, device=args.device)
-    else:
-        run_accounting()
+        return replay_overload(fast=args.fast, device=args.device)
+    if args.mode == "replicas":
+        run_replicas()
+    cfg = model = None
+    if args.mode in ("all", "serve"):
+        cfg = get_smoke_config("qwen2-72b")
+        model = init_model(cfg, seed=0, device=resolve_device(args.device))
+    return run(cfg, model, fast=args.fast, mode=args.mode)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,9 @@ JSONL metrics stream.
 * :class:`MetricsRegistry` — named counters, gauges (values or zero-arg
   callbacks read live) and all-samples histograms with exact nearest-rank
   percentiles, one injectable registry per server; :class:`metric_attr`
-  maps legacy counter attributes onto it.
+  maps legacy counter attributes onto it. ``reset`` (counters zeroed in
+  place, histograms cleared, gauges kept) and ``checkpoint`` / ``since``
+  mark a bench's warm-up boundary.
 * :class:`Tracer` (``--metrics on``) — Chrome trace-event spans and
   instants on ``time.perf_counter``, with per-request lifecycle records
   (arrive -> admit / defer / reject -> first token -> finish) reduced to
@@ -75,6 +77,9 @@ class Counter:
     def value(self, v: float) -> None:
         self._v = float(v)
 
+    def reset(self) -> None:
+        self._v = 0.0
+
 
 class Gauge:
     """Current-state value read from a zero-arg callback (0 until one is
@@ -121,6 +126,9 @@ class Histogram:
         return {"count": n, "mean": sum(self.values) / n,
                 "min": min(self.values), "max": max(self.values),
                 "p50": self.percentile(50), "p99": self.percentile(99)}
+
+    def reset(self) -> None:
+        self.values = []
 
 
 class MetricsRegistry:
@@ -174,6 +182,25 @@ class MetricsRegistry:
             "histograms": {n: h.summary()
                            for n, h in sorted(self._histograms.items())},
         }
+
+    def checkpoint(self) -> dict:
+        """The counters' current values (a warm-up boundary); :meth:`since`
+        reads the deltas after it without zeroing anything."""
+        return {n: c.value for n, c in self._counters.items()}
+
+    def since(self, checkpoint: dict) -> dict:
+        """Counter deltas accumulated after ``checkpoint``."""
+        return {n: _as_number(c.value - checkpoint.get(n, 0))
+                for n, c in sorted(self._counters.items())}
+
+    def reset(self) -> None:
+        """Zero every counter in place (held ``Counter`` objects and
+        ``metric_attr`` attributes keep working) and clear every histogram.
+        Gauges are state, not accumulation, and are left alone."""
+        for c in self._counters.values():
+            c.reset()
+        for h in self._histograms.values():
+            h.reset()
 
 
 class metric_attr:

@@ -1241,3 +1241,80 @@ def test_cuda_frontend_preempted_states_resume_on_the_card(cuda):
     assert all(parked)
     want = BatchedServer(cfg, model, **kw).run(trace())
     assert [r.out for r in reqs] == [r.out for r in want]
+
+
+# ---------------------------------------------------------------------------
+# the serving benches on the card (``-k bench``)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def bench_models():
+    """qwen2-72b's smoke config, one model on the card and the same
+    weights on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config("qwen2-72b")
+    gpu = init_model(cfg, seed=0, device=torch.device("cuda"))
+    return cfg, gpu, init_model(cfg, seed=0, device="cpu")
+
+
+def _bench(workload, cfg, model):
+    from repro_torch.benchmarks import paged_serve, traffic
+    if workload == "traffic":
+        return traffic.run_serve(cfg, model, fast=True, teacher_force=True,
+                                 verbose=False)
+    return paged_serve.run(cfg, model, workload=workload, fast=True,
+                           teacher_force=True, verbose=False)
+
+
+@pytest.mark.parametrize("workload", ["mixed", "prefix", "overcommit",
+                                      "adapt", "ragged", "traffic"])
+def test_cuda_bench_workload_matches_cpu(cuda, bench_models, workload,
+                                         tmp_path, monkeypatch):
+    """Each serving bench at ``--fast`` on the card, every token gate
+    teacher-forced: it passes its gates and its host counters equal the
+    same bench's on the CPU (the predictor-on arm of the traffic harness,
+    which reads the wall clock, left out). The mixed workload's kernel
+    row launches B1 once per layer per program, and each of those calls
+    (decode and bucketed prefill, captured as the row made them) equals
+    the plain version on its own inputs."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks.paged_serve import host_counters
+    from repro_torch.models import attention
+    monkeypatch.setattr(common, "RESULTS", tmp_path)
+    cfg, gpu, cpu = bench_models
+    seen = []
+
+    def capturing(real, entry):
+        def call(q, *a, bits):
+            seen.append((entry, [x.clone() for x in (q,) + a], bits))
+            return real(q, *a, bits=bits)
+        return call
+    for entry in ("paged_kv_attention_decode", "paged_kv_attention_chunk"):
+        monkeypatch.setattr(attention, entry,
+                            capturing(getattr(attention, entry), entry))
+    before = pka.paged_kv_attention_chunk.launches
+    got = _bench(workload, cfg, gpu)
+    launched = pka.paged_kv_attention_chunk.launches - before
+    monkeypatch.undo()
+    monkeypatch.setattr(common, "RESULTS", tmp_path)
+    want = _bench(workload, cfg, cpu)
+    assert (host_counters(workload, got, wall_clock=False)
+            == host_counters(workload, want, wall_clock=False))
+    if workload != "mixed":
+        assert launched == 0 and not seen
+        return
+    assert got["rows"][-1]["attn_impl"] == "kernel"
+    assert launched == len(seen) > 0 and launched % cfg.num_layers == 0
+    assert {e for e, _, _ in seen} == {"paged_kv_attention_decode",
+                                       "paged_kv_attention_chunk"}
+    for entry, inputs, bits in seen:
+        out = getattr(pka, entry)(*inputs, bits=bits)
+        x = [t.cpu() for t in inputs]
+        if entry == "paged_kv_attention_decode":
+            plain = pka.paged_kv_attention_chunk_plain(
+                x[0][:, None], *x[1:6], x[6] - 1, x[6], bits=bits)[:, 0]
+        else:
+            plain = pka.paged_kv_attention_chunk_plain(*x, bits=bits)
+        np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(), **TOL)

@@ -85,7 +85,12 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.core.page_store",
                   "repro_torch.launch.scheduler",
                   "repro_torch.models.moe", "repro_torch.models.attention",
-                  "repro_torch.models.ssm"]
+                  "repro_torch.models.ssm",
+                  "repro_torch.benchmarks.lm_precision",
+                  "repro_torch.benchmarks.paged_serve",
+                  "repro_torch.examples.quickstart",
+                  "repro_torch.examples.serve_policy_profile",
+                  "repro_torch.examples.serve_quantized_kv"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():
