@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase ssm    # the build and [ssm] alone
     python3 chip_smoke.py --phase frontend   # the build and [frontend]
     python3 chip_smoke.py --phase bench  # the build and [bench] alone
+    python3 chip_smoke.py --phase train  # the build and [train] alone
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -128,7 +129,33 @@ Phases, each of which raises on failure (no phase is caught):
    every layer), and every workload's host counters equal to the same
    benches' on the smoke config on the CPU (a child process; the
    predictor-on arm, which reads the wall clock, left out); the phase
-   time against its 60 s budget;
+   time against its 60 s budget; then, that model freed, ``[train]``:
+   (a) deepseek-7b-smoke trained 5 steps on the card against the same
+   steps on the CPU (a child process; loss and grad norm within rtol
+   1e-5) and AdamW with int8 moments fed the same gradients on both
+   (parameters within 1e-6, moment grids equal but for counted one-step
+   flips); (b) deepseek-7b at its published widths (d_model 4096, 32
+   heads over 32 KV heads, d_ff 11008, vocab 102400, bf16 compute over
+   float32 masters) cut to 8 of 30 layers, trained 20 steps of 4 x 512
+   tokens from the port's ``lm_batch`` at lr 3e-4 with a 5-step cosine
+   warm-up, in two arms: fp32 moments (a ``torch.profiler`` window over
+   two steps) and weights Q2.8 / data Q4.8 / KV Q2.6 with int8 moments
+   and the int8 gradient wire: losses at steps 1, 10 and 20 (finite, the
+   last five below step 1's), step ms by CUDA events, tok/s, AdamW's
+   share of a step, peak memory (under 80 GB) and optimizer-state bytes;
+   in the quantized arm every block matrix's step-1 gradient nonzero
+   (C5); (c) ``TrainSupervisor`` with a checkpoint every 3 steps and a
+   ``FaultInjection`` at step 4 against an uninterrupted run (final loss
+   within rtol 1e-4; parameters' max difference and bitwise equality
+   printed), a bf16 checkpoint of the card state bit for bit (C6); (d)
+   the fp32 arm's weights through ``params_to_numpy`` and
+   ``params_from_numpy`` into a bf16 serving model, served by
+   ``BatchedServer`` (int8 pages of 16, batch 4, 8 requests of 64-256
+   prompt tokens from ``lm_batch``, 16 new) on the gather route, the
+   kernel route fed its tokens (gated) and the kernel route free: B1 at
+   G = 32 / 32 = 1 held against its plain version on one captured decode
+   step and one 32-query prefill forward, every layer; the phase time
+   against its 60 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -3508,6 +3535,609 @@ def bench_phase(seed: int):
     return launches, [record]
 
 
+# ---------------------------------------------------------------------------
+# [train]: deepseek-7b trained at published widths, then served through B1
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "deepseek-7b"
+# deepseek-7b's 30 layers cut to 8: at 30 the float32 masters, gradients
+# and fp32 moments alone take ~110 GB
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 20, 5, 3e-4
+TRAIN_TIMED_FROM = 2                # step index of the first timed step
+TRAIN_PROFILED = (3, 5)             # arm 1's profiled steps [from, to)
+TRAIN_INSTRUMENTED = 3              # lr-0 steps after an arm, AdamW timed
+TRAIN_SMOKE_STEPS = 5
+TRAIN_PEAK_GIB = 80 * 1e9 / 2 ** 30  # the card's 80 GB
+TRAIN_SERVE = dict(batch_size=4, max_len=288, page_size=PS)
+TRAIN_TRAFFIC = dict(n=8, lo=64, hi=256, max_new=16)
+TRAIN_BUDGET_S = 60
+
+
+def train_data(cfg, *, batch: int, seq: int, seed: int):
+    from repro_torch.data.lm import LMDataConfig
+    return LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                        batch_size=batch, seed=seed + 1)
+
+
+def shared_adamw(model, seed: int, device) -> dict:
+    """Two int8-moment AdamW updates of ``model``'s parameters (weights
+    made on the CPU, so both devices start from the same numbers) by
+    gradients drawn with numpy from ``seed``, on ``device``: the updated
+    parameters and moment grids as numpy arrays."""
+    import torch
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update)
+    rng = np.random.default_rng(seed + 7)
+    params = {n: p.detach().clone().to(device)
+              for n, p in model.named_parameters()}
+    cfg = AdamWConfig(quantize_moments=True)
+    st = adamw_init(params, cfg)
+    for _ in range(2):
+        grads = {n: torch.from_numpy(rng.normal(
+            0, 0.02, p.shape).astype(np.float32)).to(device)
+            for n, p in params.items()}
+        adamw_update(params, grads, st, 1e-3, cfg)
+    return {n: (params[n].cpu().numpy(), st["m"][n]["q"].cpu().numpy(),
+                st["v"][n]["q"].cpu().numpy()) for n in params}
+
+
+def smoke_train(seed: int, device: str) -> dict:
+    """(a) on ``device``: ``TRAIN_SMOKE_STEPS`` ``make_train_step`` steps
+    of deepseek-7b-smoke (float32) from the seed's weights made on the
+    CPU, on the same ``lm_batch`` batches; each step's loss and grad norm;
+    then :func:`shared_adamw` on the initial weights."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config(TRAIN_ARCH)
+    dcfg = train_data(cfg, batch=4, seq=64, seed=seed)
+    model = init_model(cfg, seed=seed, device="cpu", trainable=True)
+    adamw = shared_adamw(model, seed, device)
+    model = model.to(device)
+    hp = TrainHParams(lr=1e-3)
+    state = init_train_state(cfg, hp, model=model)
+    step = make_train_step(cfg, hp)
+    out = []
+    for i in range(TRAIN_SMOKE_STEPS):
+        b = {k: v.to(device) for k, v in lm_batch(dcfg, i).items()}
+        state, m = step(state, b)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return {"steps": out, "adamw": adamw}
+
+
+def cpu_smoke_train(seed: int, src: str) -> dict:
+    """:func:`smoke_train` on the CPU, in a child process, one thread."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    return smoke_train(seed, "cpu")
+
+
+def train_card_vs_cpu(seed: int, cpu_future) -> dict:
+    """(a): the smoke config trained on the card (TF32 off) against the
+    CPU: per step loss and grad norm within rtol 1e-5; AdamW fed the same
+    gradients: parameters within 1e-6, int8 moment grids equal but for
+    one-step flips at rounding ties (counted, at most 0.1%)."""
+    card = smoke_train(seed, "cuda")
+    cpu = cpu_future.result()
+    worst = 0.0
+    for i, ((lc, gc), (lh, gh)) in enumerate(zip(card["steps"],
+                                                cpu["steps"])):
+        for a, b, what in ((lc, lh, "loss"), (gc, gh, "grad_norm")):
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"[train] (a) step {i + 1} {what}: "
+                                     f"card {a!r} CPU {b!r}")
+    perr, flips, n = 0.0, 0, 0
+    for name, (p, mq, vq) in card["adamw"].items():
+        p0, mq0, vq0 = cpu["adamw"][name]
+        perr = max(perr, float(np.abs(p - p0).max()))
+        for a, b in ((mq, mq0), (vq, vq0)):
+            d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            if d.max() > 1:
+                raise AssertionError(f"[train] (a) {name}: int8 moments "
+                                     f"differ by {d.max()} steps")
+            flips += int((d != 0).sum())
+            n += d.size
+    if perr > 1e-6 or flips > 1e-3 * n:
+        raise AssertionError(f"[train] (a) AdamW on shared gradients: "
+                             f"params {perr:.3e}, {flips} moment flips")
+    for i, ((lc, gc), (lh, gh)) in enumerate(zip(card["steps"],
+                                                cpu["steps"])):
+        print(f"[train] (a) {TRAIN_ARCH}-smoke step {i + 1}: loss card "
+              f"{lc:.7f} CPU {lh:.7f}, grad norm card {gc:.7f} CPU "
+              f"{gh:.7f}", flush=True)
+    print(f"[train] (a) card vs CPU: largest relative difference {worst:.2e}"
+          f" (limit 1e-5); AdamW with int8 moments on shared gradients, 2 "
+          f"steps: params max abs diff {perr:.2e} (limit 1e-6), {flips} of "
+          f"{n} moment grid values one step apart", flush=True)
+    return {"steps_card": card["steps"], "steps_cpu": cpu["steps"],
+            "worst_rel": worst, "adamw_param_err": perr,
+            "adamw_moment_flips": flips, "adamw_moment_values": n}
+
+
+class SyncTimer(StepTimer):
+    """:class:`StepTimer` that waits for the device before each call, so
+    each event pair brackets the call's own device work: an eager train
+    step lets the host run ahead, and an unsynchronized pair would also
+    time the queue of earlier work."""
+
+    def __call__(self, *a, **kw):
+        import torch
+        torch.cuda.synchronize()
+        return super().__call__(*a, **kw)
+
+
+def card_clocks() -> str:
+    """The card's SM clock against its maximum, power draw and
+    temperature, as ``nvidia-smi`` reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def state_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
+              profile: bool) -> dict:
+    """One arm of (b): ``TRAIN_STEPS`` steps from the seed's random
+    trainable model at lr ``TRAIN_LR``, cosine warm-up ``TRAIN_WARMUP``,
+    on the port's pipeline. Each step is timed alone: one device sync,
+    then CUDA events around the step (:class:`SyncTimer`); each batch's
+    ``next(pipe)`` (built on the host, in this thread) by the host clock.
+    With ``profile``, a ``torch.profiler`` window over ``TRAIN_PROFILED``.
+    Then ``TRAIN_INSTRUMENTED`` more steps with AdamW (and the wire)
+    timed by events after a device sync each, which splits the step but
+    adds its syncs: those steps' ms are printed apart, and the losses,
+    step ms and profile come from the uninstrumented steps. They run at
+    lr 0, the same work with the weights left as the ``TRAIN_STEPS``
+    made them (the moments move). With the int8 wire, step 1's raw
+    gradient of every block matrix is checked nonzero (C5). Returns its
+    record and the trained model."""
+    import torch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import CompressionConfig
+    from repro_torch.optim.schedule import cosine_warmup
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hp = steps_mod.TrainHParams(
+        lr=TRAIN_LR, adamw=AdamWConfig(quantize_moments=int8),
+        grad_compress=CompressionConfig() if int8 else None)
+    model = init_model(cfg, seed=seed, device="cuda", trainable=True)
+    state = steps_mod.init_train_state(cfg, hp, model=model)
+    init_s = time.perf_counter() - t0
+    opt_bytes = state_bytes(state["opt"]["m"]) + state_bytes(
+        state["opt"]["v"])
+    ef_bytes = state_bytes(state.get("ef_residual", {}))
+    dcfg = train_data(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
+    pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device="cuda")
+    lr_fn = cosine_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    real_opt, real_wire = steps_mod.adamw_update, steps_mod.compress_gradients
+    opt, wire = SyncTimer(real_opt), SyncTimer(real_wire)
+    timed = SyncTimer(lambda state, batch, lr: step(state, batch, lr=lr))
+    inst = SyncTimer(lambda state, batch, lr: step(state, batch, lr=lr))
+    seen = {}
+
+    def first_grads(grads, res, ccfg):
+        if not seen:
+            seen.update({n: bool(g.any()) for n, g in grads.items()})
+        return real_wire(grads, res, ccfg)
+
+    steps_mod.compress_gradients = first_grads
+    step = steps_mod.make_train_step(cfg, hp, quant=quant)
+    losses, data_ms, prof = [], [], None
+    try:
+        for i in range(TRAIN_STEPS):
+            td = time.perf_counter()
+            batch = next(pipe)
+            data_ms.append((time.perf_counter() - td) * 1e3)
+            if profile and i == TRAIN_PROFILED[0]:
+                from torch.profiler import ProfilerActivity, profile as prf
+                torch.cuda.synchronize()
+                prof = prf(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                tw = time.perf_counter()
+            state, m = timed(state, batch, lr_fn(i))
+            losses.append(m["loss"])
+            if prof is not None and i == TRAIN_PROFILED[1] - 1:
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - tw) * 1e6
+                prof.__exit__(None, None, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - init_s
+        steps_mod.adamw_update, steps_mod.compress_gradients = opt, wire
+        for _ in range(TRAIN_INSTRUMENTED):     # lr 0: the weights stay
+            state, _ = inst(state, next(pipe), 0.0)
+        torch.cuda.synchronize()
+    finally:
+        steps_mod.adamw_update = real_opt
+        steps_mod.compress_gradients = real_wire
+    clocks = card_clocks()
+    losses = [float(x) for x in losses]
+
+    def median_ms(t, start=0):
+        """The median of a timer's calls' ms from call ``start``."""
+        ms = [a.elapsed_time(b) for a, b, _ in t.pairs][start:]
+        return float(np.median(ms)) if ms else None
+
+    step_ms = [a.elapsed_time(b) for a, b, _ in timed.pairs]
+    med = median_ms(timed, TRAIN_TIMED_FROM)
+    opt_ms, wire_ms, inst_ms = median_ms(opt), median_ms(wire), \
+        median_ms(inst)
+    data_med = float(np.median(data_ms[TRAIN_TIMED_FROM:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"label": label, "losses": losses, "step_ms": step_ms,
+           "step_ms_median": med, "tok_per_s": tokens / med * 1e3,
+           "data_ms": data_ms, "data_ms_median": data_med,
+           "instrumented_step_ms_median": inst_ms,
+           "optimizer_ms_median": opt_ms, "wire_ms_median": wire_ms,
+           "optimizer_share_of_step": opt_ms / med,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "optimizer_state_bytes": opt_bytes,
+           "ef_residual_bytes": ef_bytes, "init_s": init_s, "wall_s": wall,
+           "clocks": clocks}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train] ({label}) non-finite loss: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"[train] ({label}) the last five losses' mean "
+                             f"{np.mean(losses[-5:])} is not below step 1's "
+                             f"{losses[0]}")
+    if rec["peak_gib"] >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"[train] ({label}) peak {rec['peak_gib']:.2f}"
+                             f" GiB: over the card's 80 GB")
+    print(f"[train] ({label}) loss step 1 {losses[0]:.4f}, step 10 "
+          f"{losses[9]:.4f}, step 20 {losses[19]:.4f} (mean of the last "
+          f"five {np.mean(losses[-5:]):.4f}); step {med:.1f} ms (median "
+          f"from step {TRAIN_TIMED_FROM + 1}, CUDA events), "
+          f"{rec['tok_per_s']:,.0f} tok/s; next(pipe) {data_med:.2f} ms "
+          f"(median, host clock); {TRAIN_INSTRUMENTED} instrumented steps "
+          f"{inst_ms:.1f} ms (median): AdamW {opt_ms:.1f} ms = "
+          f"{rec['optimizer_share_of_step']:.3f} of the uninstrumented step"
+          + (f", int8 wire {wire_ms:.1f} ms" if wire_ms else "")
+          + f"; peak {rec['peak_gib']:.2f} GiB; optimizer state "
+          f"{opt_bytes / 1e9:.2f} GB"
+          + (f" + error-feedback residual {ef_bytes / 1e9:.2f} GB"
+             if ef_bytes else "")
+          + f"; init {init_s:.1f} s, {TRAIN_STEPS} steps {wall:.1f} s; "
+          f"SM clock, max, power, temperature after the steps: {clocks}",
+          flush=True)
+    if int8:
+        blocks = [n for n, p in model.named_parameters()
+                  if n.startswith("layers.") and p.dim() >= 2]
+        dead = [n for n in blocks if not seen.get(n)]
+        if dead:
+            raise AssertionError(f"[train] ({label}) block matrices with a "
+                                 f"zero gradient at step 1 (C5): {dead}")
+        rec["block_matrices_with_gradient"] = len(blocks)
+        print(f"[train] ({label}) step 1: all {len(blocks)} block matrices "
+              f"have a nonzero gradient (the straight-through fake-quant, "
+              f"C5)", flush=True)
+    if prof is not None:
+        evs, busy, by_name = device_activity(prof)
+        n = TRAIN_PROFILED[1] - TRAIN_PROFILED[0]
+        if not evs:
+            print(f"[train] ({label}) torch.profiler recorded no device "
+                  f"activity", flush=True)
+        else:
+            kernel_us = sum(t for _, t in by_name.values())
+            rec["profile"] = {
+                "steps": n, "window_ms_a_step": window_us / n / 1e3,
+                "device_busy_ms_a_step": busy / n / 1e3,
+                "device_idle_share": 1.0 - busy / window_us,
+                "kernels_a_step": len(evs) / n,
+                "top": sorted(((t / n, c // n, k[:70]) for k, (c, t)
+                               in by_name.items()), reverse=True)[:5]}
+            p = rec["profile"]
+            print(f"[train] ({label}) profiled steps {TRAIN_PROFILED[0] + 1}"
+                  f"-{TRAIN_PROFILED[1]}: {p['window_ms_a_step']:.1f} ms a "
+                  f"step (host clock), device busy "
+                  f"{p['device_busy_ms_a_step']:.1f} ms, idle share "
+                  f"{p['device_idle_share']:.3f}; {p['kernels_a_step']:.0f} "
+                  f"device kernels a step ({kernel_us / n / 1e3:.1f} ms of "
+                  f"kernel time)", flush=True)
+            for t, c, k in p["top"]:
+                print(f"[train]   {t / 1e3:8.3f} ms in {c:5d} x {k}",
+                      flush=True)
+    return rec, model
+
+
+def train_resume_check(seed: int) -> dict:
+    """(c) on the card: the smoke config trained 6 steps under
+    ``TrainSupervisor`` with a checkpoint every 3 steps and a
+    ``FaultInjection`` at step 4 (restored from step 3, the pipeline
+    rewound to it), against 6 uninterrupted steps: final loss within rtol
+    1e-4; the parameters' max difference and whether they are bitwise
+    equal. Then a bf16 copy of the card state's parameters round-trips a
+    checkpoint bit for bit (C6)."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.ckpt import (CheckpointManager,
+                                             restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          load_train_state, make_train_step,
+                                          train_state_tree)
+    from repro_torch.models.transformer import init_model
+    from repro_torch.runtime.fault import FaultInjection, TrainSupervisor
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    dcfg = train_data(cfg, batch=4, seq=64, seed=seed)
+    hp = TrainHParams(lr=1e-3)
+    step_fn = make_train_step(cfg, hp)
+
+    def fresh():
+        model = init_model(cfg, seed=seed, device="cuda", trainable=True)
+        return init_train_state(cfg, hp, model=model)
+
+    state = fresh()
+    pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device="cuda")
+    for _ in range(6):
+        state, m = step_fn(state, next(pipe))
+    straight = float(m["loss"])
+    ref = {n: p.detach().clone() for n, p in
+           state["params"].named_parameters()}
+
+    with tempfile.TemporaryDirectory() as d:
+        state = fresh()
+        pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device="cuda")
+        ckpt = CheckpointManager(d, interval=3)
+        template = train_state_tree(state, cfg, device="meta")
+        fail = {4}
+
+        def one_step(st, step):
+            if step in fail:
+                fail.discard(step)
+                raise FaultInjection(f"node lost at step {step}")
+            return step_fn(st, next(pipe))
+
+        def save_hook(step, st):
+            ckpt.maybe_save(step, train_state_tree(st, cfg),
+                            extra={"data": {"step": step}})
+
+        def restore_fn():
+            step, tree, extra = ckpt.restore_latest(template)
+            load_train_state(state, tree, cfg)
+            pipe.restore(extra["data"])
+            return step, state
+
+        sup = TrainSupervisor(step_fn=one_step, save_hook=save_hook,
+                              restore_fn=restore_fn)
+        state, metrics = sup.run(state, 0, 6)
+        ckpt.wait()
+        resumed = float(metrics[-1]["loss"])
+        diff = max(float((p.detach() - ref[n]).abs().max())
+                   for n, p in state["params"].named_parameters())
+        bitwise = all(torch.equal(p.detach(), ref[n])
+                      for n, p in state["params"].named_parameters())
+        if sup.restarts != 1 or abs(resumed - straight) > 1e-4 * abs(
+                straight):
+            raise AssertionError(f"[train] (c) resumed loss {resumed!r} vs "
+                                 f"uninterrupted {straight!r}, "
+                                 f"{sup.restarts} restarts")
+        bf = {"params": {n: p.detach().to(torch.bfloat16) for n, p in
+                         state["params"].named_parameters()}}
+        save_checkpoint(str(Path(d) / "bf16"), 6, bf)
+        _, back, _ = restore_checkpoint(str(Path(d) / "bf16"), bf,
+                                        device="cuda")
+        same = all(torch.equal(back["params"][n].view(torch.int16),
+                               t.view(torch.int16))
+                   for n, t in bf["params"].items())
+        if not same:
+            raise AssertionError("[train] (c) a bf16 checkpoint of the card "
+                                 "state did not round-trip bit for bit")
+    print(f"[train] (c) {TRAIN_ARCH}-smoke, 6 steps under TrainSupervisor, "
+          f"checkpoint every 3, FaultInjection at step 4 (1 restart): final "
+          f"loss {resumed:.7f} vs uninterrupted {straight:.7f}; parameters "
+          f"max abs diff {diff:.3e}, "
+          f"{'bitwise equal' if bitwise else 'not bitwise equal'}; a bf16 "
+          f"checkpoint of the card state round-trips bit for bit (C6)",
+          flush=True)
+    return {"resumed_loss": resumed, "straight_loss": straight,
+            "param_max_diff": diff, "bitwise": bitwise, "bf16_roundtrip":
+            same}
+
+
+def train_trace(cfg, seed: int):
+    """8 requests of 64-256 prompt tokens from the port's ``lm_batch``
+    (the corpus the model trained on), 16 new tokens each."""
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.serve import Request
+    t = TRAIN_TRAFFIC
+    dcfg = train_data(cfg, batch=t["n"], seq=t["hi"], seed=seed)
+    toks = lm_batch(dcfg, 10 ** 6)["tokens"].numpy()
+    lens = np.random.default_rng(seed + 3).integers(t["lo"], t["hi"] + 1,
+                                                    t["n"])
+    return [Request(i, toks[i, :int(L)].copy(), t["max_new"])
+            for i, L in enumerate(lens)]
+
+
+def train_serve_check(cfg, tree, seed: int):
+    """(d): the trained weights (``params_to_numpy`` of arm 1, on the
+    host) into a bf16 serving model (``params_from_numpy``), served by
+    ``BatchedServer`` at page size 16, int8 KV, batch 4: the gather route,
+    the kernel route fed its tokens (gated, B1 held against plain on one
+    captured decode step and one 32-query prefill forward, every layer, at
+    G = 1), and the kernel route free-running (its agreement printed).
+    Returns (B1 launches, record)."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import params_from_numpy
+
+    t0 = time.perf_counter()
+    model = params_from_numpy(tree, cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    L, G = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+    trace = lambda c, sd: train_trace(c, sd)      # noqa: E731
+    runs, caps, launches = {}, {}, 0
+    for label, impl, forced_by in (("gather", "gather", None),
+                                   ("kernel", "kernel", "gather"),
+                                   ("kernel-free", "kernel", None)):
+        cap = chunk_cap = None
+        if label == "kernel":
+            cap = B1Capture(attention.paged_kv_attention_decode, at=6 * L,
+                            layers=L)
+            chunk_cap = B1ChunkCapture(attention.paged_kv_attention_chunk,
+                                       layers=L, S=32)
+            attention.paged_kv_attention_decode = cap
+            attention.paged_kv_attention_chunk = chunk_cap
+        forced = ({r.rid: r.out for r in runs[forced_by][0]}
+                  if forced_by else None)
+        paged_kv_attention_chunk.launches = 0
+        try:
+            reqs, st, _ = serve_once(cfg, model, kv_bits=8, attn_impl=impl,
+                                     seed=seed, forced=forced, trace=trace,
+                                     **TRAIN_SERVE)
+        finally:
+            if cap is not None:
+                attention.paged_kv_attention_decode = cap.fn
+                attention.paged_kv_attention_chunk = chunk_cap.fn
+        n = paged_kv_attention_chunk.launches
+        if impl == "kernel" and n != L * st["program_launches"]:
+            raise AssertionError(f"[train] (d) {label}: B1 launches {n} != "
+                                 f"{L} layers x {st['program_launches']} "
+                                 f"programs")
+        if impl == "gather" and n:
+            raise AssertionError(f"[train] (d) the gather route launched "
+                                 f"B1 {n} times")
+        launches += n
+        st["b1_launches"] = n
+        runs[label] = (reqs, st)
+        print(f"[train] (d) {label}: {st['tok_per_s']:.1f} tok/s, decode "
+              f"step {st['decode_step_ms']:.2f} ms x {st['decode_steps']}, "
+              f"prefill forward {st['prefill_forward_ms']:.2f} ms x "
+              f"{st['prefill_forwards']}, B1 x {n}, peak "
+              f"{st['max_memory_allocated_gib']:.2f} GiB", flush=True)
+        if cap is not None:
+            what = f"(d) trained {TRAIN_ARCH} kv_bits=8 G={G}"
+            caps = {"decode": check_captured_b1(cap.saved, what,
+                                                tag="[train]"),
+                    "prefill": check_captured_b1_chunk(chunk_cap.saved,
+                                                       what, tag="[train]")}
+    gate = accuracy_gate([r.out for r in runs["gather"][0]],
+                         [r.out for r in runs["kernel"][0]])
+    free = decode_agreement([r.out for r in runs["gather"][0]],
+                            [r.out for r in runs["kernel-free"][0]])
+    print(f"[train] (d) kernel vs gather route, teacher-forced: agreement "
+          f"{gate['agreement']:.4f} ({gate['below_floor']} below 0.5) -> "
+          f"{'pass' if gate['passed'] else 'FAIL'}; free-running "
+          f"{free['overall']:.4f}; weights loaded in {load_s:.1f} s",
+          flush=True)
+    if not gate["passed"]:
+        raise AssertionError(f"[train] (d) fails the gate: {gate}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"runs": {k: v[1] for k, v in runs.items()},
+                      "gate": gate["agreement"],
+                      "free_running": free["overall"], "b1_vs_plain": caps,
+                      "load_s": load_s}
+
+
+def train_phase(seed: int):
+    """``[train]``: (a) deepseek-7b-smoke trained on the card against the
+    CPU (a child process) and AdamW on shared gradients; (b) deepseek-7b
+    at published widths cut to ``TRAIN_LAYERS`` layers, two arms of
+    ``TRAIN_STEPS`` steps at 4 x 512 tokens: fp32 moments (profiled), and
+    the example's W10 / D12 / KV8 with int8 moments and the int8 gradient
+    wire; (c) supervisor resume and a bf16 checkpoint on the card; (d)
+    arm 1's weights served through B1 at G = 1. Float32 matmuls without
+    TF32 (set by ``main``). Returns (B1 launches, records)."""
+    import concurrent.futures
+    import dataclasses as dc
+    import gc
+    import multiprocessing
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import build_quant
+    from repro_torch.models.transformer import params_to_numpy
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    print(f"[train] card memory held before the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    part_s = {}
+    try:
+        cpu_future = rehearsal.submit(cpu_smoke_train, seed, src)
+        cfg = dc.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+        print(f"[train] {TRAIN_ARCH} at published widths: d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype} compute over {cfg.param_dtype} masters; cut: "
+              f"depth 30 -> {cfg.num_layers} layers "
+              f"({cfg.param_count():,} parameters); batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens from lm_batch", flush=True)
+        t0 = time.perf_counter()
+        arm1, model = train_arm(cfg, "b1 fp32 moments", seed, int8=False,
+                                profile=True)
+        tree = params_to_numpy(model, cfg)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        quant = build_quant(cfg, weight_bits=10, data_bits=12, kv_bits=8,
+                            policy_json="")
+        arm2, model = train_arm(cfg, "b2 W10/D12/KV8 int8 moments int8 wire",
+                                seed, quant=quant, int8=True, profile=False)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = train_card_vs_cpu(seed, cpu_future)
+        part_s["a"] = time.perf_counter() - t0
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+    t0 = time.perf_counter()
+    resume = train_resume_check(seed)
+    part_s["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, serve = train_serve_check(cfg, tree, seed)
+    part_s["d"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    print(f"[train] main path: {launches} B1 launches = layers x programs "
+          f"over the kernel runs of (d); phase {wall:.1f} s against a "
+          f"{TRAIN_BUDGET_S} s budget ((a) {part_s['a']:.1f}, (b) "
+          f"{part_s['b']:.1f}, (c) {part_s['c']:.1f}, (d) {part_s['d']:.1f} "
+          f"s)", flush=True)
+    record = {"phase": "train", "layers": cfg.num_layers, "arms": [arm1, arm2],
+              "card_vs_cpu": card, "resume": resume, "serve": serve,
+              "b1_launches": launches, "phase_s": wall, "part_s": part_s,
+              "budget_s": TRAIN_BUDGET_S}
+    return launches, [record]
+
+
 def dense_trace(cfg, seed: int):
     """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
     prefill through the decode step stays short at full width."""
@@ -3884,7 +4514,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
-                             "ssm", "frontend", "bench"],
+                             "ssm", "frontend", "bench", "train"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -3940,6 +4570,10 @@ def main(argv=None) -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         bench_phase(SEED)
         return 0
+    if args.phase == "train":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        train_phase(SEED)
+        return 0
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     hmma = kernel_build_report()
@@ -3953,8 +4587,10 @@ def main(argv=None) -> int:
         ssm_launches, ssm_runs = ssm_phase(SEED)
         fe_launches, fe_runs = frontend_phase(SEED)
         bench_launches, bench_runs = bench_phase(SEED)
-        launches += moe_launches + ssm_launches + fe_launches + bench_launches
-        runs += moe_runs + ssm_runs + fe_runs + bench_runs
+        train_launches, train_runs = train_phase(SEED)
+        launches += (moe_launches + ssm_launches + fe_launches
+                     + bench_launches + train_launches)
+        runs += moe_runs + ssm_runs + fe_runs + bench_runs + train_runs
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

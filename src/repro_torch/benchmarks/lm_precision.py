@@ -1,13 +1,18 @@
-"""The serving side of the LM precision bench: token agreement between two
-decode runs of the same requests, the accuracy gate a reduced-precision
-run must pass against its reference, and the decode-step wrappers that
-teacher-force one run by another's tokens on the card.
+"""The LM precision bench (the reference's ``benchmarks/lm_precision.py``):
+the paper's per-layer precision machinery applied to a transformer LM
+trained on the synthetic Markov corpus, and the serving side: token
+agreement between two decode runs of the same requests, the accuracy gate
+a reduced-precision run must pass against its reference, and the
+decode-step wrappers that teacher-force one run by another's tokens on the
+card.
 
-``decode_agreement`` and ``accuracy_gate`` are the reference's
-(``benchmarks/lm_precision.py``), with its defaults. The LM training and
-the per-layer search on it (``train_small_lm``, ``lm_topk_accuracy``,
-``run``) belong to the training slice and are not ported yet (ROADMAP
-queue A item 12).
+``train_small_lm`` trains a reduced LM with AdamW; ``lm_topk_accuracy`` is
+its held-out next-token top-1 (the LM analogue of the paper's
+classification top-1); ``run`` descends per-layer weight and data bits
+with the greedy search, the transformer traffic model pricing decode
+traffic, and writes ``results/torch_lm_precision.json``.
+``decode_agreement`` and ``accuracy_gate`` are the reference's, with its
+defaults.
 
 Why teacher forcing: at random init two equal bf16 runs on a card agree
 only ~0.7 free-running, because one early flip of a near-tie derails the
@@ -18,8 +23,121 @@ and their choices compare step by step.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from .. import resolve_device
+from ..configs.registry import get_smoke_config
+from ..core.fixedpoint import FixedPointFormat
+from ..core.policy import PrecisionPolicy
+from ..core.search import greedy_pareto_search
+from ..data.lm import LMDataConfig, lm_batch, lm_eval_stream
+from ..launch.steps import reference_decay
+from ..models.transformer import forward, init_model, train_loss
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..quant.apply import (build_model_quant, transformer_layer_names,
+                           transformer_traffic_model)
+from .common import save_json
+
+
+def _on(batch: dict, dev) -> dict:
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def train_small_lm(cfg, dcfg, steps=300, lr=1e-3, verbose=True, *,
+                   device="cuda", model=None):
+    """AdamW (weight decay 0.01) on ``lm_batch(dcfg, i)`` for ``steps``
+    steps from a random trainable model of seed 0 (or ``model``, trained
+    in place). Returns the model."""
+    dev = resolve_device(device)
+    if model is None:
+        model = init_model(cfg, seed=0, device=dev, trainable=True)
+    acfg = AdamWConfig(weight_decay=0.01)
+    state = adamw_init(model, acfg)
+    decay = reference_decay(model, cfg)
+    params = dict(model.named_parameters())
+    for i in range(steps):
+        for p in params.values():
+            p.grad = None
+        loss, _ = train_loss(model, _on(lm_batch(dcfg, i), dev), cfg)
+        loss.backward()
+        adamw_update(params, {n: p.grad for n, p in params.items()}, state,
+                     lr, acfg, decay=decay)
+        if verbose and i % 100 == 0:
+            print(f"  [lm] step {i} loss {float(loss.detach()):.4f}")
+    for p in params.values():
+        p.grad = None
+    return model
+
+
+@torch.no_grad()
+def lm_topk_accuracy(model, cfg, dcfg, quant=None, batches=2):
+    """Held-out next-token top-1 over ``batches`` eval batches (the last
+    position, whose label is -100, left out)."""
+    hits = tot = 0
+    for b in lm_eval_stream(dcfg, batches):
+        b = _on(b, model.device)
+        _, logits, _, _ = forward(model, b["tokens"], cfg, quant=quant)
+        pred = torch.argmax(logits[:, :-1], dim=-1)
+        lab = b["labels"][:, :-1]
+        hits += int(torch.sum(pred == lab))
+        tot += lab.numel()
+    return hits / tot
+
+
+def run(*, verbose=True, arch="deepseek-7b", steps=200, device="cuda"):
+    """Train the reduced LM (``arch``'s smoke config cut to 4 layers,
+    float32), then the greedy per-layer search over weight-fraction, data
+    integer and data-fraction bits against its top-1, decode traffic
+    priced at batch 16 x 2048; results to
+    ``results/torch_lm_precision.json``."""
+    cfg = dataclasses.replace(get_smoke_config(arch), num_layers=4,
+                              dtype="float32")
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=96, batch_size=12,
+                        num_mixtures=2, branching=8, seed=11)
+    if verbose:
+        print(f"[lm_precision] training reduced {arch} LM "
+              f"({cfg.num_layers}L d={cfg.d_model})")
+    model = train_small_lm(cfg, dcfg, steps=steps, verbose=verbose,
+                           device=device)
+    base = lm_topk_accuracy(model, cfg, dcfg)
+    if verbose:
+        print(f"  baseline next-token top-1: {base:.4f}")
+
+    names = transformer_layer_names(cfg)
+    init = PrecisionPolicy.uniform(names, FixedPointFormat(2, 10),
+                                   FixedPointFormat(6, 6))
+    tm = transformer_traffic_model(cfg, batch=16, seq_len=2048, mode="decode")
+
+    def eval_fn(policy):
+        quant = build_model_quant(policy, cfg, quantize_kv=False)
+        return lm_topk_accuracy(model, cfg, dcfg, quant=quant, batches=1)
+
+    res = greedy_pareto_search(eval_fn, tm, init, baseline_accuracy=base,
+                               fields=("weight_frac", "data_int",
+                                       "data_frac"),
+                               max_steps=16, stop_rel_acc=0.15)
+    out = {"arch": arch, "baseline_topk1": base,
+           "evaluations": res.evaluations, "tolerances": {}}
+    for t in (0.01, 0.02, 0.05, 0.10):
+        p = res.select(t)
+        if p:
+            out["tolerances"][f"{t:.0%}"] = {
+                "traffic_ratio": p.traffic_ratio, "accuracy": p.accuracy,
+                "policy": p.policy.short()}
+            if verbose:
+                print(f"  tol={t:.0%} TR={p.traffic_ratio:.3f} "
+                      f"acc={p.accuracy:.4f}")
+    # per-layer variance in the chosen config (the paper's key result,
+    # on a transformer)
+    p1 = res.select(0.05)
+    if p1:
+        wbits = [lp.weight.total_bits for lp in p1.policy.layers if lp.weight]
+        out["weight_bits_spread"] = max(wbits) - min(wbits) if wbits else 0
+    save_json("lm_precision.json", out)
+    return out
 
 
 def decode_agreement(ref_outs, test_outs):

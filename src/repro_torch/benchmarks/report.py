@@ -1,5 +1,6 @@
 """The paper tables (§Repro) rendered from the port's result files
-(``results/torch_{uniform_sweep,perlayer_sweep,traffic,pareto_search}.json``),
+(``results/torch_{uniform_sweep,perlayer_sweep,traffic,pareto_search,
+lm_precision}.json``),
 as the reference's ``benchmarks/report.py::repro_section`` renders its own,
 and (``--serve``) the serving trajectory's latest point against its first
 per workload, from ``results/torch_BENCH_serve.json`` as the reference's
@@ -78,6 +79,15 @@ def repro_section() -> str:
                 "accuracy loss; absolute TRs depend on our procedural "
                 "datasets (easier than ImageNet => lower TR for the small "
                 "nets, same qualitative band).", ""]
+    lm = _load("lm_precision.json")
+    if lm:
+        out += ["### Beyond paper: same machinery on a transformer LM", "",
+                f"arch={lm['arch']} baseline next-token top-1 = "
+                f"{lm['baseline_topk1']:.4f}", ""]
+        for tol, t in lm.get("tolerances", {}).items():
+            out.append(f"- tol {tol}: TR={t['traffic_ratio']:.3f} "
+                       f"acc={t['accuracy']:.4f}")
+        out += [""]
     return "\n".join(out)
 
 

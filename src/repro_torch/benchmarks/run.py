@@ -8,14 +8,15 @@ the kernel bench and the serving benches.
                      predictor off vs on (``traffic.run_serve``)
   pareto_search    — paper Fig. 5 / Table 2 (greedy search, TR@1/2/5/10%,
                      and the sensitivity search)
+  lm_precision     — beyond-paper: the same search on a transformer LM
   kernel_bench     — the CUDA kernels against their plain versions
   paged_serve      — paged vs dense KV serving, the mixed workload
   prefix_serve     — the shared-prefix workload
   overcommit_serve — the overcommitted workload through the host tier
 
 The serving stages serve the reference's qwen2-72b smoke config, randomly
-initialized from seed 0. The reference's ``lm_precision`` stage waits for
-ROADMAP queue A item 12 and ``roofline`` for item 13.
+initialized from seed 0. The reference's ``roofline`` stage waits for
+ROADMAP queue A item 13.
 
     python -m repro_torch.benchmarks.run [--only a,b] [--fast] [--device D]
 
@@ -34,13 +35,14 @@ import time
 from .. import resolve_device
 from ..configs.registry import get_smoke_config
 from ..models.transformer import init_model
-from . import (common, kernel_bench, paged_serve, pareto_search,
-               perlayer_sweep, traffic, uniform_sweep)
+from . import (common, kernel_bench, lm_precision, paged_serve,
+               pareto_search, perlayer_sweep, traffic, uniform_sweep)
 
 # expensive searches reuse their saved results unless named in --only
 _CACHED = {"uniform_sweep": "uniform_sweep.json",
            "perlayer_sweep": "perlayer_sweep.json",
-           "pareto_search": "pareto_search.json"}
+           "pareto_search": "pareto_search.json",
+           "lm_precision": "lm_precision.json"}
 
 
 def main(argv=None):
@@ -70,6 +72,8 @@ def main(argv=None):
         "traffic": traffic.run_accounting,
         "traffic_serve": lambda: traffic.run_serve(*lm(), fast=fast),
         "pareto_search": lambda: pareto_search.run(device=dev, nets=nets),
+        "lm_precision": lambda: lm_precision.run(
+            steps=120 if fast else 300, device=dev),
         "kernel_bench": lambda: kernel_bench.run(device=dev),
         "paged_serve": serve("mixed"),
         "prefix_serve": serve("prefix"),

@@ -158,10 +158,14 @@ class _FakeQuantSTE(torch.autograd.Function):
         return torch.where(in_range, g, torch.zeros_like(g)), None, None
 
 
-def fake_quant_ste(x: torch.Tensor, int_bits: int,
-                   frac_bits: int) -> torch.Tensor:
+def fake_quant_ste(x, int_bits: int, frac_bits: int) -> torch.Tensor:
     """:func:`fake_quant` with a straight-through gradient (inside the
-    representable range only), for quantization-aware training."""
+    representable range only), for quantization-aware training. Where no
+    gradient is recorded (``x`` needs none, or grad mode is off) it is
+    :func:`fake_quant` itself, with no range mask computed."""
+    if not (torch.is_grad_enabled() and isinstance(x, torch.Tensor)
+            and x.requires_grad):
+        return fake_quant(x, int_bits, frac_bits)
     return _FakeQuantSTE.apply(x, int_bits, frac_bits)
 
 

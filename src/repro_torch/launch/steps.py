@@ -1,20 +1,156 @@
-"""Serving step functions: whole-prompt prefill into dense caches (an
-encoder's whole forward), bucketed chunk prefill, decode (from token ids
-or, for a stub-frontend arch, from embeddings), and the fused ragged step.
-The forward's aux output (a MoE model's load-balance loss) is not used in
-serving.
+"""Step functions: the training step (loss and gradients, optional
+gradient compression with error feedback, AdamW) and the serving steps:
+whole-prompt prefill into dense caches (an encoder's whole forward),
+bucketed chunk prefill, decode (from token ids or, for a stub-frontend
+arch, from embeddings), and the fused ragged step. The forward's aux
+output (a MoE model's load-balance loss) is not used in serving.
 
 Plain functions on tensors (PyTorch runs eagerly; the reference wraps the
 same bodies in ``jax.jit``). Caches are the per-layer list of
-``models.transformer.init_cache`` and are updated in place. The training
-step is still to port (ROADMAP queue A item 12).
+``models.transformer.init_cache`` and are updated in place; the training
+step updates its state in place. The serving steps run without autograd.
+
+A train state is ``{"params": Transformer (trainable), "opt": AdamW
+state, "ef_residual": residuals}`` (the last with gradient compression),
+the optimizer's leaves keyed by parameter name; :func:`train_state_tree`
+nests it as the reference's tree for checkpoints, and
+:func:`load_train_state` writes such a tree back.
 """
 from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Optional
 
 import torch
 
 from ..models.common import lm_head
-from ..models.transformer import forward_hidden, init_cache
+from ..models.transformer import (Transformer, forward_hidden, init_cache,
+                                  init_model, reference_layout,
+                                  reference_tree, train_loss,
+                                  unstack_reference_tree)
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..optim.compress import (CompressionConfig, compress_gradients,
+                              error_feedback_init)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    lr: float = 3e-4
+    adamw: AdamWConfig = AdamWConfig()
+    lb_coeff: float = 0.01
+    grad_compress: Optional[CompressionConfig] = None
+
+
+def init_train_state(cfg, hp: TrainHParams, *, seed: int = 0,
+                     device="cuda", model: Optional[Transformer] = None):
+    """A fresh train state: ``model`` (a trainable :class:`Transformer`)
+    or a random one from ``seed``, zero AdamW moments, and with gradient
+    compression a zero float32 residual per parameter."""
+    if model is None:
+        model = init_model(cfg, seed=seed, device=device, trainable=True)
+    if not model.trainable:
+        raise ValueError("the train state needs a trainable model "
+                         "(float32 masters with gradients on)")
+    state = {"params": model, "opt": adamw_init(model, hp.adamw)}
+    if hp.grad_compress is not None:
+        state["ef_residual"] = error_feedback_init(model.named_parameters())
+    return state
+
+
+def reference_decay(model: Transformer, cfg) -> frozenset:
+    """Names of the parameters the reference's AdamW decays: those of rank
+    >= 2 in the reference's tree, where every layer leaf carries a leading
+    period axis (so a layer's norm scales and QKV biases are decayed, the
+    final norm and the MTP module's 1-D leaves are not)."""
+    params = dict(model.named_parameters())
+    return frozenset(n for n, _, p in reference_layout(model, cfg)
+                     if p is not None or params[n].dim() >= 2)
+
+
+def make_train_step(cfg, hp: TrainHParams, *, quant=None):
+    """fn(state, batch, *, lr=None) -> (state, metrics): loss and
+    gradients, then (with ``hp.grad_compress``) the int8 wire with error
+    feedback, then AdamW at ``lr`` (``hp.lr`` when None: a schedule passes
+    each step's rate); the state is updated in place. Metrics: the loss
+    terms of ``train_loss``, ``grad_norm`` and ``clip`` (0-dim tensors)."""
+    decays = weakref.WeakKeyDictionary()      # model -> reference_decay
+
+    def step(state, batch, *, lr=None):
+        model = state["params"]
+        if model not in decays:
+            decays[model] = reference_decay(model, cfg)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        with torch.enable_grad():
+            loss, metrics = train_loss(model, batch, cfg, quant=quant,
+                                       lb_coeff=hp.lb_coeff)
+            loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        if hp.grad_compress is not None:
+            grads = {n: torch.zeros_like(params[n]) if g is None else g
+                     for n, g in grads.items()}
+            grads, state["ef_residual"] = compress_gradients(
+                grads, state["ef_residual"], hp.grad_compress)
+        _, state["opt"], opt_metrics = adamw_update(
+            params, grads, state["opt"], hp.lr if lr is None else lr,
+            hp.adamw, decay=decays[model])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(opt_metrics)
+        return state, metrics
+
+    return step
+
+
+def train_state_tree(state, cfg, *, device="cpu"):
+    """The train state nested as the reference's tree (``params``,
+    ``opt`` {"step", "m", "v"}, ``ef_residual``), every layer leaf stacked
+    on its period axis, as tensors on ``device`` (``"meta"``: shapes and
+    dtypes only, a restore template)."""
+    model = state["params"]
+
+    def nest(values):
+        moved = {n: ({k: x.detach().to(device) for k, x in v.items()}
+                     if isinstance(v, dict) else v.detach().to(device))
+                 for n, v in values.items()}
+        return reference_tree(moved, model, cfg, stack=torch.stack)
+
+    out = {"params": nest(dict(model.named_parameters())),
+           "opt": {"step": state["opt"]["step"].detach().to(device),
+                   "m": nest(state["opt"]["m"]),
+                   "v": nest(state["opt"]["v"])}}
+    if "ef_residual" in state:
+        out["ef_residual"] = nest(state["ef_residual"])
+    return out
+
+
+@torch.no_grad()
+def load_train_state(state, tree, cfg):
+    """Write a tree of :func:`train_state_tree`'s layout (a restored
+    checkpoint, this package's or the reference's) into ``state`` in
+    place."""
+    model = state["params"]
+
+    def copy(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                copy(dst[k], src[k])
+        else:
+            dst.copy_(src.to(dst.device))
+
+    copy(dict(model.named_parameters()),
+         unstack_reference_tree(tree["params"], model, cfg))
+    state["opt"]["step"].copy_(tree["opt"]["step"])
+    for k in ("m", "v"):
+        copy(state["opt"][k], unstack_reference_tree(tree["opt"][k], model,
+                                                     cfg))
+    if "ef_residual" in state:
+        copy(state["ef_residual"],
+             unstack_reference_tree(tree["ef_residual"], model, cfg))
+    return state
 
 
 def make_prefill_step(cfg, *, max_len: int, quant=None):

@@ -1,9 +1,9 @@
 """Shared model components: initializers, RMSNorm and LayerNorm, RoPE and
-M-RoPE, embedding and the LM head.
+M-RoPE, embedding, the LM head and the training losses (token cross-entropy
+and its sequence-chunked, rematerialized form).
 
 Weights keep the reference's ``(in, out)`` layout, so ``x @ w`` is the same
-product on both sides. The loss helpers are still to port (ROADMAP queue A
-item 12).
+product on both sides.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -54,7 +55,8 @@ def embed_init(shape, dtype, generator: torch.Generator,
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """An inference-only parameter."""
+    """An inference-only parameter (a trainable model turns its gradients
+    on: ``models.transformer.Transformer``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -167,3 +169,62 @@ def embed_tokens(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def lm_head(kernel: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(…, D) @ (D, V) -> logits in x's dtype."""
     return x @ kernel
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """(nll, valid) per token in float32: labels < 0 are not valid (any
+    negative label, not only -100)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    idx = torch.clamp(labels.to(torch.int64), min=0)[..., None]
+    ll = torch.gather(lf, -1, idx)[..., 0]
+    return lse - ll, labels >= 0
+
+
+def cross_entropy(logits, labels, mask=None) -> torch.Tensor:
+    """Mean token cross-entropy in float32 over the valid tokens (labels
+    >= 0, and ``mask`` > 0 where given), divided by max(n, 1)."""
+    nll, valid = _token_nll(logits, labels)
+    if mask is not None:
+        valid = valid & (mask > 0)
+    valid = valid.to(torch.float32)
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def chunked_ce_loss(hidden, head_w, labels, *, chunk: int, mask=None):
+    """The head matmul fused with :func:`cross_entropy`, one sequence chunk
+    at a time, each chunk's logits rematerialized in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    body): the (B, S, V) float32 logits never exist at once. hidden
+    (B, S, D); head_w (D, V); labels (B, S). The sequence is padded to a
+    chunk multiple with label -100."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        pad = chunk - S % chunk
+        hidden = nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = nn.functional.pad(labels, (0, pad), value=-100)
+        if mask is not None:
+            mask = nn.functional.pad(mask, (0, pad))
+        S += pad
+
+    def body(h, lab, msk):
+        nll, valid = _token_nll(h @ head_w.to(h.dtype), lab)
+        if msk is not None:
+            valid = valid & (msk > 0)
+        v = valid.to(torch.float32)
+        return torch.sum(nll * v), torch.sum(v)
+
+    nll_sum = n_valid = torch.zeros((), dtype=torch.float32,
+                                    device=hidden.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        a, n = checkpoint(body, hidden[:, sl], labels[:, sl],
+                          None if mask is None else mask[:, sl],
+                          use_reentrant=False)
+        nll_sum = nll_sum + a
+        n_valid = n_valid + n
+    return nll_sum / torch.clamp(n_valid, min=1.0)

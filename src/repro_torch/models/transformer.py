@@ -26,8 +26,18 @@ Per-layer quantization (all optional, driven by :class:`ModelQuant`):
 
 The encoder (hubert-xlarge) differs from a dense decoder only in its GELU
 FFN and its bidirectional attention (``cfg.causal``); its norms are
-RMSNorm, as the reference's. The training losses are still to port
-(ROADMAP queue A item 12).
+RMSNorm, as the reference's.
+
+Training (:func:`train_loss`): a trainable model (``trainable=True``)
+holds float32 master weights (``cfg.param_dtype``) with gradients on and
+casts each weight at use to the compute dtype, as the reference casts its
+float32 parameters per use; a serving model holds the compute dtype
+already, and the cast is free. The three fake-quant sites (weights, the
+residual, the embedding output) are straight-through estimators: their
+forward is ``fake_quant`` bit for bit, their gradient passes inside the
+grid's range. (The reference calls the plain ``fake_quant`` there, whose
+rounding has a zero derivative, so its quantized training moves no block
+weight; the port does not copy that fault.)
 """
 from __future__ import annotations
 
@@ -42,14 +52,14 @@ from torch import nn
 from .. import resolve_device
 from ..configs.counting import (layer_segments, layer_signatures,
                                 segment_layers)
-from ..core.fixedpoint import fake_quant
+from ..core.fixedpoint import fake_quant_ste
 from ..core.paged_kv import (PagedCacheSpec, PagedKVLayout, init_paged_pool,
                              per_row)
 from .attention import (GQAttention, KVQuantSpec, MLAttention, gqa_apply,
                         init_gqa, init_kv_cache, init_mla, init_mla_cache,
                         mla_apply)
-from .common import (dense_init, embed_init, embed_tokens, frozen, lm_head,
-                     rmsnorm)
+from .common import (chunked_ce_loss, cross_entropy, dense_init, embed_init,
+                     embed_tokens, frozen, lm_head, rmsnorm)
 from .mlp import (GeluMLP, SwiGLU, gelu_mlp_apply, init_gelu_mlp,
                   init_swiglu, swiglu_apply)
 from .moe import MoE, init_moe, moe_apply
@@ -122,17 +132,21 @@ class ModelQuant:
 
 def _quant_weights(mod: nn.Module, fmt: Optional[Tuple[int, int]]):
     """``mod`` with every >= 2-D float tensor fake-quantized to ``fmt``
-    (the paper's weight quantization; 1-D tensors, biases and norm scales,
-    stay full precision), submodules (a MoE's shared expert) included.
-    Returns a namespace read like the module, or ``mod`` itself when
-    ``fmt`` is None."""
-    if fmt is None:
+    (the paper's weight quantization, straight-through; 1-D tensors,
+    biases and norm scales, stay full precision), then each tensor of a
+    trainable model's ``cast_at_use`` cast to its compute dtype,
+    submodules (a MoE's shared expert) included. Returns a namespace read
+    like the module, or ``mod`` itself when there is nothing to do."""
+    cast = getattr(mod, "cast_at_use", None)
+    if fmt is None and not cast:
         return mod
     view = types.SimpleNamespace(**{k: v for k, v in vars(mod).items()
                                     if not k.startswith("_")})
     for name, t in mod.named_parameters(recurse=False):
-        if t.dim() >= 2 and t.is_floating_point():
-            t = fake_quant(t, *fmt)
+        if fmt is not None and t.dim() >= 2 and t.is_floating_point():
+            t = fake_quant_ste(t, *fmt)
+        if cast and name in cast:
+            t = t.to(cast[name])
         setattr(view, name, t)
     for name, child in mod.named_children():
         setattr(view, name, _quant_weights(child, fmt))
@@ -185,9 +199,8 @@ class DecoderBlock(nn.Module):
 
 class MTP(nn.Module):
     """The multi-token-prediction module (``cfg.mtp_depth`` > 0): ``proj``
-    (2D, D), an ("attn", "mlp") block and a norm. Carried as the reference
-    carries it; the served forward does not use it (its loss is ROADMAP
-    queue A item 12)."""
+    (2D, D), an ("attn", "mlp") block and a norm. The served forward does
+    not use it; :func:`train_loss` adds its loss."""
 
     def __init__(self, cfg, dtype, device=None):
         super().__init__()
@@ -202,12 +215,19 @@ class Transformer(nn.Module):
     """The decoder. ``embed`` is (V, D) and ``head`` (D, V), both in the
     compute dtype; ``head`` is None for tied embeddings; ``layers[i]`` is
     built from ``layer_signatures(cfg)[i]``; ``mtp`` is None without
-    multi-token prediction."""
+    multi-token prediction.
 
-    def __init__(self, cfg, device=None):
+    ``trainable=True`` builds the training model: every parameter in
+    ``cfg.param_dtype`` (float32 masters) with gradients on, and each
+    module's ``cast_at_use`` (name -> compute dtype) naming the tensors
+    the serving model holds in the compute dtype; the forward casts them
+    at use (:func:`_quant_weights`, :meth:`embed_rows`,
+    :meth:`head_weight`)."""
+
+    def __init__(self, cfg, device=None, *, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        dt = cfg.torch_dtype
+        dt = cfg.param_torch_dtype if trainable else cfg.torch_dtype
         D, V = cfg.d_model, cfg.vocab_size
         self.embed = frozen(torch.empty(V, D, dtype=dt, device=device))
         self.final_norm = frozen(torch.empty(D, dtype=torch.float32,
@@ -217,13 +237,44 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(DecoderBlock(cfg, dt, device, sig)
                                     for sig in layer_signatures(cfg))
         self.mtp = MTP(cfg, dt, device) if cfg.mtp_depth > 0 else None
+        self.trainable = trainable
+        if trainable:
+            self._mark_casts()
+
+    def _mark_casts(self) -> None:
+        """Name, module by module, the parameters the serving model holds
+        in another dtype than this one (read off a serving model built on
+        the meta device), and turn every gradient on."""
+        serving = dict(Transformer(self.cfg, "meta").named_parameters())
+        for mname, mod in self.named_modules():
+            cast = {}
+            for n, p in mod.named_parameters(recurse=False):
+                want = serving[f"{mname}.{n}" if mname else n].dtype
+                if want != p.dtype:
+                    cast[n] = want
+                p.requires_grad_(True)
+            if cast:
+                mod.cast_at_use = cast
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _at_use(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` cast as a trainable model casts its parameter ``name``
+        at use (a serving model's ``t`` as it is)."""
+        dt = getattr(self, "cast_at_use", {}).get(name)
+        return t if dt is None else t.to(dt)
+
+    def embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``ids`` in the compute dtype (rows first,
+        then the cast: the same values as casting the table)."""
+        return self._at_use("embed", embed_tokens(self.embed, ids))
+
     def head_weight(self) -> torch.Tensor:
-        return self.embed.T if self.head is None else self.head
+        if self.head is None:
+            return self._at_use("embed", self.embed.T)
+        return self._at_use("head", self.head)
 
 
 def _init_block(blk: DecoderBlock, g: torch.Generator) -> None:
@@ -241,13 +292,15 @@ def _init_block(blk: DecoderBlock, g: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
+def init_model(cfg, *, seed: int = 0, device="cuda",
+               trainable: bool = False) -> Transformer:
     """Random model with the reference's init distributions, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the numbers
     differ from the JAX init's). Expert stacks are drawn one expert at a
-    time straight into their compute-dtype buffers."""
+    time straight into their buffers. ``trainable``: float32 masters with
+    gradients on (:class:`Transformer`)."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, trainable=trainable)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     model.embed.copy_(embed_init(model.embed.shape, torch.float32, g, dev))
@@ -317,8 +370,8 @@ def _leaf(tree, path):
 
 
 @torch.no_grad()
-def params_from_numpy(tree: Dict[str, Any], cfg, *,
-                      device="cuda") -> Transformer:
+def params_from_numpy(tree: Dict[str, Any], cfg, *, device="cuda",
+                      trainable: bool = False) -> Transformer:
     """A :class:`Transformer` holding the JAX package's parameters.
 
     ``tree`` is the reference's ``init_model`` tree with every leaf already
@@ -330,9 +383,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *,
     names the leaves). ``mtp`` (unstacked in the reference) is carried.
     Weights keep their ``(in, out)`` layout and are cast to the compute
     dtype once here, which equals the reference's per-use
-    ``.astype(compute_dtype)``; norm scales stay float32."""
+    ``.astype(compute_dtype)``; norm scales stay float32. ``trainable``
+    keeps them as float32 masters (:class:`Transformer`)."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, trainable=trainable)
 
     def put(dst: torch.Tensor, src) -> None:
         src = np.asarray(src)
@@ -347,20 +401,98 @@ def params_from_numpy(tree: Dict[str, Any], cfg, *,
                                                          segs)):
         raise ValueError(f"the tree's segments do not fit {cfg.name}'s "
                          f"layer segments {segs}")
-    put(model.embed, tree["embed"]["table"])
-    put(model.final_norm, tree["final_norm"]["scale"])
-    if model.head is not None:
-        put(model.head, tree["head"]["kernel"])
-    for li, si, j, p in segment_layers(cfg):
-        for path, dst in block_leaves(model.layers[li], cfg):
-            put(dst, _leaf(tree["segments"][si][j], path)[p])
-    if model.mtp is not None:
-        mtp = tree["mtp"]
-        put(model.mtp.proj, mtp["proj"])
-        put(model.mtp.norm, mtp["norm"]["scale"])
-        for path, dst in block_leaves(model.mtp.block, cfg):
-            put(dst, _leaf(mtp["block"], path))
+    params = dict(model.named_parameters())
+    for name, src in unstack_reference_tree(tree, model, cfg).items():
+        put(params[name], src)
     return model
+
+
+def reference_layout(model: Transformer, cfg):
+    """[(parameter name, reference path, period)] of every parameter: its
+    ``named_parameters`` name, its path in the reference's tree
+    (``("segments", si, j) + block path`` for a layer) and, for a layer
+    leaf, its index p on the reference's leading period axis (None for the
+    unstacked embed, head, final norm and MTP leaves)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = [(names[id(model.embed)], ("embed", "table"), None),
+           (names[id(model.final_norm)], ("final_norm", "scale"), None)]
+    if model.head is not None:
+        out.append((names[id(model.head)], ("head", "kernel"), None))
+    for li, si, j, p in segment_layers(cfg):
+        out += [(names[id(t)], ("segments", si, j) + path, p)
+                for path, t in block_leaves(model.layers[li], cfg)]
+    if model.mtp is not None:
+        out += [(names[id(model.mtp.proj)], ("mtp", "proj"), None),
+                (names[id(model.mtp.norm)], ("mtp", "norm", "scale"), None)]
+        out += [(names[id(t)], ("mtp", "block") + path, None)
+                for path, t in block_leaves(model.mtp.block, cfg)]
+    return out
+
+
+def _listify(node):
+    """Nested dicts whose keys are all ints become lists (the reference's
+    ``segments`` is a list of lists)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
+
+
+def reference_tree(values: Dict[str, Any], model: Transformer, cfg, *,
+                   stack=np.stack) -> Dict[str, Any]:
+    """Per-parameter values (``name -> leaf``, or ``name -> {key: leaf}``
+    as an int8 moment's ``{"q", "scale"}``) nested in the reference's
+    tree, each layer leaf stacked with ``stack`` on the reference's
+    leading period axis (:func:`reference_layout`). The inverse of
+    :func:`unstack_reference_tree`."""
+    tree: Dict[Any, Any] = {}
+    stacked: Dict[tuple, Dict[int, Any]] = {}
+
+    def put(path, v):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+
+    for name, path, p in reference_layout(model, cfg):
+        if p is None:
+            put(path, values[name])
+        else:
+            stacked.setdefault(path, {})[p] = values[name]
+    for path, parts in stacked.items():
+        parts = [parts[i] for i in range(len(parts))]
+        put(path, ({k: stack([q[k] for q in parts]) for k in parts[0]}
+                   if isinstance(parts[0], dict) else stack(parts)))
+    return _listify(tree)
+
+
+def unstack_reference_tree(tree, model: Transformer, cfg) -> Dict[str, Any]:
+    """``name -> value`` of every parameter from a tree in the reference's
+    layout (a layer leaf sliced at its period)."""
+    out = {}
+    for name, path, p in reference_layout(model, cfg):
+        v = _leaf(tree, path)
+        if p is not None:
+            v = ({k: x[p] for k, x in v.items()} if isinstance(v, dict)
+                 else v[p])
+        out[name] = v
+    return out
+
+
+def params_to_numpy(model: Transformer, cfg) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the model's parameters as
+    the reference's tree of numpy arrays, layers restacked by
+    ``segment_layers``. A bf16 tensor comes out as float32 (exactly: numpy
+    has no bf16)."""
+    def host(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.cpu().numpy()
+    return reference_tree({n: host(t) for n, t in model.named_parameters()},
+                          model, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +600,7 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
             y = swiglu_apply(mlp, h)
         x = x + y
     if a_fmt is not None:
-        x = fake_quant(x, *a_fmt)          # the paper's "data" bits
+        x = fake_quant_ste(x, *a_fmt)      # the paper's "data" bits
     return x, cache, aux
 
 
@@ -504,13 +636,13 @@ def forward_hidden(model: Transformer, tokens, cfg, *, embeds=None,
     if embeds is not None:
         x = embeds.to(cfg.torch_dtype)
     else:
-        x = embed_tokens(model.embed, tokens)
+        x = model.embed_rows(tokens)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         base = per_row(0 if cache_pos is None else cache_pos, B, x.device)
         positions = base[:, None] + torch.arange(S, device=x.device)[None, :]
     if quant is not None and quant.a_int is not None:
-        x = fake_quant(x, *quant.layer_data(0))    # the embedding output
+        x = fake_quant_ste(x, *quant.layer_data(0))  # the embedding output
     lb = None
     for li, blk in enumerate(model.layers):
         kvq = wf = af = sq = None
@@ -539,6 +671,49 @@ def forward(model: Transformer, tokens, cfg, **kw):
     ``forward``; ``tokens`` and keywords as :func:`forward_hidden`."""
     x, caches, aux = forward_hidden(model, tokens, cfg, **kw)
     return x, lm_head(model.head_weight(), x), caches, aux
+
+
+def train_loss(model: Transformer, batch, cfg, *,
+               quant: Optional[ModelQuant] = None, lb_coeff: float = 0.01):
+    """The training loss of ``batch`` ({"tokens" (B, S), "labels" (B, S),
+    optional "mask"}): token cross-entropy (:func:`chunked_ce_loss` when
+    ``cfg.loss_chunk`` > 0), plus ``lb_coeff`` times the MoE load-balance
+    loss for a MoE config, plus 0.3 times the multi-token-prediction loss
+    when ``cfg.mtp_depth`` > 0 (the hidden state at t beside the embedding
+    of token t + 1, projected, through the MTP block and norm, against
+    label t + 1). Returns (loss, metrics): ``ce_loss``, ``moe_lb_loss``,
+    ``mtp_loss`` (with MTP) and ``loss``, float32 scalars, as the
+    reference's."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    hidden, _, aux = forward_hidden(model, tokens, cfg, quant=quant)
+    if cfg.loss_chunk > 0:
+        loss = chunked_ce_loss(hidden, model.head_weight(), labels,
+                               chunk=cfg.loss_chunk, mask=batch.get("mask"))
+    else:
+        loss = cross_entropy(lm_head(model.head_weight(), hidden), labels,
+                             batch.get("mask"))
+    metrics = {"ce_loss": loss, "moe_lb_loss": aux["moe_lb_loss"]}
+    if cfg.num_experts:
+        loss = loss + lb_coeff * aux["moe_lb_loss"]
+    if cfg.mtp_depth > 0:
+        mtp = _quant_weights(model.mtp, None)
+        nxt = model.embed_rows(tokens[:, 1:])
+        h = torch.cat([hidden[:, :-1], nxt], dim=-1) @ mtp.proj
+        pos = torch.arange(h.shape[1], device=h.device)[None, :].expand(
+            h.shape[0], -1)
+        h, _, _ = block_apply(model.mtp.block, h, pos, cfg=cfg, cache=None,
+                              cache_pos=None)
+        h = rmsnorm(model.mtp.norm, h, cfg.norm_eps)
+        if cfg.loss_chunk > 0:
+            mtp_loss = chunked_ce_loss(h, model.head_weight(), labels[:, 1:],
+                                       chunk=cfg.loss_chunk)
+        else:
+            mtp_loss = cross_entropy(lm_head(model.head_weight(), h),
+                                     labels[:, 1:])
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(model: Transformer, tokens, cfg, *,

@@ -1,1 +1,2 @@
-"""Host-side runtime support: serving telemetry."""
+"""Host-side runtime support: serving telemetry, and the trainer's
+restart supervisor and straggler monitor (``runtime.fault``)."""

@@ -129,14 +129,15 @@ def test_run_prints_cached_stages_and_raises_on_a_failure(tmp_path,
                                                           monkeypatch,
                                                           capsys):
     monkeypatch.setattr(tcommon, "RESULTS", tmp_path)
-    for name in ("uniform_sweep", "perlayer_sweep", "pareto_search"):
+    for name in ("uniform_sweep", "perlayer_sweep", "pareto_search",
+                 "lm_precision"):
         tcommon.save_json(f"{name}.json", {"lenet": {}})
     ran = []
     monkeypatch.setattr(trun.kernel_bench, "run",
                         lambda device: ran.append(device))
     trun.main(["--device", "cpu"])
     out = capsys.readouterr().out
-    assert out.count("[cached]") == 3 and ran == ["cpu"]
+    assert out.count("[cached]") == 4 and ran == ["cpu"]
     assert tcommon.load_json("traffic.json").keys() == {"cnn", "lm"}
 
     def boom():
@@ -145,7 +146,7 @@ def test_run_prints_cached_stages_and_raises_on_a_failure(tmp_path,
     with pytest.raises(ValueError, match="stage failed"):
         trun.main(["--only", "traffic"])
     with pytest.raises(SystemExit):
-        trun.main(["--only", "lm_precision"])
+        trun.main(["--only", "roofline"])
 
 
 def test_entry_points_default_to_the_card():

@@ -1318,3 +1318,162 @@ def test_cuda_bench_workload_matches_cpu(cuda, bench_models, workload,
         else:
             plain = pka.paged_kv_attention_chunk_plain(*x, bits=bits)
         np.testing.assert_allclose(out.cpu().numpy(), plain.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the training slice: B1 at G = 1 (deepseek-7b's attention), the train step,
+# the int8 optimizer state and the wire, a bf16 checkpoint, on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("s", [1, 32])
+def test_cuda_train_b1_at_group_one(cuda, bits, s):
+    """32 query heads over 32 KV heads (G = 1, deepseek-7b's attention,
+    served after training), head_dim 128, page size 16: a block packs 32
+    queries of one head at S = 32 and one live row of 16 at decode. The
+    tensor-core kernel against the plain version."""
+    args = _case(500 + bits + s, b=4, kv=32, g=1, hd=128, ps=16, s=s,
+                 bits=bits, start=300, qdt=torch.bfloat16)
+    assert pka.query_block(s, 1, 32, False) == s
+    assert pka.kernel_route(args[1], head_dim=128, G=1,
+                            block_kv=False) == "mma"
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    before = pka.paged_kv_attention_chunk.launches
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)
+
+
+def _train_smoke(device, steps, seed=0):
+    """``steps`` train steps of deepseek-7b-smoke on ``device`` from the
+    seed's weights made on the CPU; each step's loss and grad norm."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.lm import LMDataConfig, lm_batch
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config("deepseek-7b")
+    model = init_model(cfg, seed=seed, device="cpu", trainable=True)
+    hp = TrainHParams(lr=1e-3)
+    state = init_train_state(cfg, hp, model=model.to(device))
+    step = make_train_step(cfg, hp)
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4)
+    out = []
+    for i in range(steps):
+        b = {k: v.to(device) for k, v in lm_batch(dcfg, i).items()}
+        state, m = step(state, b)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def test_cuda_train_step_matches_cpu(cuda):
+    """Three steps of deepseek-7b-smoke (float32, TF32 off) on the card
+    against the same steps on the CPU: loss and grad norm within rtol
+    1e-5 each step."""
+    got, want = _train_smoke(cuda, 3), _train_smoke("cpu", 3)
+    for (lg, gg), (lw, gw) in zip(got, want):
+        assert lg == pytest.approx(lw, rel=1e-5)
+        assert gg == pytest.approx(gw, rel=1e-5)
+
+
+def _shared(rng, shapes):
+    return {n: torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+            for n, (shape, s) in shapes.items()}
+
+
+TRAIN_SHAPES = {"embed": ((300, 64), 0.5), "norm": ((64,), 1.0),
+                "w": ((64, 96), 0.1), "experts": ((4, 64, 32), 0.1)}
+
+
+def test_cuda_train_int8_moments_match_cpu(cuda):
+    """AdamW with int8 moments, three updates on shared gradients (numpy),
+    on the card and on the CPU: parameters within 1e-6, moment scales
+    within 1e-6, int8 grids equal but for at most 0.1% one-step flips."""
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update)
+    cfg = AdamWConfig(quantize_moments=True)
+    rng = np.random.default_rng(11)
+    p0 = _shared(rng, TRAIN_SHAPES)
+    grads = [_shared(rng, {n: (s, 0.05) for n, (s, _) in
+                           TRAIN_SHAPES.items()}) for _ in range(3)]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params = {n: p.clone().to(dev) for n, p in p0.items()}
+        st = adamw_init(params, cfg)
+        for g in grads:
+            adamw_update(params, {n: x.to(dev) for n, x in g.items()}, st,
+                         1e-2, cfg)
+        out.append((params, st))
+    (pc, sc), (ph, sh) = out
+    flips = total = 0
+    for n in TRAIN_SHAPES:
+        np.testing.assert_allclose(pc[n].cpu().numpy(), ph[n].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+        for k in ("m", "v"):
+            np.testing.assert_allclose(sc[k][n]["scale"].cpu().numpy(),
+                                       sh[k][n]["scale"].numpy(), rtol=1e-6)
+            d = (sc[k][n]["q"].cpu().to(torch.int32)
+                 - sh[k][n]["q"].to(torch.int32)).abs()
+            assert int(d.max()) <= 1
+            flips += int((d != 0).sum())
+            total += d.numel()
+    assert flips <= 1e-3 * total, (flips, total)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_cuda_train_compression_matches_cpu(cuda, bits):
+    """The int8 (int16) gradient wire with error feedback, three steps on
+    shared gradients: compressed gradients and residuals equal the CPU's
+    exactly (every division is by a tensor)."""
+    from repro_torch.optim.compress import (CompressionConfig,
+                                            compress_gradients,
+                                            error_feedback_init)
+    cfg = CompressionConfig(bits=bits)
+    rng = np.random.default_rng(bits)
+    grads = [_shared(rng, TRAIN_SHAPES) for _ in range(3)]
+    res_c = error_feedback_init({n: g.to(cuda) for n, g in grads[0].items()})
+    res_h = error_feedback_init(grads[0])
+    for g in grads:
+        cc, res_c = compress_gradients({n: x.to(cuda) for n, x in g.items()},
+                                       res_c, cfg)
+        ch, res_h = compress_gradients(g, res_h, cfg)
+        for n in g:
+            assert torch.equal(cc[n].cpu(), ch[n])
+            assert torch.equal(res_c[n].cpu(), res_h[n])
+
+
+def test_cuda_train_bf16_checkpoint_round_trip(cuda, tmp_path):
+    """C6 on the card: a train-state tree of deepseek-7b-smoke made on the
+    card, every float leaf cast to bf16, saved and restored onto the card
+    bit for bit (the int32 step exactly)."""
+    from repro_torch.checkpoint.ckpt import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          train_state_tree)
+
+    def bf16(t):
+        if isinstance(t, dict):
+            return {k: bf16(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [bf16(v) for v in t]
+        return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        return b.device.type == "cuda" and torch.equal(a, b)
+
+    cfg = get_smoke_config("deepseek-7b")
+    state = init_train_state(cfg, TrainHParams(), device=cuda)
+    tree = bf16(train_state_tree(state, cfg, device=cuda))
+    tree["params"]["embed"]["table"][0, :3] = torch.tensor(
+        [float("nan"), -0.0, 1e-40])
+    save_checkpoint(str(tmp_path), 1, tree)
+    _, back, _ = restore_checkpoint(str(tmp_path), tree, device=cuda)
+    assert same(tree, back)

@@ -90,7 +90,13 @@ _SLICE_MODULES = ["repro_torch.core.fixedpoint", "repro_torch.core.qtensor",
                   "repro_torch.benchmarks.paged_serve",
                   "repro_torch.examples.quickstart",
                   "repro_torch.examples.serve_policy_profile",
-                  "repro_torch.examples.serve_quantized_kv"]
+                  "repro_torch.examples.serve_quantized_kv",
+                  "repro_torch.optim", "repro_torch.optim.adamw",
+                  "repro_torch.optim.compress", "repro_torch.optim.schedule",
+                  "repro_torch.data.lm", "repro_torch.data.pipeline",
+                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                  "repro_torch.runtime.fault", "repro_torch.launch.train",
+                  "repro_torch.examples.train_lm_mixed_precision"]
 
 
 def test_kernel_entry_point_modules_import_without_jax():

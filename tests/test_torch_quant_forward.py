@@ -176,7 +176,7 @@ def test_residual_quant_replays_exactly(models, monkeypatch):
     jcfg, tcfg, _, model = models
     tq, _ = _quants(jcfg, tcfg, (2, 6), (4, 12), kv=False, acts=True)
     seen = []
-    real = ttr.fake_quant
+    real = ttr.fake_quant_ste
 
     def recording(x, i, f):
         y = real(x, i, f)
@@ -184,7 +184,7 @@ def test_residual_quant_replays_exactly(models, monkeypatch):
             seen.append((x.clone(), y.clone(), i, f))
         return y
 
-    monkeypatch.setattr(ttr, "fake_quant", recording)
+    monkeypatch.setattr(ttr, "fake_quant_ste", recording)
     tok = _tokens(np.random.default_rng(9), tcfg.vocab_size, 2, 10)
     ttr.forward(model, t(tok), tcfg, quant=tq)
     assert len(seen) == 1 + tcfg.num_layers
