@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase frontend   # the build and [frontend]
     python3 chip_smoke.py --phase bench  # the build and [bench] alone
     python3 chip_smoke.py --phase train  # the build and [train] alone
+    python3 chip_smoke.py --phase train2 # the build and [train2] alone
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -139,7 +140,7 @@ Phases, each of which raises on failure (no phase is caught):
    float32 masters) cut to 8 of 30 layers, trained 20 steps of 4 x 512
    tokens from the port's ``lm_batch`` at lr 3e-4 with a 5-step cosine
    warm-up, in two arms: fp32 moments (a ``torch.profiler`` window over
-   two steps) and weights Q2.8 / data Q4.8 / KV Q2.6 with int8 moments
+   two steps) and weights Q2.8 / data Q4.8 / KV Q4.4 with int8 moments
    and the int8 gradient wire: losses at steps 1, 10 and 20 (finite, the
    last five below step 1's), step ms by CUDA events, tok/s, AdamW's
    share of a step, peak memory (under 80 GB) and optimizer-state bytes;
@@ -155,7 +156,35 @@ Phases, each of which raises on failure (no phase is caught):
    kernel route fed its tokens (gated) and the kernel route free: B1 at
    G = 32 / 32 = 1 held against its plain version on one captured decode
    step and one 32-query prefill forward, every layer; the phase time
-   against its 60 s budget;
+   against its 60 s budget; then, that model freed, ``[train2]``: (a)
+   xlstm-350m-smoke, jamba-smoke at eval_all and at the published
+   scatter dispatch, hubert-xlarge-smoke from frame embeddings and
+   qwen2-vl-2b-smoke from patch embeddings with M-RoPE ids (and
+   xlstm-350m-smoke again with int8 moments and the int8 wire) trained 5
+   steps on the card, each step then taken on the CPU from the card's
+   starting state (a child process): loss within rtol 1e-5, grad norm
+   within rtol 1e-5 for the encoder and the VLM, the recurrent archs'
+   gradients by blocks in lockstep within 1e-4 of each leaf's largest
+   magnitude, the wire's output equal but for counted one-step flips;
+   the free-running CPU steps printed beside them; (b) xlstm-350m at its
+   published widths and depth (24 layers: 21 mLSTM, 3 sLSTM; d_model
+   1024, vocab 50304, tied, bf16 over float32 masters), 4 and 3 steps of
+   4 x 512 ``lm_batch`` tokens (a state crosses one chunk boundary of
+   256; a step is ~3 s, host-bound) at lr 1e-3 with a 2-step warm-up, in
+   two arms: fp32 moments (a ``torch.profiler`` window over step 4) and
+   W10 / D12 / KV8 (the
+   mLSTM memories on Q4.4, the KV format that D12 gives under KV8,
+   straight-through) with int8 moments and the int8 wire: losses, step
+   ms by CUDA events, tok/s, AdamW's share, peak memory; in arm 2 every
+   block matrix's step-1 gradient nonzero (C5) and the gradient reaching
+   every chunk boundary's state nonzero (C8); (c) hubert-xlarge at its
+   published widths and depth (48 bidirectional layers, tanh-GELU FFN)
+   trained from stub frame embeddings at 4 x 512 with unit labels over
+   504 (profiled), as (b)'s arm 1; (d) qwen2-vl-2b at its published
+   widths and depth trained from patch embeddings with M-RoPE ids
+   (``make_batch`` at 512), then served as ``[train]`` (d) on 8 requests
+   of 40-96 prompt tokens and 12 new: B1 at G = 12 / 2 = 6 held against
+   its plain version; the phase time against its 60 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -979,15 +1008,24 @@ class ProfiledSteps:
 
 
 def device_activity(prof):
-    """A closed profiler window's device events, the microseconds the
-    device was busy (the union of their intervals) and (count, us) by
-    event name."""
+    """A closed profiler window's device events as (name, start us, end
+    us), the microseconds the device was busy (the union of their
+    intervals) and (count, us) by event name. Reads kineto's events
+    without building the profiler's Python event tree where it can (a
+    train step of xlstm-350m launches ~170 k kernels)."""
     import torch
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    results = getattr(getattr(prof, "profiler", None), "kineto_results",
+                      None)
+    if results is not None:
+        evs = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+               for e in results.events() if e.device_type() == cuda]
+    else:
+        evs = [(e.name, e.time_range.start, e.time_range.end)
+               for e in prof.events() if e.device_type == cuda]
     busy, by_name = 0.0, {}
     if evs:
-        spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+        spans = sorted((s0, e0) for _, s0, e0 in evs)
         cur_s, cur_e = spans[0]
         for s0, e0 in spans[1:]:
             if s0 > cur_e:
@@ -996,10 +1034,10 @@ def device_activity(prof):
             else:
                 cur_e = max(cur_e, e0)
         busy += cur_e - cur_s
-    for e in evs:
-        d = by_name.setdefault(e.name, [0, 0.0])
+    for name, s0, e0 in evs:
+        d = by_name.setdefault(name, [0, 0.0])
         d[0] += 1
-        d[1] += e.time_range.end - e.time_range.start
+        d[1] += e0 - s0
     return evs, busy, by_name
 
 
@@ -3690,36 +3728,79 @@ def state_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
-              profile: bool) -> dict:
-    """One arm of (b): ``TRAIN_STEPS`` steps from the seed's random
-    trainable model at lr ``TRAIN_LR``, cosine warm-up ``TRAIN_WARMUP``,
-    on the port's pipeline. Each step is timed alone: one device sync,
-    then CUDA events around the step (:class:`SyncTimer`); each batch's
-    ``next(pipe)`` (built on the host, in this thread) by the host clock.
-    With ``profile``, a ``torch.profiler`` window over ``TRAIN_PROFILED``.
-    Then ``TRAIN_INSTRUMENTED`` more steps with AdamW (and the wire)
-    timed by events after a device sync each, which splits the step but
-    adds its syncs: those steps' ms are printed apart, and the losses,
-    step ms and profile come from the uninstrumented steps. They run at
-    lr 0, the same work with the weights left as the ``TRAIN_STEPS``
-    made them (the moments move). With the int8 wire, step 1's raw
-    gradient of every block matrix is checked nonzero (C5). Returns its
-    record and the trained model."""
-    import torch
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """One (b)-style arm's schedule, data and printing: ``steps`` at
+    ``lr`` with a ``warmup``-step cosine warm-up on ``batch`` x ``seq``
+    positions (``lm_batch`` tokens, or with ``embeds`` the stub frontend's
+    batches of ``configs.shapes.make_batch``), timed from step index
+    ``timed_from``, a ``torch.profiler`` window over ``profiled`` [from,
+    to), ``instrumented`` lr-0 steps after; lines printed under
+    ``tag``."""
+
+    tag: str = "[train]"
+    steps: int = TRAIN_STEPS
+    warmup: int = TRAIN_WARMUP
+    lr: float = TRAIN_LR
+    batch: int = TRAIN_BATCH
+    seq: int = TRAIN_SEQ
+    timed_from: int = TRAIN_TIMED_FROM
+    profiled: tuple = TRAIN_PROFILED
+    instrumented: int = TRAIN_INSTRUMENTED
+    embeds: bool = False
+
+
+def train_batches(cfg, spec: TrainSpec, seed: int):
+    """fn(step) -> the step's batch on the host: ``lm_batch`` tokens, or
+    ``make_batch``'s stub-frontend batch drawn from a generator seeded by
+    (seed, step)."""
     from repro_torch.data.lm import lm_batch
+    if not spec.embeds:
+        dcfg = train_data(cfg, batch=spec.batch, seq=spec.seq, seed=seed)
+        return lambda s: lm_batch(dcfg, s)
+    import torch
+    from repro_torch.configs.shapes import SHAPES, make_batch
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=spec.seq)
+    return lambda s: make_batch(
+        cfg, shape, generator=torch.Generator().manual_seed(
+            seed * 100_003 + s), device="cpu", batch_override=spec.batch)
+
+
+def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
+              profile: bool, spec: TrainSpec = TrainSpec(),
+              state_grads: bool = False) -> dict:
+    """One arm of (b): ``spec.steps`` steps from the seed's random
+    trainable model at lr ``spec.lr``, cosine warm-up ``spec.warmup``, on
+    the port's pipeline (:func:`train_batches`). Each step is timed alone:
+    one device sync, then CUDA events around the step
+    (:class:`SyncTimer`); each batch's ``next(pipe)`` (built on the host,
+    in this thread) by the host clock. With ``profile``, a
+    ``torch.profiler`` window over ``spec.profiled``. Then
+    ``spec.instrumented`` more steps with AdamW (and the wire) timed by
+    events after a device sync each, which splits the step but adds its
+    syncs: those steps' ms are printed apart, and the losses, step ms and
+    profile come from the uninstrumented steps. They run at lr 0, the
+    same work with the weights left as the ``spec.steps`` made them (the
+    moments move). With the int8 wire, step 1's raw gradient of every
+    block matrix is checked nonzero (C5). With ``state_grads``, step 1's
+    gradient reaching each recurrent state through its grid at a chunk
+    boundary (the input of ``ssm._maybe_fake_quant``) is checked nonzero
+    (C8). Returns its record and the trained model."""
+    import torch
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import ssm
     from repro_torch.models.transformer import init_model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compress import CompressionConfig
     from repro_torch.optim.schedule import cosine_warmup
 
+    tag = spec.tag
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hp = steps_mod.TrainHParams(
-        lr=TRAIN_LR, adamw=AdamWConfig(quantize_moments=int8),
+        lr=spec.lr, adamw=AdamWConfig(quantize_moments=int8),
         grad_compress=CompressionConfig() if int8 else None)
     model = init_model(cfg, seed=seed, device="cuda", trainable=True)
     state = steps_mod.init_train_state(cfg, hp, model=model)
@@ -3727,49 +3808,62 @@ def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
     opt_bytes = state_bytes(state["opt"]["m"]) + state_bytes(
         state["opt"]["v"])
     ef_bytes = state_bytes(state.get("ef_residual", {}))
-    dcfg = train_data(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
-    pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device="cuda")
-    lr_fn = cosine_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    pipe = DataPipeline(train_batches(cfg, spec, seed), device="cuda")
+    lr_fn = cosine_warmup(spec.lr, spec.warmup, spec.steps)
     real_opt, real_wire = steps_mod.adamw_update, steps_mod.compress_gradients
+    real_grid = ssm._maybe_fake_quant
     opt, wire = SyncTimer(real_opt), SyncTimer(real_wire)
     timed = SyncTimer(lambda state, batch, lr: step(state, batch, lr=lr))
     inst = SyncTimer(lambda state, batch, lr: step(state, batch, lr=lr))
-    seen = {}
+    seen, grid_grads = {}, []
 
-    def first_grads(grads, res, ccfg):
+    def first_grads(grads, res, ccfg, **kw):
         if not seen:
             seen.update({n: bool(g.any()) for n, g in grads.items()})
-        return real_wire(grads, res, ccfg)
+        return real_wire(grads, res, ccfg, **kw)
+
+    def grid_spy(x, q):
+        # the pre-grid state's gradient: it fires only where a later
+        # chunk reads the state (the final state is not trained on)
+        if q is not None and x.requires_grad:
+            rec = []
+            grid_grads.append(rec)
+            x.register_hook(lambda g, rec=rec: rec.append(g.abs().amax()))
+        return real_grid(x, q)
 
     steps_mod.compress_gradients = first_grads
     step = steps_mod.make_train_step(cfg, hp, quant=quant)
     losses, data_ms, prof = [], [], None
     try:
-        for i in range(TRAIN_STEPS):
+        for i in range(spec.steps):
             td = time.perf_counter()
             batch = next(pipe)
             data_ms.append((time.perf_counter() - td) * 1e3)
-            if profile and i == TRAIN_PROFILED[0]:
+            if profile and i == spec.profiled[0]:
                 from torch.profiler import ProfilerActivity, profile as prf
                 torch.cuda.synchronize()
                 prof = prf(activities=[ProfilerActivity.CUDA])
                 prof.__enter__()
                 tw = time.perf_counter()
+            ssm._maybe_fake_quant = grid_spy if (state_grads and i == 0) \
+                else real_grid
             state, m = timed(state, batch, lr_fn(i))
             losses.append(m["loss"])
-            if prof is not None and i == TRAIN_PROFILED[1] - 1:
+            if prof is not None and i == spec.profiled[1] - 1:
                 torch.cuda.synchronize()
                 window_us = (time.perf_counter() - tw) * 1e6
                 prof.__exit__(None, None, None)
+        ssm._maybe_fake_quant = real_grid
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - init_s
         steps_mod.adamw_update, steps_mod.compress_gradients = opt, wire
-        for _ in range(TRAIN_INSTRUMENTED):     # lr 0: the weights stay
+        for _ in range(spec.instrumented):     # lr 0: the weights stay
             state, _ = inst(state, next(pipe), 0.0)
         torch.cuda.synchronize()
     finally:
         steps_mod.adamw_update = real_opt
         steps_mod.compress_gradients = real_wire
+        ssm._maybe_fake_quant = real_grid
     clocks = card_clocks()
     losses = [float(x) for x in losses]
 
@@ -3779,11 +3873,12 @@ def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
         return float(np.median(ms)) if ms else None
 
     step_ms = [a.elapsed_time(b) for a, b, _ in timed.pairs]
-    med = median_ms(timed, TRAIN_TIMED_FROM)
+    med = median_ms(timed, spec.timed_from)
     opt_ms, wire_ms, inst_ms = median_ms(opt), median_ms(wire), \
         median_ms(inst)
-    data_med = float(np.median(data_ms[TRAIN_TIMED_FROM:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    data_med = float(np.median(data_ms[spec.timed_from:]))
+    tokens = spec.batch * spec.seq
+    last = min(5, spec.steps // 2)
     rec = {"label": label, "losses": losses, "step_ms": step_ms,
            "step_ms_median": med, "tok_per_s": tokens / med * 1e3,
            "data_ms": data_ms, "data_ms_median": data_med,
@@ -3795,28 +3890,30 @@ def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
            "ef_residual_bytes": ef_bytes, "init_s": init_s, "wall_s": wall,
            "clocks": clocks}
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"[train] ({label}) non-finite loss: {losses}")
-    if not np.mean(losses[-5:]) < losses[0]:
-        raise AssertionError(f"[train] ({label}) the last five losses' mean "
-                             f"{np.mean(losses[-5:])} is not below step 1's "
-                             f"{losses[0]}")
+        raise AssertionError(f"{tag} ({label}) non-finite loss: {losses}")
+    if not np.mean(losses[-last:]) < losses[0]:
+        raise AssertionError(f"{tag} ({label}) the last {last} losses' mean"
+                             f" {np.mean(losses[-last:])} is not below step "
+                             f"1's {losses[0]}")
     if rec["peak_gib"] >= TRAIN_PEAK_GIB:
-        raise AssertionError(f"[train] ({label}) peak {rec['peak_gib']:.2f}"
+        raise AssertionError(f"{tag} ({label}) peak {rec['peak_gib']:.2f}"
                              f" GiB: over the card's 80 GB")
-    print(f"[train] ({label}) loss step 1 {losses[0]:.4f}, step 10 "
-          f"{losses[9]:.4f}, step 20 {losses[19]:.4f} (mean of the last "
-          f"five {np.mean(losses[-5:]):.4f}); step {med:.1f} ms (median "
-          f"from step {TRAIN_TIMED_FROM + 1}, CUDA events), "
-          f"{rec['tok_per_s']:,.0f} tok/s; next(pipe) {data_med:.2f} ms "
-          f"(median, host clock); {TRAIN_INSTRUMENTED} instrumented steps "
-          f"{inst_ms:.1f} ms (median): AdamW {opt_ms:.1f} ms = "
-          f"{rec['optimizer_share_of_step']:.3f} of the uninstrumented step"
+    mid = (spec.steps + 1) // 2
+    print(f"{tag} ({label}) loss step 1 {losses[0]:.4f}, step {mid} "
+          f"{losses[mid - 1]:.4f}, step {spec.steps} {losses[-1]:.4f} (mean "
+          f"of the last {last} {np.mean(losses[-last:]):.4f}); step "
+          f"{med:.1f} ms (median from step {spec.timed_from + 1}, CUDA "
+          f"events), {rec['tok_per_s']:,.0f} tok/s; next(pipe) "
+          f"{data_med:.2f} ms (median, host clock); {spec.instrumented} "
+          f"instrumented steps {inst_ms:.1f} ms (median): AdamW "
+          f"{opt_ms:.1f} ms = {rec['optimizer_share_of_step']:.3f} of the "
+          f"uninstrumented step"
           + (f", int8 wire {wire_ms:.1f} ms" if wire_ms else "")
           + f"; peak {rec['peak_gib']:.2f} GiB; optimizer state "
           f"{opt_bytes / 1e9:.2f} GB"
           + (f" + error-feedback residual {ef_bytes / 1e9:.2f} GB"
              if ef_bytes else "")
-          + f"; init {init_s:.1f} s, {TRAIN_STEPS} steps {wall:.1f} s; "
+          + f"; init {init_s:.1f} s, {spec.steps} steps {wall:.1f} s; "
           f"SM clock, max, power, temperature after the steps: {clocks}",
           flush=True)
     if int8:
@@ -3824,17 +3921,34 @@ def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
                   if n.startswith("layers.") and p.dim() >= 2]
         dead = [n for n in blocks if not seen.get(n)]
         if dead:
-            raise AssertionError(f"[train] ({label}) block matrices with a "
+            raise AssertionError(f"{tag} ({label}) block matrices with a "
                                  f"zero gradient at step 1 (C5): {dead}")
         rec["block_matrices_with_gradient"] = len(blocks)
-        print(f"[train] ({label}) step 1: all {len(blocks)} block matrices "
+        print(f"{tag} ({label}) step 1: all {len(blocks)} block matrices "
               f"have a nonzero gradient (the straight-through fake-quant, "
               f"C5)", flush=True)
+    if state_grads:
+        fired = [float(r[0]) for r in grid_grads if r]
+        grids = sum(1 for li, (kind, _) in enumerate(
+            b.sig for b in model.layers) if kind in ("mamba", "mlstm")
+            and quant is not None and quant.layer_state(li) is not None)
+        if len(fired) != grids * (spec.seq // min(cfg.ssm_chunk, spec.seq)
+                                  - 1) or not all(f > 0 for f in fired):
+            raise AssertionError(f"{tag} ({label}) step 1: the gradient "
+                                 f"through the state grid reached "
+                                 f"{sum(f > 0 for f in fired)} of {grids} "
+                                 f"layers' chunk boundaries (C8)")
+        rec["state_boundaries_with_gradient"] = len(fired)
+        print(f"{tag} ({label}) step 1: the gradient reaches the state "
+              f"before the grid at all {len(fired)} chunk boundaries "
+              f"({grids} layers, state {quant.layer_state(0)}), largest "
+              f"{max(fired):.3e}, smallest {min(fired):.3e} (the "
+              f"straight-through state grid, C8)", flush=True)
     if prof is not None:
         evs, busy, by_name = device_activity(prof)
-        n = TRAIN_PROFILED[1] - TRAIN_PROFILED[0]
+        n = spec.profiled[1] - spec.profiled[0]
         if not evs:
-            print(f"[train] ({label}) torch.profiler recorded no device "
+            print(f"{tag} ({label}) torch.profiler recorded no device "
                   f"activity", flush=True)
         else:
             kernel_us = sum(t for _, t in by_name.values())
@@ -3846,15 +3960,15 @@ def train_arm(cfg, label: str, seed: int, *, quant=None, int8: bool,
                 "top": sorted(((t / n, c // n, k[:70]) for k, (c, t)
                                in by_name.items()), reverse=True)[:5]}
             p = rec["profile"]
-            print(f"[train] ({label}) profiled steps {TRAIN_PROFILED[0] + 1}"
-                  f"-{TRAIN_PROFILED[1]}: {p['window_ms_a_step']:.1f} ms a "
+            print(f"{tag} ({label}) profiled steps {spec.profiled[0] + 1}"
+                  f"-{spec.profiled[1]}: {p['window_ms_a_step']:.1f} ms a "
                   f"step (host clock), device busy "
                   f"{p['device_busy_ms_a_step']:.1f} ms, idle share "
                   f"{p['device_idle_share']:.3f}; {p['kernels_a_step']:.0f} "
                   f"device kernels a step ({kernel_us / n / 1e3:.1f} ms of "
                   f"kernel time)", flush=True)
             for t, c, k in p["top"]:
-                print(f"[train]   {t / 1e3:8.3f} ms in {c:5d} x {k}",
+                print(f"{tag}   {t / 1e3:8.3f} ms in {c:5d} x {k}",
                       flush=True)
     return rec, model
 
@@ -3959,12 +4073,13 @@ def train_resume_check(seed: int) -> dict:
             same}
 
 
-def train_trace(cfg, seed: int):
-    """8 requests of 64-256 prompt tokens from the port's ``lm_batch``
-    (the corpus the model trained on), 16 new tokens each."""
+def train_trace(cfg, seed: int, traffic=TRAIN_TRAFFIC):
+    """``traffic``'s requests (8 of 64-256 prompt tokens, 16 new tokens
+    each, by default) from the port's ``lm_batch`` (the corpus the
+    decoders trained on)."""
     from repro_torch.data.lm import lm_batch
     from repro_torch.launch.serve import Request
-    t = TRAIN_TRAFFIC
+    t = traffic
     dcfg = train_data(cfg, batch=t["n"], seq=t["hi"], seed=seed)
     toks = lm_batch(dcfg, 10 ** 6)["tokens"].numpy()
     lens = np.random.default_rng(seed + 3).integers(t["lo"], t["hi"] + 1,
@@ -3973,14 +4088,16 @@ def train_trace(cfg, seed: int):
             for i, L in enumerate(lens)]
 
 
-def train_serve_check(cfg, tree, seed: int):
-    """(d): the trained weights (``params_to_numpy`` of arm 1, on the
-    host) into a bf16 serving model (``params_from_numpy``), served by
-    ``BatchedServer`` at page size 16, int8 KV, batch 4: the gather route,
-    the kernel route fed its tokens (gated, B1 held against plain on one
-    captured decode step and one 32-query prefill forward, every layer, at
-    G = 1), and the kernel route free-running (its agreement printed).
-    Returns (B1 launches, record)."""
+def train_serve_check(cfg, tree, seed: int, *, tag: str = "[train]",
+                      arch: str = TRAIN_ARCH, traffic=TRAIN_TRAFFIC):
+    """(d): the trained weights (``params_to_numpy``, on the host) into a
+    bf16 serving model (``params_from_numpy``), served by
+    ``BatchedServer`` at page size 16, int8 KV, batch 4 on
+    :func:`train_trace`'s ``traffic``: the gather route, the kernel route
+    fed its tokens (gated, B1 held against plain on one captured decode
+    step and one 32-query prefill forward, every layer, at the config's
+    G), and the kernel route free-running (its agreement printed); lines
+    under ``tag``. Returns (B1 launches, record)."""
     import gc
 
     import torch
@@ -3994,7 +4111,7 @@ def train_serve_check(cfg, tree, seed: int):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     L, G = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
-    trace = lambda c, sd: train_trace(c, sd)      # noqa: E731
+    trace = lambda c, sd: train_trace(c, sd, traffic)      # noqa: E731
     runs, caps, launches = {}, {}, 0
     for label, impl, forced_by in (("gather", "gather", None),
                                    ("kernel", "kernel", "gather"),
@@ -4020,37 +4137,37 @@ def train_serve_check(cfg, tree, seed: int):
                 attention.paged_kv_attention_chunk = chunk_cap.fn
         n = paged_kv_attention_chunk.launches
         if impl == "kernel" and n != L * st["program_launches"]:
-            raise AssertionError(f"[train] (d) {label}: B1 launches {n} != "
+            raise AssertionError(f"{tag} (d) {label}: B1 launches {n} != "
                                  f"{L} layers x {st['program_launches']} "
                                  f"programs")
         if impl == "gather" and n:
-            raise AssertionError(f"[train] (d) the gather route launched "
+            raise AssertionError(f"{tag} (d) the gather route launched "
                                  f"B1 {n} times")
         launches += n
         st["b1_launches"] = n
         runs[label] = (reqs, st)
-        print(f"[train] (d) {label}: {st['tok_per_s']:.1f} tok/s, decode "
+        print(f"{tag} (d) {label}: {st['tok_per_s']:.1f} tok/s, decode "
               f"step {st['decode_step_ms']:.2f} ms x {st['decode_steps']}, "
               f"prefill forward {st['prefill_forward_ms']:.2f} ms x "
               f"{st['prefill_forwards']}, B1 x {n}, peak "
               f"{st['max_memory_allocated_gib']:.2f} GiB", flush=True)
         if cap is not None:
-            what = f"(d) trained {TRAIN_ARCH} kv_bits=8 G={G}"
+            what = f"(d) trained {arch} kv_bits=8 G={G}"
             caps = {"decode": check_captured_b1(cap.saved, what,
-                                                tag="[train]"),
+                                                tag=tag),
                     "prefill": check_captured_b1_chunk(chunk_cap.saved,
-                                                       what, tag="[train]")}
+                                                       what, tag=tag)}
     gate = accuracy_gate([r.out for r in runs["gather"][0]],
                          [r.out for r in runs["kernel"][0]])
     free = decode_agreement([r.out for r in runs["gather"][0]],
                             [r.out for r in runs["kernel-free"][0]])
-    print(f"[train] (d) kernel vs gather route, teacher-forced: agreement "
+    print(f"{tag} (d) kernel vs gather route, teacher-forced: agreement "
           f"{gate['agreement']:.4f} ({gate['below_floor']} below 0.5) -> "
           f"{'pass' if gate['passed'] else 'FAIL'}; free-running "
           f"{free['overall']:.4f}; weights loaded in {load_s:.1f} s",
           flush=True)
     if not gate["passed"]:
-        raise AssertionError(f"[train] (d) fails the gate: {gate}")
+        raise AssertionError(f"{tag} (d) fails the gate: {gate}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4135,6 +4252,441 @@ def train_phase(seed: int):
               "card_vs_cpu": card, "resume": resume, "serve": serve,
               "b1_launches": launches, "phase_s": wall, "part_s": part_s,
               "budget_s": TRAIN_BUDGET_S}
+    return launches, [record]
+
+
+# ---------------------------------------------------------------------------
+# [train2]: training the recurrent and encoder families and from embeddings
+# ---------------------------------------------------------------------------
+# (a)'s smoke cases: (label, arch, MoE dispatch or None, stub-frontend
+# embeddings, int8 moments and the int8 wire)
+TRAIN2_SMOKE = (
+    ("xlstm-350m-smoke", "xlstm-350m", None, False, False),
+    ("jamba-smoke eval_all", "jamba-v0.1-52b", "eval_all", False, False),
+    ("jamba-smoke scatter", "jamba-v0.1-52b", "scatter", False, False),
+    ("hubert-xlarge-smoke frames", "hubert-xlarge", None, True, False),
+    ("qwen2-vl-2b-smoke patches", "qwen2-vl-2b", None, True, False),
+    ("xlstm-350m-smoke int8 moments + wire", "xlstm-350m", None, False,
+     True))
+# two chunks of the recurrent smoke configs' 32; qwen2-vl: an 8 x 8 patch
+# grid, then 16 text positions
+TRAIN2_SMOKE_SEQ = {"qwen2-vl-2b": 80}
+# held against the CPU by blocks in lockstep: a float32 step's grad norm
+# parts by up to ~2e-5 between two devices from the same state (jamba's
+# MoE layers carry its residual at ~50; the xLSTM's stabilizers take
+# maxima, and with the int8 wire its raw gradients' norm parted by
+# 1.3e-5)
+TRAIN2_LOCKSTEP = {"jamba-v0.1-52b", "xlstm-350m"}
+# xlstm's step is ~3 s (the sLSTM's time loop, host-bound): 4 steps in
+# arm 1 (timed from step 2, the profiler on step 4), 3 in arm 2, one
+# instrumented step each
+TRAIN2_XLSTM = TrainSpec(tag="[train2]", steps=4, warmup=2, lr=1e-3,
+                         timed_from=1, profiled=(3, 4), instrumented=1)
+TRAIN2_FRONTEND = TrainSpec(tag="[train2]", steps=8, warmup=2, lr=1e-3,
+                            timed_from=2, profiled=(3, 4), instrumented=1,
+                            embeds=True)
+TRAIN2_TRAFFIC = dict(n=8, lo=40, hi=96, max_new=12)
+TRAIN2_BUDGET_S = 60
+
+
+def host_copy(tree):
+    """A nested tree of tensors copied to the host (on the CPU, ``.to``
+    shares the live storage that the next step updates in place)."""
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [host_copy(v) for v in tree]
+    return None if tree is None else tree.detach().cpu().clone()
+
+
+class BlockTap:
+    """Wraps ``models.transformer.block_apply`` for a train step: keeps
+    each block's positions, input and output (host copies) and, through
+    hooks, the gradients that reach its input and its output."""
+
+    def __init__(self, fn):
+        self.fn, self.rows = fn, []
+
+    def __call__(self, blk, x, positions, **kw):
+        row = {"pos": positions.cpu().clone(), "x": host_copy(x)}
+        self.rows.append(row)
+
+        def keep(key):
+            return lambda g: row.__setitem__(key, host_copy(g))
+        if x.requires_grad:
+            x.register_hook(keep("gx"))
+        y, cache, aux = self.fn(blk, x, positions, **kw)
+        row["y"] = host_copy(y)
+        y.register_hook(keep("gy"))
+        return y, cache, aux
+
+
+def lockstep_errors(model, cfg, rows, batch, grads, lb_coeff) -> float:
+    """One train step's gradients by blocks in lockstep against another
+    device's (``rows`` of its :class:`BlockTap`, ``grads`` its raw
+    gradients): the embedding, each block and the head run here on that
+    device's input and output gradient (a MoE block's lb loss at
+    ``lb_coeff``); returns the largest error over every parameter's
+    gradient, every block's output and every input gradient, each as a
+    share of its leaf's largest magnitude."""
+    import torch
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.common import cross_entropy, lm_head, rmsnorm
+
+    def err(got, want):
+        want = want.to(torch.float32)
+        return float((got.detach().to(torch.float32) - want).abs().max()
+                     / want.abs().max().clamp(min=1e-30))
+
+    worst = 0.0
+    for p in model.parameters():
+        p.grad = None
+    with torch.enable_grad():
+        xh = rows[-1]["y"].clone().requires_grad_(True)
+        h = rmsnorm(model.final_norm, xh, cfg.norm_eps)
+        cross_entropy(lm_head(model.head_weight(), h),
+                      batch["labels"]).backward()
+        worst = max(worst, err(xh.grad, rows[-1]["gy"]))
+        for blk, row in zip(model.layers, rows):
+            xi = row["x"].clone().requires_grad_(True)
+            y, _, aux = ttr.block_apply(blk, xi, row["pos"], cfg=cfg,
+                                        cache=None, cache_pos=None)
+            obj = (y * row["gy"]).sum()
+            if "moe_lb_loss" in aux:
+                obj = obj + lb_coeff * aux["moe_lb_loss"]
+            obj.backward()
+            worst = max(worst, err(y, row["y"]), err(xi.grad, row["gx"]))
+        e = model.embed_rows(batch["tokens"])
+        (e * rows[0]["gx"]).sum().backward()
+    for n, p in model.named_parameters():
+        got = torch.zeros_like(p) if p.grad is None else p.grad
+        if grads[n] is not None:
+            worst = max(worst, err(got, grads[n]))
+        elif bool(got.any()):
+            return float("inf")          # a gradient the card never had
+    return worst
+
+
+def smoke_train2(seed: int, device: str, replay=None) -> dict:
+    """(a) on ``device``: ``TRAIN_SMOKE_STEPS`` ``make_train_step`` steps
+    of each :data:`TRAIN2_SMOKE` case (float32 smoke configs) from the
+    seed's weights made on the CPU, on the same host-made batches (4 x 64
+    ``lm_batch`` tokens, or ``make_batch``'s stub-frontend batch). Per
+    case and step: the loss, the grad norm (of the wire's output with the
+    int8 wire), the raw gradients' norm, and with the wire the gradients
+    it passed on. Without ``replay``, also each step's starting train
+    state (``train_state_tree`` on the host) and, for a
+    :data:`TRAIN2_LOCKSTEP` arch, each step's raw gradients and
+    :class:`BlockTap` rows. With ``replay`` (such a record), each step
+    starts from the given state, and a lockstep arch's step is also held
+    by blocks against the given rows (:func:`lockstep_errors`)."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          load_train_state, make_train_step,
+                                          train_state_tree)
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    from repro_torch.optim.compress import CompressionConfig
+    real_opt, real_wire = steps_mod.adamw_update, steps_mod.compress_gradients
+    real_block = ttr.block_apply
+    rec = {}
+
+    def spy_opt(params, grads, *a, **kw):
+        rec["grads"] = grads
+        return real_opt(params, grads, *a, **kw)
+
+    def spy_wire(grads, *a, **kw):
+        rec["raw"] = grads
+        return real_wire(grads, *a, **kw)
+
+    def norm(grads):
+        return float(global_norm([g for g in grads.values()
+                                  if g is not None]))
+
+    out = {"steps": {}, "wire": {}, "states": {}, "taps": {}, "lockstep": {}}
+    steps_mod.adamw_update, steps_mod.compress_gradients = spy_opt, spy_wire
+    try:
+        for label, arch, mode, embeds, int8 in TRAIN2_SMOKE:
+            cfg = get_smoke_config(arch)
+            if mode:
+                cfg = dataclasses.replace(cfg, moe_mode=mode)
+            lock = arch in TRAIN2_LOCKSTEP
+            data = train_batches(cfg, TrainSpec(
+                batch=4, seq=TRAIN2_SMOKE_SEQ.get(arch, 64), embeds=embeds),
+                seed)
+            hp = TrainHParams(
+                lr=1e-3, adamw=AdamWConfig(quantize_moments=int8),
+                grad_compress=CompressionConfig() if int8 else None)
+            model = init_model(cfg, seed=seed, device="cpu", trainable=True)
+            state = init_train_state(cfg, hp, model=model.to(device))
+            step = make_train_step(cfg, hp)
+            res, wire, starts, taps, errs = [], [], [], [], []
+            for i in range(TRAIN_SMOKE_STEPS):
+                batch = {k: v.to(device) for k, v in data(i).items()}
+                if replay is not None:
+                    load_train_state(state, replay["states"][label][i], cfg)
+                    if lock:
+                        t = replay["taps"][label][i]
+                        errs.append(lockstep_errors(
+                            state["params"], cfg, t["rows"], batch,
+                            t["grads"], hp.lb_coeff))
+                else:
+                    starts.append(host_copy(train_state_tree(
+                        state, cfg, device="cpu")))
+                tap = BlockTap(real_block) if lock and replay is None \
+                    else None
+                rec.clear()
+                ttr.block_apply = tap or real_block
+                try:
+                    state, m = step(state, batch)
+                finally:
+                    ttr.block_apply = real_block
+                raw = rec.get("raw", rec["grads"])
+                res.append((float(m["loss"]), float(m["grad_norm"]),
+                            norm(raw)))
+                if int8:
+                    wire.append(host_copy(rec["grads"]))
+                if tap is not None:
+                    taps.append({"rows": tap.rows, "grads": host_copy(raw)})
+            out["steps"][label] = res
+            out["wire"][label] = wire
+            out["states"][label] = starts
+            out["taps"][label] = taps
+            out["lockstep"][label] = errs
+            del model, state
+    finally:
+        steps_mod.adamw_update = real_opt
+        steps_mod.compress_gradients = real_wire
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out
+
+
+def cpu_smoke_train2(seed: int, src: str, replay_path: str = "") -> dict:
+    """:func:`smoke_train2` on the CPU, in a child process, one thread:
+    free-running, or replaying the card's record saved (``torch.save``)
+    at ``replay_path``."""
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    replay = torch.load(replay_path) if replay_path else None
+    out = smoke_train2(seed, "cpu", replay)
+    return {k: out[k] for k in ("steps", "wire", "lockstep")}
+
+
+def wire_flips(card, cpu, groups) -> tuple:
+    """The int8 wire's output on two devices from the same state: values
+    one grid step apart (the group's absmax over 127, at a rounding tie
+    where the raw gradients differ by float ULPs) and the values
+    compared; raises on any other difference."""
+    flips = total = 0
+    by_name = {n: g for g in groups for n in g}
+    for n, want in cpu.items():
+        scale = max(float(cpu[m].abs().max())
+                    for m in by_name.get(n, (n,))) / 127
+        # scales that differ by ULPs move every value a little; a value
+        # that moved half a step or more crossed a tie
+        d = (card[n] - want).abs()
+        moved = d > 0.5 * scale
+        if bool((d[moved] > 1.001 * scale).any()):
+            raise AssertionError(f"[train2] (a) the wire's output of {n} "
+                                 f"differs by more than one grid step")
+        flips += int(moved.sum())
+        total += d.numel()
+    return flips, total
+
+
+def train2_card_vs_cpu(card: dict, cpu_free, cpu_replay) -> dict:
+    """(a): every :data:`TRAIN2_SMOKE` case trained on the card (TF32 off)
+    against the CPU, each step the CPU takes from the card's own starting
+    state (the weights, moments and residual the card held before it):
+    the loss within rtol 1e-5; the grad norm too, but for a
+    :data:`TRAIN2_LOCKSTEP` arch its gradients by blocks in lockstep, each
+    within 1e-4 of its leaf's largest magnitude (as the CPU tests hold
+    jamba: ROADMAP's parity traps); with the int8 wire, its output equal
+    but for counted one-step flips at rounding ties (at most 0.1%). The
+    free-running CPU
+    steps (from the same start, each package on its own state after) are
+    printed beside them: step 1 is the same step, and later steps part as
+    Adam turns gradients that differ by float ULPs into whole steps."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.steps import reference_groups
+    from repro_torch.models.transformer import Transformer
+    free, replay = cpu_free.result(), cpu_replay.result()
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    worst, failed = {}, []
+    for label, arch, _, _, int8 in TRAIN2_SMOKE:
+        mine, theirs = card["steps"][label], replay["steps"][label]
+        loss = max(rel(a[0], b[0]) for a, b in zip(mine, theirs))
+        gnorm = max(rel(a[1], b[1]) for a, b in zip(mine, theirs))
+        raw = max(rel(a[2], b[2]) for a, b in zip(mine, theirs))
+        drift = [max(rel(a[0], b[0]), rel(a[1], b[1]))
+                 for a, b in zip(mine, free["steps"][label])]
+        rec = {"loss": loss, "grad_norm": gnorm, "raw_grad_norm": raw,
+               "free_running": drift}
+        ok = loss <= 1e-5
+        extra = ""
+        if arch in TRAIN2_LOCKSTEP:
+            lock = max(replay["lockstep"][label])
+            rec["lockstep"] = lock
+            ok = ok and lock <= 1e-4
+            extra = f"; by blocks in lockstep: largest error {lock:.2e} of " \
+                    f"a leaf's largest magnitude (limit 1e-4)"
+        else:
+            ok = ok and gnorm <= 1e-5
+        if int8:
+            cfg = get_smoke_config(arch)
+            groups = reference_groups(Transformer(cfg, "meta"), cfg)
+            flips = total = 0
+            for a, b in zip(card["wire"][label], replay["wire"][label]):
+                f, n = wire_flips(a, b, groups)
+                flips, total = flips + f, total + n
+            rec["wire_flips"] = (flips, total)
+            ok = ok and flips <= 1e-3 * total
+            extra += f"; the wire's output: {flips} of {total} values one " \
+                     f"grid step apart (limit 0.1%)"
+        worst[label] = rec
+        if not ok:
+            failed.append(label)
+        (l1, g1, _), (l5, g5, _) = mine[0], mine[-1]
+        print(f"[train2] (a) {label}: {TRAIN_SMOKE_STEPS} steps, loss card "
+              f"{l1:.7f} -> {l5:.7f}, grad norm {g1:.5f} -> {g5:.5f}; each "
+              f"step on the CPU from the card's state, largest relative "
+              f"difference: loss {loss:.2e} (limit 1e-5), raw gradients' "
+              f"norm {raw:.2e}, grad norm {gnorm:.2e}"
+              + ("" if arch in TRAIN2_LOCKSTEP else " (limit 1e-5)")
+              + extra + "; free-running, by step: "
+              + " ".join(f"{d:.1e}" for d in drift), flush=True)
+    if failed:
+        raise AssertionError(f"[train2] (a) card and CPU part past their "
+                             f"limits: {failed}")
+    return {"card": card["steps"], "cpu_free": free["steps"],
+            "cpu_replay": replay["steps"], "worst": worst}
+
+
+def train2_phase(seed: int):
+    """``[train2]``: (a) the :data:`TRAIN2_SMOKE` cases trained on the
+    card, then against the CPU (child processes, free-running and from
+    the card's states, beside (b)-(d)); (b) xlstm-350m at its
+    published widths and depth, two arms of :data:`TRAIN2_XLSTM` at 4 x
+    512 ``lm_batch`` tokens (a state crosses one chunk boundary of 256):
+    fp32 moments (profiled), and W10 / D12 / KV8 with int8 moments and the
+    int8 wire (every block matrix's and every chunk boundary's step-1
+    gradient nonzero, C5 and C8); (c) hubert-xlarge at its published
+    widths and depth from stub frame embeddings (profiled); (d)
+    qwen2-vl-2b at its published widths and depth from patch embeddings
+    with M-RoPE ids, its trained weights then served through B1 at G = 6.
+    Each model is freed before the next. Float32 matmuls without TF32
+    (set by ``main``). Returns (B1 launches, records)."""
+    import concurrent.futures
+    import gc
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import build_quant
+    from repro_torch.models.transformer import params_to_numpy
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    free()
+    print(card_line(), flush=True)
+    print(f"[train2] card memory held before the phase: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    part_s, arms = {}, {}
+
+    def describe(cfg, what):
+        print(f"[train2] {cfg.name} at published widths and depth: "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype} compute over "
+              f"{cfg.param_dtype} masters ({cfg.param_count():,} "
+              f"parameters); {what}", flush=True)
+
+    tmp = tempfile.mkdtemp()
+    try:
+        cpu_free = rehearsal.submit(cpu_smoke_train2, seed, src)
+        t0 = time.perf_counter()
+        card_a = smoke_train2(seed, "cuda")
+        replay_path = str(Path(tmp) / "card.pt")
+        torch.save({k: card_a.pop(k) for k in ("states", "taps")},
+                   replay_path)
+        cpu_replay = rehearsal.submit(cpu_smoke_train2, seed, src,
+                                      replay_path)
+        part_s["a_card"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg = get_config("xlstm-350m")
+        sp = TRAIN2_XLSTM
+        describe(cfg, f"{sp.steps} steps of {sp.batch} x {sp.seq} lm_batch "
+                 f"tokens, chunk {cfg.ssm_chunk}, lr {sp.lr}, warm-up "
+                 f"{sp.warmup}")
+        arms["b1"], model = train_arm(cfg, "b1 fp32 moments", seed,
+                                      int8=False, profile=True, spec=sp)
+        del model
+        free()
+        quant = build_quant(cfg, weight_bits=10, data_bits=12, kv_bits=8,
+                            policy_json="")
+        arms["b2"], model = train_arm(
+            cfg, "b2 W10/D12/KV8 int8 moments int8 wire", seed, quant=quant,
+            int8=True, profile=False, spec=dataclasses.replace(sp, steps=3),
+            state_grads=True)
+        del model
+        free()
+        part_s["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg = get_config("hubert-xlarge")
+        sp = TRAIN2_FRONTEND
+        describe(cfg, f"{sp.steps} steps of {sp.batch} x {sp.seq} stub "
+                 f"frame embeddings, unit labels over {cfg.vocab_size}")
+        arms["c"], model = train_arm(cfg, "c hubert-xlarge frames", seed,
+                                     int8=False, profile=True, spec=sp)
+        del model
+        free()
+        part_s["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vcfg = get_config("qwen2-vl-2b")
+        describe(vcfg, f"{sp.steps} steps of {sp.batch} x {sp.seq} stub "
+                 f"patch embeddings with M-RoPE ids (make_batch)")
+        arms["d"], model = train_arm(vcfg, "d qwen2-vl-2b patches", seed,
+                                     int8=False, profile=False, spec=sp)
+        tree = params_to_numpy(model, vcfg)
+        del model
+        free()
+        part_s["d_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = train2_card_vs_cpu(card_a, cpu_free, cpu_replay)
+        part_s["a_wait"] = time.perf_counter() - t0
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    launches, serve = train_serve_check(vcfg, tree, seed, tag="[train2]",
+                                        arch=vcfg.name,
+                                        traffic=TRAIN2_TRAFFIC)
+    del tree
+    part_s["d_serve"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    print(f"[train2] main path: {launches} B1 launches = layers x programs "
+          f"over the kernel runs of (d); phase {wall:.1f} s against a "
+          f"{TRAIN2_BUDGET_S} s budget (" + ", ".join(
+              f"({k}) {v:.1f}" for k, v in part_s.items()) + " s)",
+          flush=True)
+    record = {"phase": "train2", "arms": arms, "card_vs_cpu": card,
+              "serve": serve, "b1_launches": launches, "phase_s": wall,
+              "part_s": part_s, "budget_s": TRAIN2_BUDGET_S}
     return launches, [record]
 
 
@@ -4514,7 +5066,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
-                             "ssm", "frontend", "bench", "train"],
+                             "ssm", "frontend", "bench", "train",
+                             "train2"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -4574,6 +5127,10 @@ def main(argv=None) -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         train_phase(SEED)
         return 0
+    if args.phase == "train2":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        train2_phase(SEED)
+        return 0
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'}", flush=True)
     hmma = kernel_build_report()
@@ -4588,9 +5145,11 @@ def main(argv=None) -> int:
         fe_launches, fe_runs = frontend_phase(SEED)
         bench_launches, bench_runs = bench_phase(SEED)
         train_launches, train_runs = train_phase(SEED)
+        train2_launches, train2_runs = train2_phase(SEED)
         launches += (moe_launches + ssm_launches + fe_launches
-                     + bench_launches + train_launches)
-        runs += moe_runs + ssm_runs + fe_runs + bench_runs + train_runs
+                     + bench_launches + train_launches + train2_launches)
+        runs += (moe_runs + ssm_runs + fe_runs + bench_runs + train_runs
+                 + train2_runs)
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

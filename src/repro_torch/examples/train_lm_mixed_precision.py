@@ -10,8 +10,10 @@ baseline while its boundary tensors carry 3x fewer bits. The weight and
 data fake-quant are straight-through estimators, so every block matrix
 learns in the quantized run.
 
-The model is the ``--arch`` smoke config (deepseek-7b's by default),
-batch 8 x 256 tokens.
+The model is the ``--arch`` smoke config (deepseek-7b's by default;
+every arch of the registry trains, ``--arch xlstm-350m`` too, whose
+mLSTM memories sit on the layers' KV grid at each chunk boundary in the
+quantized run), batch 8 x 256 tokens.
 
     python -m repro_torch.examples.train_lm_mixed_precision \\
         [--steps N] [--device cpu]

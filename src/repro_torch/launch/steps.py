@@ -68,18 +68,39 @@ def reference_decay(model: Transformer, cfg) -> frozenset:
                      if p is not None or params[n].dim() >= 2)
 
 
+def reference_groups(model: Transformer, cfg) -> tuple:
+    """The parameters that make up one leaf of the reference's tree, a
+    tuple of name tuples: each layer leaf's periods (its stacked leaf),
+    for the leaves of more than one period. The int8 wire gives each
+    group one scale, as the reference gives its stacked leaf."""
+    groups = {}
+    for n, path, p in reference_layout(model, cfg):
+        if p is not None:
+            groups.setdefault(path, []).append(n)
+    return tuple(tuple(g) for g in groups.values() if len(g) > 1)
+
+
 def make_train_step(cfg, hp: TrainHParams, *, quant=None):
     """fn(state, batch, *, lr=None) -> (state, metrics): loss and
     gradients, then (with ``hp.grad_compress``) the int8 wire with error
-    feedback, then AdamW at ``lr`` (``hp.lr`` when None: a schedule passes
-    each step's rate); the state is updated in place. Metrics: the loss
-    terms of ``train_loss``, ``grad_norm`` and ``clip`` (0-dim tensors)."""
-    decays = weakref.WeakKeyDictionary()      # model -> reference_decay
+    feedback, one scale per leaf of the reference's tree
+    (:func:`reference_groups`), then AdamW at ``lr`` (``hp.lr`` when
+    None: a schedule passes each step's rate); the state is updated in
+    place. ``batch`` is :func:`models.transformer.train_loss`'s. A
+    parameter the loss never reads (a frontend arch's embedding table fed
+    embeddings) has a zero gradient, as the reference's ``jax.grad``
+    gives it: it adds nothing to the grad norm, goes through the wire as
+    zeros, and AdamW ages its moments and decays it. Metrics: the loss
+    terms of ``train_loss``, ``grad_norm`` and ``clip`` (0-dim
+    tensors)."""
+    layouts = weakref.WeakKeyDictionary()   # model -> (decay, groups)
 
     def step(state, batch, *, lr=None):
         model = state["params"]
-        if model not in decays:
-            decays[model] = reference_decay(model, cfg)
+        if model not in layouts:
+            layouts[model] = (reference_decay(model, cfg),
+                              reference_groups(model, cfg))
+        decay, groups = layouts[model]
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -94,10 +115,11 @@ def make_train_step(cfg, hp: TrainHParams, *, quant=None):
             grads = {n: torch.zeros_like(params[n]) if g is None else g
                      for n, g in grads.items()}
             grads, state["ef_residual"] = compress_gradients(
-                grads, state["ef_residual"], hp.grad_compress)
+                grads, state["ef_residual"], hp.grad_compress,
+                groups=groups)
         _, state["opt"], opt_metrics = adamw_update(
             params, grads, state["opt"], hp.lr if lr is None else lr,
-            hp.adamw, decay=decays[model])
+            hp.adamw, decay=decay)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(opt_metrics)
         return state, metrics

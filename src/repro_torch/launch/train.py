@@ -7,10 +7,15 @@ paper's per-layer precision as flags (weights, data, KV), async
 checkpoints, and the restart supervisor with its straggler log. Runs on
 the CUDA card unless ``--device cpu``.
 
-Ported: the attention-only decoder families (dense, MoE, MLA with its
-multi-token prediction, qwen2-vl from tokens). The recurrent and encoder
-archs (ROADMAP queue A item 12, part 2) and ``--mesh single|multi`` (item
-13) raise.
+Trains every arch of the registry from ``lm_batch`` tokens, as the
+reference's launcher does: the dense, MoE and MLA decoders (with
+multi-token prediction), the recurrent xLSTM and Jamba (a ``--seq-len``
+that is not a multiple of the mixers' chunk raises the reference's
+ValueError), the encoder hubert (it has an embedding table) and qwen2-vl
+(plain RoPE from tokens). Training from a stub frontend's embeddings goes
+through ``launch.steps.make_train_step`` with
+``configs.shapes.make_batch`` batches; the reference's launcher has no
+flag for it. ``--mesh single|multi`` (ROADMAP queue A item 13) raises.
 
 Usage (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
@@ -23,11 +28,8 @@ import json
 import os
 import time
 
-import torch
-
 from .. import resolve_device
 from ..checkpoint.ckpt import CheckpointManager, latest_step
-from ..configs.counting import layer_signatures
 from ..configs.registry import get_config, get_smoke_config
 from ..core.fixedpoint import FixedPointFormat
 from ..core.policy import PrecisionPolicy
@@ -41,15 +43,6 @@ from ..runtime.fault import StragglerMonitor, TrainSupervisor
 from .serve import _not_ported
 from .steps import (TrainHParams, init_train_state, load_train_state,
                     make_train_step, train_state_tree)
-
-
-def check_trainable(cfg) -> None:
-    """Raise for the archs whose trainer is not ported: recurrent mixers
-    and encoders (ROADMAP queue A item 12, part 2)."""
-    kinds = {kind for kind, _ in layer_signatures(cfg)}
-    if cfg.family == "encoder" or kinds != {"attn"}:
-        raise _not_ported(f"training {cfg.name} (recurrent and encoder "
-                          f"archs)", "12")
 
 
 def build_quant(cfg, *, weight_bits: int, data_bits: int, kv_bits: int,
@@ -109,7 +102,6 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.mesh != "host":
         raise _not_ported(f"--mesh {args.mesh}", "13")
-    check_trainable(cfg)
     dev = resolve_device(args.device)
 
     hp = TrainHParams(

@@ -14,7 +14,8 @@ compute dtype (Mamba's conv window is in the compute dtype). Masks go in
 the exponent, before ``exp``. ``state_quant`` = (I, F) puts the Mamba and
 mLSTM states on the Q(I,F) grid at every chunk boundary (the paper's
 "data" applied to a recurrent state), rounding half to even as
-``jnp.round``; the sLSTM's states stay float, as in the reference. An
+``jnp.round``, with a straight-through gradient under autograd; the
+sLSTM's states stay float, as in the reference. An
 apply returns new state tensors and never writes the state it is given
 (the server keeps the states of slots it is not prefilling by that).
 
@@ -40,16 +41,47 @@ State = Dict[str, torch.Tensor]
 SLSTM_M0 = -1e30          # the sLSTM stabilizer's initial value
 
 
-def _maybe_fake_quant(x: torch.Tensor,
-                      quant: Optional[Tuple[int, int]]) -> torch.Tensor:
-    """``x`` on the Q(I,F) grid of ``quant`` (None: unchanged), rounding
-    half to even (``torch.round``, as the reference's ``jnp.round``) and
-    clipping, in float32; returned in x's dtype."""
-    if quant is None:
-        return x
+def _state_grid(x: torch.Tensor, quant: Tuple[int, int]) -> torch.Tensor:
+    """``x`` on the Q(I,F) grid of ``quant``, rounding half to even
+    (``torch.round``, as the reference's ``jnp.round``) and clipping, in
+    float32; returned in x's dtype."""
     scale, qmin, qmax = format_params(*quant)
     q = torch.clamp(torch.round(x.to(torch.float32) * scale), qmin, qmax)
     return (q / scale).to(x.dtype)
+
+
+class _StateGridSTE(torch.autograd.Function):
+    """Straight-through state grid: the forward is :func:`_state_grid`;
+    the gradient passes unchanged where ``x * 2^F`` lies inside the grid's
+    range and is 0 where it clips (``core.fixedpoint.fake_quant_ste``'s
+    rule)."""
+
+    @staticmethod
+    def forward(ctx, x, quant):
+        scale, qmin, qmax = format_params(*quant)
+        s = x.to(torch.float32) * scale
+        ctx.save_for_backward((s >= qmin) & (s <= qmax))
+        return _state_grid(x, quant)
+
+    @staticmethod
+    def backward(ctx, g):
+        (in_range,) = ctx.saved_tensors
+        return torch.where(in_range, g, torch.zeros_like(g)), None
+
+
+def _maybe_fake_quant(x: torch.Tensor,
+                      quant: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """``x`` on the Q(I,F) grid of ``quant`` (None: unchanged), as
+    :func:`_state_grid`. Under autograd the grid is straight-through
+    (:class:`_StateGridSTE`): its values are the same bit for bit, and the
+    gradient reaches the state before the boundary. (The reference rounds
+    with ``jnp.round``, whose derivative is 0, so its gradient stops at
+    every chunk boundary under a KV format: ROADMAP C8.)"""
+    if quant is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _StateGridSTE.apply(x, quant)
+    return _state_grid(x, quant)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

@@ -675,17 +675,23 @@ def forward(model: Transformer, tokens, cfg, **kw):
 
 def train_loss(model: Transformer, batch, cfg, *,
                quant: Optional[ModelQuant] = None, lb_coeff: float = 0.01):
-    """The training loss of ``batch`` ({"tokens" (B, S), "labels" (B, S),
-    optional "mask"}): token cross-entropy (:func:`chunked_ce_loss` when
+    """The training loss of ``batch``, the reference's batch: "tokens"
+    (B, S) or, from a stub frontend, "embeds" (B, S, D); "labels" (B, S);
+    optional "positions" (B, S), "mrope_positions" (B, S, 3) and "mask"
+    (B, S), the first three as :func:`forward_hidden` takes them. The
+    loss is token cross-entropy (:func:`chunked_ce_loss` when
     ``cfg.loss_chunk`` > 0), plus ``lb_coeff`` times the MoE load-balance
     loss for a MoE config, plus 0.3 times the multi-token-prediction loss
     when ``cfg.mtp_depth`` > 0 (the hidden state at t beside the embedding
     of token t + 1, projected, through the MTP block and norm, against
-    label t + 1). Returns (loss, metrics): ``ce_loss``, ``moe_lb_loss``,
-    ``mtp_loss`` (with MTP) and ``loss``, float32 scalars, as the
-    reference's."""
-    tokens, labels = batch["tokens"], batch["labels"]
-    hidden, _, aux = forward_hidden(model, tokens, cfg, quant=quant)
+    label t + 1; it reads ``batch["tokens"]``, as the reference's does).
+    Returns (loss, metrics): ``ce_loss``, ``moe_lb_loss``, ``mtp_loss``
+    (with MTP) and ``loss``, float32 scalars, as the reference's."""
+    labels = batch["labels"]
+    hidden, _, aux = forward_hidden(
+        model, batch.get("tokens"), cfg, quant=quant,
+        embeds=batch.get("embeds"), positions=batch.get("positions"),
+        mrope_positions=batch.get("mrope_positions"))
     if cfg.loss_chunk > 0:
         loss = chunked_ce_loss(hidden, model.head_weight(), labels,
                                chunk=cfg.loss_chunk, mask=batch.get("mask"))
@@ -697,7 +703,7 @@ def train_loss(model: Transformer, batch, cfg, *,
         loss = loss + lb_coeff * aux["moe_lb_loss"]
     if cfg.mtp_depth > 0:
         mtp = _quant_weights(model.mtp, None)
-        nxt = model.embed_rows(tokens[:, 1:])
+        nxt = model.embed_rows(batch["tokens"][:, 1:])
         h = torch.cat([hidden[:, :-1], nxt], dim=-1) @ mtp.proj
         pos = torch.arange(h.shape[1], device=h.device)[None, :].expand(
             h.shape[0], -1)

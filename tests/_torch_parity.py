@@ -13,12 +13,14 @@ import torch
 
 from repro.configs.registry import get_smoke_config as jax_smoke_config
 from repro.core.fixedpoint import FixedPointFormat as JFormat
+from repro.core.fixedpoint import format_params as jformat_params
 from repro.core.fixedpoint import fake_quant as jfake_quant
 from repro.core.policy import LayerPolicy as JLayer
 from repro.core.policy import PrecisionPolicy as JPolicy
 from repro.core.qtensor import QuantizedTensor as JQT
 from repro.data.synthetic import digits_dataset, shapes32_dataset
 from repro.models import cnn as jax_cnn
+from repro.models import ssm as jssm
 from repro.models import transformer as jtr
 from repro.models.transformer import init_model as jax_init_model
 from repro.quant.apply import build_model_quant as jbuild
@@ -115,6 +117,40 @@ def perturbed_jax_params(arch: str = "qwen2-72b", seed: int = 0, *,
         tree["mtp"]["norm"]["scale"] = uniform(tree["mtp"]["norm"]["scale"])
     jparams = jax.tree_util.tree_map(jax.numpy.asarray, tree)
     return jcfg, tcfg, jparams, tree
+
+
+# ---------------------------------------------------------------------------
+# the reference's state grid, straight-through (C8)
+# ---------------------------------------------------------------------------
+_REF_STATE_GRID = jssm._maybe_fake_quant
+
+
+@jax.custom_vjp
+def _ref_state_ste(x, int_bits, frac_bits):
+    return _REF_STATE_GRID(x, (int_bits, frac_bits))
+
+
+def _ref_state_ste_fwd(x, int_bits, frac_bits):
+    scale, qmin, qmax = jformat_params(int_bits, frac_bits)
+    s = x.astype(jnp.float32) * scale
+    return (_REF_STATE_GRID(x, (int_bits, frac_bits)),
+            ((s >= qmin) & (s <= qmax),))
+
+
+def _ref_state_ste_bwd(res, g):
+    (in_range,) = res
+    return jnp.where(in_range, g, 0.0).astype(g.dtype), None, None
+
+
+_ref_state_ste.defvjp(_ref_state_ste_fwd, _ref_state_ste_bwd)
+
+
+def ref_state_grid_ste(x, quant):
+    """The reference's ``ssm._maybe_fake_quant`` with a straight-through
+    gradient inside the grid's range (the rule of its own
+    ``core.fixedpoint.fake_quant_ste``), for a test to patch in: its
+    forward is the reference's own grid."""
+    return x if quant is None else _ref_state_ste(x, *quant)
 
 
 def torch_model(tree, tcfg):

@@ -1,8 +1,12 @@
 """The port's checkpoints (``repro_torch.checkpoint.ckpt``) and fault
 supervisor (``runtime.fault``): the reference's own cases, the quantized
 containers byte for byte against the reference's, train states cross-
-loaded both ways between the packages on qwen2-72b-smoke, and C6 (a bf16
-leaf round-trips in the port; the reference's restore raises on it)."""
+loaded both ways between the packages on qwen2-72b-smoke, xlstm-350m-smoke
+and hubert-xlarge-smoke (trained from frame embeddings), a supervisor
+restart of xlstm-350m-smoke bitwise equal to an uninterrupted run, and C6
+(a bf16 leaf round-trips in the port; the reference's restore raises on
+it)."""
+import functools
 import os
 import sys
 import threading
@@ -16,6 +20,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_parity import perturbed_jax_params  # noqa: E402
+from test_torch_train import embeds_batch  # noqa: E402
 
 from repro.checkpoint import ckpt as jckpt  # noqa: E402
 from repro.core.fixedpoint import FixedPointFormat as JFormat  # noqa: E402
@@ -28,7 +33,10 @@ from repro.optim.compress import \
 from repro_torch.checkpoint.ckpt import (CheckpointManager,  # noqa: E402
                                          latest_step, restore_checkpoint,
                                          save_checkpoint)
+from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core.fixedpoint import FixedPointFormat  # noqa: E402
+from repro_torch.data.lm import LMDataConfig, lm_batch  # noqa: E402
+from repro_torch.data.pipeline import DataPipeline  # noqa: E402
 from repro_torch.core.policy import LayerPolicy, PrecisionPolicy  # noqa
 from repro_torch.launch.steps import (TrainHParams,  # noqa: E402
                                       init_train_state, load_train_state,
@@ -230,17 +238,22 @@ def test_quantized_containers_equal_the_reference(tmp_path, fmt):
                                   np.asarray(want["params"]["layer_000"]))
 
 
-@pytest.fixture(scope="module")
-def qwen_states():
-    """qwen2-72b-smoke train states after one reference train step (so
-    moments and residuals are not zero): fp32 moments, and int8 moments
+@functools.lru_cache(maxsize=None)
+def _ref_states(arch, embeds=False):
+    """An arch's smoke train states after one reference train step (so
+    moments and residuals are not zero), from tokens or (``embeds``) from
+    ``make_batch``'s stub-frontend batch: fp32 moments, and int8 moments
     with the int8 gradient wire."""
-    jcfg, tcfg, jparams, tree = perturbed_jax_params("qwen2-72b", jit=True)
-    rng = np.random.default_rng(0)
-    tok = rng.integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
-    batch = {"tokens": jnp.asarray(tok),
-             "labels": jnp.asarray(np.concatenate(
-                 [tok[:, 1:], np.full((2, 1), -100, np.int32)], 1))}
+    jcfg, tcfg, jparams, tree = perturbed_jax_params(arch, jit=True)
+    if embeds:
+        batch = {k: jnp.asarray(v) for k, v in
+                 embeds_batch(tcfg, B=2, S=12).items()}
+    else:
+        rng = np.random.default_rng(0)
+        tok = rng.integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
+        batch = {"tokens": jnp.asarray(tok),
+                 "labels": jnp.asarray(np.concatenate(
+                     [tok[:, 1:], np.full((2, 1), -100, np.int32)], 1))}
     out = {}
     for arm, q in (("fp32", False), ("int8", True)):
         jhp = jsteps.TrainHParams(
@@ -253,6 +266,12 @@ def qwen_states():
         jstate, _ = jax.jit(jsteps.make_train_step(jcfg, jhp))(jstate, batch)
         out[arm] = (jcfg, tcfg, jstate, thp, tree)
     return out
+
+
+@pytest.fixture(scope="module")
+def qwen_states():
+    """qwen2-72b-smoke's :func:`_ref_states`."""
+    return _ref_states("qwen2-72b")
 
 
 def _port_state(tcfg, thp, tree):
@@ -271,7 +290,22 @@ def test_train_state_cross_loads_both_ways(tmp_path, qwen_states, arm):
     the port's state leaf for leaf (the layers unstacked); the port's
     saved state restores in the reference to the same tree, under the
     same keys."""
-    jcfg, tcfg, jstate, thp, tree = qwen_states[arm]
+    _cross_load(tmp_path, *qwen_states[arm])
+
+
+@pytest.mark.parametrize("arm", ["fp32", "int8"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hubert-xlarge"])
+def test_recurrent_and_encoder_train_states_cross_load_both_ways(
+        tmp_path, arch, arm):
+    """As the qwen2-72b case, for a recurrent train state (xlstm: mLSTM
+    and sLSTM leaves stacked over two periods) and an encoder's trained
+    from frame embeddings (hubert: the unread embedding table decayed,
+    its moments zero)."""
+    _cross_load(tmp_path, *_ref_states(arch, embeds=arch == "hubert-xlarge")
+                [arm])
+
+
+def _cross_load(tmp_path, jcfg, tcfg, jstate, thp, tree):
     dj, dt = str(tmp_path / "j"), str(tmp_path / "t")
     jckpt.save_checkpoint(dj, 5, jstate, extra={"data": {"step": 5}})
     state = _port_state(tcfg, thp, tree)
@@ -293,6 +327,66 @@ def test_train_state_cross_loads_both_ways(tmp_path, qwen_states, arm):
         dt, jax.eval_shape(lambda: jstate))
     for k, v in _flat_np(back).items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+def test_supervisor_restart_of_xlstm_is_bitwise(tmp_path):
+    """xlstm-350m-smoke (int8 moments, the int8 wire) trained 6 steps
+    under ``TrainSupervisor`` with a checkpoint every 3 steps and a
+    ``FaultInjection`` at step 4 (restored from step 3, the pipeline
+    rewound to it): parameters, moments and residuals bit for bit those
+    of 6 uninterrupted steps."""
+    cfg = get_smoke_config("xlstm-350m")
+    dcfg = LMDataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                        batch_size=4, seed=1)
+    hp = TrainHParams(lr=3e-3, adamw=AdamWConfig(quantize_moments=True),
+                      grad_compress=CompressionConfig())
+    step_fn = make_train_step(cfg, hp)
+
+    def fresh():
+        return init_train_state(cfg, hp, seed=0, device="cpu")
+
+    def flat(state):
+        return _flat_np(jax.tree_util.tree_map(
+            lambda t: t.numpy(), train_state_tree(state, cfg)))
+
+    state = fresh()
+    pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device="cpu")
+    for _ in range(6):
+        state, _ = step_fn(state, next(pipe))
+    want = flat(state)
+
+    state = fresh()
+    pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device="cpu")
+    ckpt = CheckpointManager(str(tmp_path / "ck"), interval=3)
+    template = train_state_tree(state, cfg, device="meta")
+    fail = {4}
+
+    def one_step(st, step):
+        if step in fail:
+            fail.discard(step)
+            raise FaultInjection(f"node lost at step {step}")
+        return step_fn(st, next(pipe))
+
+    def save_hook(step, st):
+        ckpt.maybe_save(step, train_state_tree(st, cfg),
+                        extra={"data": {"step": step}})
+
+    def restore_fn():
+        ckpt.wait()
+        step, tree, extra = ckpt.restore_latest(template)
+        load_train_state(state, tree, cfg)
+        pipe.restore(extra["data"])
+        return step, state
+
+    sup = TrainSupervisor(step_fn=one_step, save_hook=save_hook,
+                          restore_fn=restore_fn)
+    state, _ = sup.run(state, 0, 6)
+    ckpt.wait()
+    assert sup.restarts == 1
+    got = flat(state)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_manager_save_survives_the_next_train_step(tmp_path, monkeypatch,

@@ -1477,3 +1477,153 @@ def test_cuda_train_bf16_checkpoint_round_trip(cuda, tmp_path):
     save_checkpoint(str(tmp_path), 1, tree)
     _, back, _ = restore_checkpoint(str(tmp_path), tree, device=cuda)
     assert same(tree, back)
+
+
+# ---------------------------------------------------------------------------
+# Training of the recurrent and encoder families and from embeddings: the
+# mixers' backward, the int8 wire's grouping (C7) and a VLM trained from
+# patch embeddings, each on the card against the CPU
+# ---------------------------------------------------------------------------
+def _mixer_grads(mod, apply, cfg, x, quant, weights, device):
+    """The gradients of every parameter and of the input of a weighted
+    sum of the mixer's output and returned state, on ``device``."""
+    import copy
+    m = copy.deepcopy(mod).to(device)
+    for p in m.parameters():
+        p.requires_grad_(True)
+    u = x.clone().to(device).requires_grad_(True)
+    y, st = apply(m, u, cfg=cfg, state_quant=quant)
+    loss = (y * weights["y"].to(device)).sum()
+    for k, v in st.items():
+        loss = loss + (v * weights[k].to(device)).sum()
+    loss.backward()
+    out = {n: p.grad for n, p in m.named_parameters()}
+    out["input"] = u.grad
+    return float(loss.detach()), {n: g.cpu() for n, g in out.items()}
+
+
+@pytest.mark.parametrize("kind,arch", [("mamba", "jamba-v0.1-52b"),
+                                       ("mlstm", "xlstm-350m"),
+                                       ("slstm", "xlstm-350m")])
+def test_cuda_train2_mixer_backward_matches_cpu(cuda, kind, arch):
+    """A recurrent mixer at its published widths in float32, its chunk
+    cut to 32 so that 64 tokens cross one boundary, float states: the
+    loss within rtol 1e-5 and every parameter's and the input's gradient
+    within 1e-4 of its largest magnitude, on the card against the CPU
+    (TF32 off). (On a state grid, the card and the CPU put a state value
+    at a rounding tie one grid step apart now and then, as any two
+    float programs do; the grid itself is held exactly below.)"""
+    quant = None
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              ssm_chunk=32)
+    mod_cls, init, apply, _ = ssm.MIXERS[kind]
+    g = torch.Generator().manual_seed(7)
+    m = mod_cls(cfg, torch.float32, "cpu")
+    with torch.no_grad():
+        init(m, g)
+    x = torch.randn((2, 64, cfg.d_model), generator=g)
+    y, st = apply(m, x, cfg=cfg)
+    weights = {"y": torch.randn(y.shape, generator=g)}
+    weights.update({k: torch.randn(v.shape, generator=g)
+                    for k, v in st.items()})
+    lc, gc = _mixer_grads(m, apply, cfg, x, quant, weights, cuda)
+    lh, gh = _mixer_grads(m, apply, cfg, x, quant, weights, "cpu")
+    assert lc == pytest.approx(lh, rel=1e-5)
+    for n, want in gh.items():
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((gc[n] - want).abs().max())
+        assert err <= 1e-4 * scale, (n, err, scale)
+
+
+@pytest.mark.parametrize("fmt", [(2, 6), (4, 4)])
+def test_cuda_train2_state_grid_is_straight_through_as_on_cpu(cuda, fmt):
+    """C8 on the card: the recurrent state grid under autograd (Q2.6 of
+    KV8 alone, Q4.4 of KV8 under D12) returns the CPU's values bit for bit
+    (ties half to even, clipping) and passes the gradient where the CPU
+    does: 1 inside the range, 0 where it clips."""
+    from repro_torch.models import ssm
+    scale = 2.0 ** fmt[1]
+    ties = (torch.arange(-600, 600, dtype=torch.float32) + 0.5) / scale
+    x = torch.cat([ties, 4 * torch.randn(
+        (4, 4, 64, 65), generator=torch.Generator().manual_seed(2)
+    ).reshape(-1)])
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        xg = x.clone().to(dev).requires_grad_(True)
+        y = ssm._maybe_fake_quant(xg, fmt)
+        y.backward(torch.ones_like(y))
+        out.append((y.detach().cpu(), xg.grad.cpu()))
+    (yc, gc), (yh, gh) = out
+    assert torch.equal(yc, yh)
+    assert torch.equal(gc, gh)
+    assert 0 < float(gh.sum()) < gh.numel()
+
+
+def test_cuda_train2_wire_groups_match_cpu(cuda):
+    """C7 on the card: the int8 wire with the train step's grouping (one
+    scale per leaf of the reference's tree, ``reference_groups``) on
+    xlstm-350m-smoke's parameter shapes, three steps of shared gradients:
+    compressed gradients and residuals equal the CPU's exactly."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.steps import reference_groups
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.compress import (CompressionConfig,
+                                            compress_gradients,
+                                            error_feedback_init)
+    cfg = get_smoke_config("xlstm-350m")
+    model = init_model(cfg, device="cpu", trainable=True)
+    groups = reference_groups(model, cfg)
+    assert groups
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    rng = np.random.default_rng(3)
+    grads = [{n: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+              for n, s in shapes.items()} for _ in range(3)]
+    ccfg = CompressionConfig()
+    res_c = error_feedback_init({n: x.to(cuda) for n, x in grads[0].items()})
+    res_h = error_feedback_init(grads[0])
+    for gr in grads:
+        cc, res_c = compress_gradients({n: x.to(cuda) for n, x in gr.items()},
+                                       res_c, ccfg, groups=groups)
+        ch, res_h = compress_gradients(gr, res_h, ccfg, groups=groups)
+        for n in gr:
+            assert torch.equal(cc[n].cpu(), ch[n]), n
+            assert torch.equal(res_c[n].cpu(), res_h[n]), n
+
+
+def _train_embeds(device, arch, steps, seed=0):
+    """``steps`` train steps of an arch's smoke config on ``device`` from
+    ``make_batch``'s stub-frontend batches (4 x 80: qwen2-vl's 8 x 8 patch
+    grid, then 16 text positions), weights made on the CPU."""
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.configs.shapes import SHAPES, make_batch
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config(arch)
+    model = init_model(cfg, seed=seed, device="cpu", trainable=True)
+    hp = TrainHParams(lr=1e-3)
+    state = init_train_state(cfg, hp, model=model.to(device))
+    step = make_train_step(cfg, hp)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=80)
+    out = []
+    for i in range(steps):
+        b = make_batch(cfg, shape, generator=torch.Generator().manual_seed(i),
+                       device="cpu", batch_override=4)
+        state, m = step(state, {k: v.to(device) for k, v in b.items()})
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def test_cuda_train2_vlm_from_embeddings_matches_cpu(cuda):
+    """Three steps of qwen2-vl-2b-smoke from patch embeddings with M-RoPE
+    ids (float32, TF32 off) on the card against the same steps on the
+    CPU: loss and grad norm within rtol 1e-5 each step."""
+    got = _train_embeds(cuda, "qwen2-vl-2b", 3)
+    want = _train_embeds("cpu", "qwen2-vl-2b", 3)
+    for (lg, gg), (lw, gw) in zip(got, want):
+        assert lg == pytest.approx(lw, rel=1e-5)
+        assert gg == pytest.approx(gw, rel=1e-5)

@@ -1,9 +1,14 @@
 """The port's train step and trainer CLI against the reference's
 single-device functions: three ``make_train_step`` steps against the
-reference's jitted step on the reference's batches, the stacked-leaf
-weight decay, the trainable model's cast at use, and the CLI (loss
-falls, resume is exact, quantized training with int8 moments and the
-int8 gradient wire trains every block matrix, the refusals).
+reference's jitted step on the reference's batches (qwen2-72b, yi-34b
+quantized, xlstm-350m at two chunks, hubert-xlarge from frame
+embeddings, whose embedding table no loss term reads), the stacked-leaf
+weight decay (the recurrent mixers' 1-D leaves included), the int8
+moments' per-row scales under stacking, the trainable model's cast at
+use, and the CLI (loss falls for every family, resume is exact for a
+dense and a recurrent arch, quantized training with int8 moments and
+the int8 gradient wire trains every block matrix, the example on xLSTM,
+the refusals).
 
 Multi-step runs are compared by loss and grad norm at the reference's own
 resume tolerance (rtol 1e-4): Adam turns a sign into a step, so
@@ -21,25 +26,32 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from _torch_parity import perturbed_jax_params, t  # noqa: E402
-from test_torch_train import _batch, _flat, _quants  # noqa: E402
+from test_torch_train import (_batch, _flat, _quants,  # noqa: E402
+                              embeds_batch)
 
 from repro.core import fixedpoint as jfp  # noqa: E402
 from repro.data.lm import LMDataConfig as JData  # noqa: E402
 from repro.data.lm import lm_batch as jlm_batch  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JAdamW  # noqa: E402
 from repro.optim.compress import \
     CompressionConfig as JCompress  # noqa: E402
 from repro_torch.checkpoint.ckpt import restore_checkpoint  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.examples import \
+    train_lm_mixed_precision as example  # noqa: E402
 from repro_torch.launch.steps import (TrainHParams,  # noqa: E402
-                                      init_train_state, load_train_state,
-                                      make_train_step, reference_decay,
+                                      init_train_state, make_train_step,
+                                      reference_decay,
                                       train_state_tree)
 from repro_torch.models import transformer as ttr  # noqa: E402
-from repro_torch.models.transformer import params_from_numpy  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.models.transformer import (params_from_numpy,  # noqa
+                                            reference_layout,
+                                            reference_tree)
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init,  # noqa: E402
+                                     adamw_update)
 from repro_torch.optim.compress import CompressionConfig  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -60,16 +72,15 @@ def _ref_batches(vocab, n, B=4, S=32):
 @pytest.mark.parametrize("arm", ["fp32", "quantized"])
 def test_make_train_step_tracks_the_reference_jitted_step(arm, monkeypatch):
     """Three ``make_train_step`` steps of each package from the same
-    weights on the reference's batches: per step, every loss term and the
-    grad norm within rtol 1e-4. "fp32" runs free (each package on its own
-    state). "quantized" is the example's arm (W10 / D12 / KV8, int8
-    moments, the int8 gradient wire) on yi-34b-smoke, the reference's
-    ``fake_quant`` replaced by ``fake_quant_ste`` (C5); there the port's
-    state is reloaded from the reference's before each step
-    (``load_train_state``), since gradients that differ by float ULPs
-    round to different points of the wire's 255-level grid now and then,
-    and Adam turns each such difference into a whole step (free-running,
-    the grad norms part by ~1e-3 at step 3)."""
+    weights on the reference's batches, each package on its own state:
+    per step, every loss term and the grad norm within rtol 1e-4. "fp32"
+    is qwen2-72b-smoke; "quantized" is the example's arm (W10 / D12 /
+    KV8, int8 moments, the int8 gradient wire with one scale per leaf of
+    the reference's tree) on yi-34b-smoke, the reference's
+    ``fake_quant`` replaced by ``fake_quant_ste`` (C5). (With one wire
+    scale per unstacked parameter, C7, the grad norms parted by ~1e-3 at
+    step 3, and this arm reloaded the port's state from the reference's
+    before each step.)"""
     arch = "qwen2-72b" if arm == "fp32" else "yi-34b"
     q = arm == "quantized"
     if q:
@@ -88,9 +99,6 @@ def test_make_train_step_tracks_the_reference_jitted_step(arm, monkeypatch):
     jstep = jax.jit(jsteps.make_train_step(jcfg, jhp, quant=jq))
     step = make_train_step(tcfg, thp, quant=tq)
     for b in _ref_batches(tcfg.vocab_size, 3):
-        if q:
-            load_train_state(state, jax.tree_util.tree_map(
-                lambda a: torch.from_numpy(np.array(a)), jstate), tcfg)
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
         state, m = step(state, {k: t(v) for k, v in b.items()})
         assert set(m) == set(jm)
@@ -98,6 +106,49 @@ def test_make_train_step_tracks_the_reference_jitted_step(arm, monkeypatch):
             assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-4,
                                                 abs=1e-6), k
     assert int(state["opt"]["step"]) == 3
+
+
+@pytest.mark.parametrize("case", ["xlstm-350m", "hubert-xlarge-embeds"])
+def test_make_train_step_tracks_the_reference_on_recurrent_and_embeds(
+        case):
+    """Three free-running steps of each package from the same weights:
+    xlstm-350m-smoke on the reference's token batches at two chunks, and
+    hubert-xlarge-smoke on ``make_batch``'s frame embeddings; per step
+    every loss term and the grad norm within rtol 1e-4. hubert's
+    embedding table is never read: the port's gradient there is None,
+    the reference's zeros, and after the steps both tables are decayed
+    alike and their moments are still zero."""
+    arch = case.replace("-embeds", "")
+    jcfg, tcfg, jparams, tree = perturbed_jax_params(arch, jit=True)
+    jhp = jsteps.TrainHParams(lr=1e-3, adamw=JAdamW())
+    thp = TrainHParams(lr=1e-3, adamw=AdamWConfig())
+    jstate = jsteps.init_train_state(jax.random.PRNGKey(0), jcfg, jhp)
+    jstate["params"] = jparams
+    model = params_from_numpy(tree, tcfg, device="cpu", trainable=True)
+    state = init_train_state(tcfg, thp, model=model)
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jhp))
+    step = make_train_step(tcfg, thp)
+    if case.endswith("embeds"):
+        batches = [embeds_batch(tcfg, B=4, S=32, seed=i) for i in range(3)]
+    else:
+        batches = _ref_batches(tcfg.vocab_size, 3, S=2 * tcfg.ssm_chunk)
+    for b in batches:
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        state, m = step(state, {k: t(v) for k, v in b.items()})
+        assert set(m) == set(jm)
+        for k in m:
+            assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-4,
+                                                abs=1e-6), k
+    if case.endswith("embeds"):
+        assert model.embed.grad is None
+        np.testing.assert_allclose(model.embed.detach().numpy(),
+                                   np.asarray(jstate["params"]["embed"]
+                                              ["table"]), rtol=1e-6)
+        assert not (model.embed.detach().numpy()
+                    == tree["embed"]["table"]).any()
+        for k in ("m", "v"):
+            assert not state["opt"][k]["embed"].any()
+            assert not np.asarray(jstate["opt"][k]["embed"]["table"]).any()
 
 
 def test_reference_decay_follows_the_stacked_layout():
@@ -116,6 +167,74 @@ def test_reference_decay_follows_the_stacked_layout():
     _, qcfg, _, qtree = perturbed_jax_params("qwen2-vl-2b", jit=True)
     qm = params_from_numpy(qtree, qcfg, device="cpu", trainable=True)
     assert "layers.0.attn.bq" in reference_decay(qm, qcfg)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b"])
+def test_reference_decay_holds_the_recurrent_leaves(arch):
+    """The recurrent mixers' 1-D leaves (A_log, dt_bias, D_skip, conv_b,
+    f_bias, the sLSTM's b, the mixers' norms) and the sLSTM's recurrent
+    weight are stacked on the period axis in the reference, so its AdamW
+    decays them, though the unstacked port sees rank 1: the decayed set is
+    the reference tree's leaves of rank >= 2, exactly."""
+    _, tcfg, _, tree = perturbed_jax_params(arch, jit=True)
+    model = params_from_numpy(tree, tcfg, device="cpu", trainable=True)
+    dec = reference_decay(model, tcfg)
+    ranks = _flat(jax.tree_util.tree_map(np.ndim, tree))
+    names = dict(model.named_parameters())
+    seen = set()
+    for n, path, _ in reference_layout(model, tcfg):
+        rank = ranks["".join(f"[{k!r}]" for k in path)]
+        assert (n in dec) == (rank >= 2), (n, path, rank)
+        if n.startswith("layers.") and names[n].dim() == 1:
+            assert n in dec
+            seen.add(path[-1] if path[-1] != "scale" else path[-2])
+    want = {"A_log", "dt_bias", "D_skip", "conv_b", "norm"} \
+        if arch.startswith("jamba") else {"f_bias", "b", "norm"}
+    assert want <= seen
+    assert "final_norm" not in dec
+
+
+def test_int8_moments_scale_per_row_so_stacking_changes_nothing():
+    """One int8-moment AdamW step of xlstm-350m-smoke on shared gradients:
+    the port's per-parameter update and the reference's on its stacked
+    tree give the same moment grids and per-row scales (a scale belongs
+    to one row of the last dim, and a row never spans two periods),
+    restacked; grids equal but for one step at a counted rounding tie."""
+    _, tcfg, jparams, tree = perturbed_jax_params("xlstm-350m", jit=True)
+    model = params_from_numpy(tree, tcfg, device="cpu", trainable=True)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rng = np.random.default_rng(3)
+    grads = {n: t(rng.normal(0, 0.02, p.shape).astype(np.float32))
+             for n, p in params.items()}
+    cfg = AdamWConfig(quantize_moments=True)
+    st = adamw_init(params, cfg)
+    adamw_update(params, grads, st, 1e-3, cfg,
+                 decay=reference_decay(model, tcfg))
+    jcfg = JAdamW(quantize_moments=True)
+    jg = jax.tree_util.tree_unflatten(  # the reference's tuples
+        jax.tree_util.tree_structure(jparams),
+        [jnp.asarray(x) for x in jax.tree_util.tree_leaves(reference_tree(
+            {n: g.numpy() for n, g in grads.items()}, model, tcfg))])
+    _, jst, _ = jadamw.adamw_update(jparams, jg, jadamw.adamw_init(
+        jparams, jcfg), 1e-3, jcfg)
+    flips = total = 0
+    for k in ("m", "v"):
+        mine = _flat(reference_tree({n: {a: b.numpy() for a, b in c.items()}
+                                     for n, c in st[k].items()}, model,
+                                    tcfg))
+        want = _flat(jst[k])
+        assert set(mine) == set(want)
+        for key, w in want.items():
+            assert mine[key].shape == w.shape, key
+            if key.endswith("['scale']"):
+                np.testing.assert_allclose(mine[key], w, rtol=1e-6,
+                                           err_msg=key)
+            else:
+                d = np.abs(mine[key].astype(np.int32) - w.astype(np.int32))
+                assert d.max() <= 1, key
+                flips += int((d != 0).sum())
+                total += d.size
+    assert flips <= 1e-3 * total, (flips, total)
 
 
 def test_step_lr_argument_equals_a_step_built_at_that_rate():
@@ -225,10 +344,77 @@ def test_cli_quantized_training_trains_every_block_matrix(tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--arch", "deepseek-7b", "--mesh", "single"], "item 13"),
-    (["--arch", "xlstm-350m"], "item 12"),
-    (["--arch", "jamba-v0.1-52b"], "item 12"),
-    (["--arch", "hubert-xlarge"], "item 12")])
+    (["--arch", "deepseek-7b", "--mesh", "single"], "item 13")])
 def test_cli_refusals(args, match):
     with pytest.raises(NotImplementedError, match=match):
         train_mod.main(args + ["--smoke", "--device", "cpu", "--steps", "1"])
+
+
+# the reference's own CLI test of training (tests/test_system.py)
+FAMILY = ["--smoke", "--device", "cpu", "--steps", "30", "--batch-size",
+          "4", "--seq-len", "64", "--log-every", "10", "--lr", "3e-3"]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-v0.1-52b",
+                                  "hubert-xlarge"])
+def test_cli_trains_the_recurrent_and_encoder_archs(arch):
+    """Each arch the trainer refused before (ROADMAP A12 part 2) trains
+    from ``lm_batch`` tokens at the reference's own test arguments
+    (two chunks of the recurrent smoke configs' 32), and its loss falls."""
+    log = train_mod.main(["--arch", arch] + FAMILY)
+    assert [r["step"] for r in log] == [10, 20, 30]
+    assert np.isfinite(log[-1]["loss"])
+    assert log[-1]["loss"] < log[0]["loss"]
+
+
+def test_cli_resume_is_exact_for_xlstm(tmp_path):
+    """20 straight steps of xlstm-350m-smoke == 10 steps + checkpoint +
+    restore + 10 steps, bit for bit on the CPU (one thread)."""
+    args = ["--arch", "xlstm-350m", "--smoke", "--device", "cpu",
+            "--batch-size", "4", "--seq-len", "64", "--log-every", "5",
+            "--lr", "3e-3"]
+    log_a = train_mod.main(args + ["--steps", "20"])
+    ck = str(tmp_path / "ck")
+    train_mod.main(args + ["--steps", "10", "--ckpt-dir", ck,
+                           "--ckpt-interval", "10"])
+    log_b = train_mod.main(args + ["--steps", "20", "--ckpt-dir", ck,
+                                   "--ckpt-interval", "100", "--resume"])
+    assert [r["step"] for r in log_b] == [15, 20]
+    assert log_a[-2:] == log_b
+
+
+def test_cli_seq_len_off_the_chunk_raises_the_reference_words():
+    with pytest.raises(ValueError, match="seq 48 not divisible by chunk 32"):
+        train_mod.main(["--arch", "xlstm-350m", "--smoke", "--device",
+                        "cpu", "--steps", "1", "--seq-len", "48"])
+
+
+def test_example_trains_xlstm_in_both_arms(monkeypatch):
+    """``examples/train_lm_mixed_precision.py --arch xlstm-350m`` (its
+    docstring's model) on the CPU, cut to 4 steps: both arms finite, and
+    in the quantized arm every mLSTM memory leaves its chunk on its
+    layer's KV grid: the data format Q4.8 cut to the int8 container, Q4.4
+    (the KV format inherits the data bits; ``--kv-bits 8`` alone would
+    give Q2.6)."""
+    from repro_torch.models import ssm
+    seen = []
+    real = ssm._maybe_fake_quant
+
+    def spy(x, quant):
+        out = real(x, quant)
+        if quant is not None:
+            seen.append((quant, out.detach()))
+        return out
+
+    monkeypatch.setattr(ssm, "_maybe_fake_quant", spy)
+    base, quant = example.main(["--arch", "xlstm-350m", "--steps", "4",
+                                "--device", "cpu"])
+    assert np.isfinite(base[-1]["loss"]) and np.isfinite(quant[-1]["loss"])
+    cfg = train_mod.get_smoke_config("xlstm-350m")
+    q = train_mod.build_quant(cfg, weight_bits=10, data_bits=12, kv_bits=8,
+                              policy_json="")
+    assert {q.layer_state(li) for li in range(cfg.num_layers)} == {(4, 4)}
+    assert seen and all(fmt == (4, 4) for fmt, _ in seen)
+    for _, c in seen:
+        assert torch.equal(torch.round(c * 16) / 16, c)
+        assert -8.0 <= float(c.min()) and float(c.max()) <= 8.0 - 1 / 16
