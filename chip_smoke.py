@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase ssm    # the build and [ssm] alone
     python3 chip_smoke.py --phase frontend   # the build and [frontend]
     python3 chip_smoke.py --phase bench  # the build and [bench] alone
+    python3 chip_smoke.py --phase replicas   # the build and [replicas]
     python3 chip_smoke.py --phase train  # the build and [train] alone
     python3 chip_smoke.py --phase train2 # the build and [train2] alone
 
@@ -130,7 +131,24 @@ Phases, each of which raises on failure (no phase is caught):
    every layer), and every workload's host counters equal to the same
    benches' on the smoke config on the CPU (a child process; the
    predictor-on arm, which reads the wall clock, left out); the phase
-   time against its 60 s budget; then, that model freed, ``[train]``:
+   time against its 60 s budget; then, that model freed,
+   ``[replicas]``: qwen2-72b at its published widths cut to 4 layers on
+   the reference's overload trace (``--fast``, 29 requests), every
+   server through B1 on int8 pages with the prefix cache, the host tier,
+   SLO scheduling and the async pager: (a) the 1-replica
+   ``ReplicaFrontend`` against the plain server, bit for bit in tokens,
+   done flags and finish steps; (b) 1 against 2 replicas sharing the
+   card and the weights (``benchmarks.traffic.run_replicas``,
+   teacher-forced): routed requests per replica, affinity hits,
+   rebalances, shared prefix pages, goodput (2 replicas strictly above
+   1), tok/s, peak memory and B1 launches per arm, and each arm's
+   frontend and namespaced replica counters equal to the same bench's
+   on the smoke config at the card's KV geometry on the CPU (a child
+   process); (c) ``BatchedServer(mesh=make_serving_mesh(1))`` on a
+   one-rank NCCL group against the plain server, page scales on: the
+   same tokens bit for bit and the same counters, B1 against its plain
+   version on one captured decode step, every layer; the phase time
+   against its 45 s budget; then, that model freed, ``[train]``:
    (a) deepseek-7b-smoke trained 5 steps on the card against the same
    steps on the CPU (a child process; loss and grad norm within rtol
    1e-5) and AdamW with int8 moments fed the same gradients on both
@@ -3574,6 +3592,270 @@ def bench_phase(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# [replicas]: the replica frontend on one card, and the mesh path at world
+# size 1 on NCCL
+# ---------------------------------------------------------------------------
+REPLICAS_LAYERS = 4                 # qwen2-72b's 80 cut to fit ~45 s
+REPLICAS_BUDGET_S = 45
+REPLICAS_DECODE_AT = 10             # the captured decode step of (c)
+REPLICAS_ARMS = ("1 replica", "2 replicas", "1 replica, teacher-forced",
+                 "2 replicas, teacher-forced")
+# (c)'s server: run_replicas's settings through B1, with page scales (their
+# absmax goes through the mesh's max all-reduce)
+REPLICAS_MESH = dict(batch_size=3, max_len=64, page_size=8, num_pages=14,
+                     kv_bits=8, kv_scale="page", prefix_cache="on",
+                     kv_offload="host", sched="slo", preempt=False,
+                     metrics="on", pager_async="on", attn_impl="kernel")
+
+
+class FrontendMeter:
+    """Wraps ``ReplicaFrontend.run`` while installed: per call its
+    replicas, B1 launches, generated tokens, host seconds (ended by a
+    device sync) and peak device memory."""
+
+    def __init__(self):
+        from repro_torch.launch.frontend import ReplicaFrontend
+        self.cls, self.fn, self.runs = ReplicaFrontend, ReplicaFrontend.run, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.paged_kv_attention import \
+            paged_kv_attention_chunk as b1
+        meter = self
+
+        def run(fe, requests, keys=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n0, t0 = b1.launches, time.perf_counter()
+            out = meter.fn(fe, requests, keys)
+            torch.cuda.synchronize()
+            meter.runs.append({
+                "replicas": len(fe.servers),
+                "seconds": time.perf_counter() - t0,
+                "b1_launches": b1.launches - n0,
+                "gen_tokens": sum(len(r.out) for r in requests),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+            return out
+
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.fn
+
+
+def replica_counters(res: dict) -> dict:
+    """Each arm's frontend and namespaced replica host counters."""
+    return {arm: res[arm]["counters"] for arm in ("one_replica",
+                                                  "two_replica")}
+
+
+def cpu_replica_counters(seed: int, src: str) -> dict:
+    """``run_replicas`` on qwen2-72b's smoke config at the card's KV
+    geometry (8 KV heads of 128, one layer) on the CPU, on the same trace,
+    teacher-forced and through B1's plain version as the card's: its arms'
+    host counters. Runs in a child process beside the card runs."""
+    import tempfile
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.benchmarks import common, traffic
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_smoke_config("qwen2-72b")
+    full = get_config("qwen2-72b")
+    geo = dataclasses.replace(cfg, num_layers=1, num_heads=full.num_kv_heads,
+                              num_kv_heads=full.num_kv_heads,
+                              head_dim=full.head_dim)
+    with tempfile.TemporaryDirectory() as tmp, common.results_in(tmp):
+        res = traffic.run_replicas(
+            geo, init_model(geo, seed=seed, device="cpu"), fast=True,
+            teacher_force=True, vocab=cfg.vocab_size, attn_impl="kernel",
+            verbose=False)
+    return replica_counters(res)
+
+
+def replicas_phase(seed: int):
+    """``[replicas]``: qwen2-72b at its published widths cut to
+    ``REPLICAS_LAYERS`` layers (bf16, seeded weights) on the reference's
+    overload trace at ``--fast`` (its ids from the smoke config's
+    vocabulary), every server through B1 with int8 pages, the prefix
+    cache, the host tier, SLO scheduling and the async pager:
+
+    (a) the 1-replica frontend against the plain server, bit for bit in
+        tokens, done flags and finish steps (``run_replicas``'s gate);
+    (b) 1 against 2 replicas sharing the card and the weights
+        (``benchmarks.traffic.run_replicas``, teacher-forced): per arm the
+        routing counters, goodput, tok/s, peak memory and B1 launches;
+        2-replica goodput strictly above 1-replica; each arm's counters
+        (the frontend's and each namespaced replica's) equal to the CPU
+        rehearsal's (:func:`cpu_replica_counters`, a child process);
+    (c) ``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL
+        group against the plain server (page scales on): the same tokens
+        bit for bit and the same host counters; B1 against its plain
+        version on one captured decode step of the mesh run, every layer.
+
+    Returns (B1 launches, run records)."""
+    import concurrent.futures
+    import gc
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.benchmarks import common, traffic
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.core.traffic import generate_trace
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import init_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    src = str(Path(__file__).resolve().parent / "src")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "replicas"
+    vocab = get_smoke_config("qwen2-72b").vocab_size
+    rehearsal = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_future = rehearsal.submit(cpu_replica_counters, seed, src)
+        cfg = dataclasses.replace(get_config("qwen2-72b"),
+                                  num_layers=REPLICAS_LAYERS)
+        t0 = time.perf_counter()
+        model = init_model(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[replicas] qwen2-72b at published widths: d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype}; cut: depth 80 -> {cfg.num_layers} layers; the "
+              f"overload trace (--fast) drawn from the smoke config's "
+              f"{vocab} token ids; "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of "
+              f"weights, init {time.perf_counter() - t0:.1f} s", flush=True)
+        # the main path: counts zeroed just before, read just after
+        paged_kv_attention_chunk.launches = 0
+        t_b = time.perf_counter()
+        with FrontendMeter() as meter, common.results_in(out_dir):
+            res = traffic.run_replicas(cfg, model, fast=True,
+                                       teacher_force=True, vocab=vocab,
+                                       attn_impl="kernel", verbose=True)
+        t_b = time.perf_counter() - t_b
+        launches_b = paged_kv_attention_chunk.launches
+        # (c) the mesh path at world size 1
+        trace = generate_trace(traffic.overload_trace_config(vocab,
+                                                             fast=True))
+        plain = BatchedServer(cfg, model, device="cuda", **REPLICAS_MESH)
+        want = plain.run(traffic.to_requests(trace))
+        cap = B1Capture(attention.paged_kv_attention_decode,
+                        at=REPLICAS_DECODE_AT * cfg.num_layers,
+                        layers=cfg.num_layers)
+        mesh = make_serving_mesh(1, device="cuda")
+        attention.paged_kv_attention_decode = cap
+        try:
+            backend = dist.get_backend()
+            srv = BatchedServer(cfg, model, mesh=mesh, device="cuda",
+                                **REPLICAS_MESH)
+            got = srv.run(traffic.to_requests(trace))
+            torch.cuda.synchronize()
+        finally:
+            attention.paged_kv_attention_decode = cap.fn
+            dist.destroy_process_group()
+        launches = paged_kv_attention_chunk.launches
+        c_plain = {k: v for k, v in plain.metrics.snapshot()[
+            "counters"].items() if not k.endswith("_s")}
+        c_mesh = {k: v for k, v in srv.metrics.snapshot()[
+            "counters"].items() if not k.endswith("_s")}
+        del model, plain, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_card = time.perf_counter() - t_phase
+        cpu = cpu_future.result()
+    finally:
+        rehearsal.shutdown(wait=True, cancel_futures=True)
+    # (a): run_replicas raised unless the 1-replica frontend was the plain
+    # server in tokens, done flags and finish steps
+    print(f"[replicas] (a) the 1-replica frontend is the plain server: "
+          f"{res['trace']['requests']} requests, tokens, done flags and "
+          f"finish steps equal bit for bit", flush=True)
+    if len(meter.runs) != len(REPLICAS_ARMS):
+        raise AssertionError(f"[replicas] {len(meter.runs)} frontend runs, "
+                             f"want {len(REPLICAS_ARMS)}")
+    arms = {}
+    for label, run, key in zip(REPLICAS_ARMS, meter.runs,
+                               ("one_replica", "two_replica") * 2):
+        r = res[key]
+        c = r["counters"]
+        run["tok_s"] = run["gen_tokens"] / run["seconds"]
+        arms[label] = run
+        if not run["b1_launches"] or run["b1_launches"] % cfg.num_layers:
+            raise AssertionError(f"[replicas] {label}: B1 launches "
+                                 f"{run['b1_launches']}, not a positive "
+                                 f"multiple of {cfg.num_layers} layers")
+        routed = [c.get(f"frontend.routed_replica{i}", 0)
+                  for i in range(run["replicas"])]
+        print(f"[replicas] (b) {label}: routed {routed}, "
+              f"{c.get('frontend.affinity_hits', 0)} affinity hits, "
+              f"{c.get('frontend.rebalanced', 0)} rebalances, "
+              f"{c.get('frontend.shared_prefix_pages', 0)} shared prefix "
+              f"pages; goodput {r['goodput']:.4f}; {run['gen_tokens']} "
+              f"tokens in {run['seconds']:.2f} s = {run['tok_s']:.1f} "
+              f"tok/s; peak {run['peak_gib']:.2f} GiB; "
+              f"{run['b1_launches']} B1 launches", flush=True)
+    g1, g2 = res["one_replica"]["goodput"], res["two_replica"]["goodput"]
+    if not g2 > g1:
+        raise AssertionError(f"[replicas] 2-replica goodput {g2} <= {g1}")
+    got_c = replica_counters(res)
+    for arm in got_c:
+        if got_c[arm] != cpu[arm]:
+            diff = {k: (got_c[arm].get(k), cpu[arm].get(k))
+                    for k in set(got_c[arm]) | set(cpu[arm])
+                    if got_c[arm].get(k) != cpu[arm].get(k)}
+            raise AssertionError(f"[replicas] {arm} counters differ from "
+                                 f"the CPU rehearsal's: {diff}")
+    print(f"[replicas] (b) goodput 2 replicas {g2:.4f} > 1 replica "
+          f"{g1:.4f}; teacher-forced agreement "
+          f"{res['one_replica']['token_agreement']:.4f} / "
+          f"{res['two_replica']['token_agreement']:.4f} (free-running "
+          f"{res['one_replica']['token_agreement_free_running']:.4f} / "
+          f"{res['two_replica']['token_agreement_free_running']:.4f}); "
+          f"every counter of both arms ({len(got_c['two_replica'])} in the "
+          f"2-replica arm) equals the CPU rehearsal's; {t_b:.1f} s",
+          flush=True)
+    # (c)
+    if [list(r.out) for r in got] != [list(r.out) for r in want] or \
+            [(r.done, r.finish_step) for r in got] != \
+            [(r.done, r.finish_step) for r in want]:
+        raise AssertionError("[replicas] (c) the world-size-1 mesh server's "
+                             "tokens differ from the plain server's")
+    if c_mesh != c_plain:
+        raise AssertionError(f"[replicas] (c) counters {c_mesh} != "
+                             f"{c_plain}")
+    b1 = check_captured_b1(cap.saved, f"(c) mesh=make_serving_mesh(1) on "
+                           f"{backend}, kv_bits=8 page scales G="
+                           f"{cfg.num_heads // cfg.num_kv_heads}",
+                           tag="[replicas]")
+    print(f"[replicas] (c) BatchedServer(mesh=make_serving_mesh(1)) on a "
+          f"one-rank {backend} group: {len(got)} requests, tokens equal the "
+          f"plain server's bit for bit, {len(c_mesh)} counters equal; "
+          f"{launches - launches_b} B1 launches", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[replicas] main path: {launches} B1 launches; phase "
+          f"{wall:.1f} s against a {REPLICAS_BUDGET_S} s budget (card runs "
+          f"and model init {t_card:.1f} s; the CPU rehearsal beside them)",
+          flush=True)
+    record = {"phase": "replicas", "layers": cfg.num_layers, "results": res,
+              "arms": arms, "cpu_counters": cpu, "mesh_backend": backend,
+              "mesh_counters": c_mesh, "b1_launches": launches,
+              "b1_vs_plain": b1, "phase_s": wall,
+              "budget_s": REPLICAS_BUDGET_S}
+    return launches, [record]
+
+
+# ---------------------------------------------------------------------------
 # [train]: deepseek-7b trained at published widths, then served through B1
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "deepseek-7b"
@@ -5066,13 +5348,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
-                             "ssm", "frontend", "bench", "train",
-                             "train2"],
+                             "ssm", "frontend", "bench", "replicas",
+                             "train", "train2"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5123,6 +5406,10 @@ def main(argv=None) -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         bench_phase(SEED)
         return 0
+    if args.phase == "replicas":
+        print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+        replicas_phase(SEED)
+        return 0
     if args.phase == "train":
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
         train_phase(SEED)
@@ -5144,12 +5431,14 @@ def main(argv=None) -> int:
         ssm_launches, ssm_runs = ssm_phase(SEED)
         fe_launches, fe_runs = frontend_phase(SEED)
         bench_launches, bench_runs = bench_phase(SEED)
+        rep_launches, rep_runs = replicas_phase(SEED)
         train_launches, train_runs = train_phase(SEED)
         train2_launches, train2_runs = train2_phase(SEED)
         launches += (moe_launches + ssm_launches + fe_launches
-                     + bench_launches + train_launches + train2_launches)
-        runs += (moe_runs + ssm_runs + fe_runs + bench_runs + train_runs
-                 + train2_runs)
+                     + bench_launches + rep_launches + train_launches
+                     + train2_launches)
+        runs += (moe_runs + ssm_runs + fe_runs + bench_runs + rep_runs
+                 + train_runs + train2_runs)
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,
@@ -5159,6 +5448,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))
+    print(f"[total] {time.perf_counter() - t_start:.1f} s of chip_smoke.py "
+          f"(build included) before the kernels' record", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     if args.phase != "all":
         return 0

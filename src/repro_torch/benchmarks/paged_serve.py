@@ -966,6 +966,12 @@ HOST_COUNTERS = {
                 "predictor_on.predictor_gated",
                 "predictor_on.pager_demotions",
                 "predictor_on.pager_promotions"),
+    # traffic.run_replicas's
+    "replicas": ("trace.requests", "trace.fingerprint",
+                 "one_replica.goodput", "two_replica.goodput",
+                 "two_replica.routed", "two_replica.routed_per_replica",
+                 "two_replica.affinity_hits", "two_replica.rebalanced",
+                 "two_replica.shared_prefix_pages"),
 }
 
 

@@ -33,12 +33,27 @@ Results: ``results/torch_traffic_serve.json``, the snapshot stream
 ``results/torch_trace_traffic.json`` and a point appended to
 ``results/torch_BENCH_serve.json``.
 
+**Replica A/B** (``run_replicas``, ``--mode replicas``): the same trace
+through a 1-replica ``launch.frontend.ReplicaFrontend`` and a 2-replica
+pool (prefix-affinity routing, the cross-replica shared prefix store),
+raising, in the reference's words, unless
+
+  * the 1-replica frontend is the plain server: tokens, done flags and
+    finish steps equal bit for bit;
+  * both arms agree >= 0.9 with the ample-pool reference
+    (``teacher_force=True``: gated on each arm served once more fed the
+    reference's tokens, the free-running agreement reported);
+  * 2-replica goodput is strictly above 1-replica goodput.
+
+Results: ``results/torch_traffic_replicas.json`` and a trajectory point.
+
 ``--mode replay`` serves the trace once with the harness's settings
-(``replay_overload``). The multi-replica A/B (``--mode replicas``,
-``run_replicas``) is not ported yet and raises (ROADMAP queue A item 13);
-``--mode all`` runs the accounting and the serving harness.
+(``replay_overload``); ``--mode all`` runs the accounting, the serving
+harness and the replica A/B, as the reference's.
 
     python -m repro_torch.benchmarks.traffic --mode serve --fast \
+        --device cpu
+    python -m repro_torch.benchmarks.traffic --mode replicas --fast \
         --device cpu
     python -m repro_torch.benchmarks.traffic --mode accounting
 
@@ -56,7 +71,7 @@ from .. import resolve_device
 from ..configs.registry import ARCH_IDS, get_config, get_smoke_config
 from ..core.traffic import (TenantSpec, TraceConfig, generate_trace,
                             trace_fingerprint)
-from ..launch.serve import BatchedServer, Request, _not_ported
+from ..launch.serve import BatchedServer, Request
 from ..models.transformer import init_model
 from ..models.cnn import SPECS, cnn_traffic_model
 from ..quant.apply import transformer_traffic_model
@@ -398,24 +413,170 @@ def run_serve(cfg, model, *, arch="qwen2-72b", verbose=True, fast=False,
     return res
 
 
-def run_replicas(*args, **kwargs):
-    """The multi-replica A/B needs the replica frontend, which is not
-    ported yet."""
-    raise _not_ported("the multi-replica frontend (--mode replicas)", "13")
+def _frontend_counters(fe) -> dict:
+    """The frontend's counters and every replica's namespaced host
+    counters (``replica<i>.<name>``) of one arm, timers left out."""
+    from ..launch.frontend import merged_snapshot
+    return {k: v for k, v in merged_snapshot(fe)["counters"].items()
+            if not k.endswith("_s")}
+
+
+def run_replicas(cfg, model, *, arch="qwen2-72b", verbose=True, fast=False,
+                 teacher_force=False, vocab=None, attn_impl="gather"):
+    """1 against 2 replicas of ``model`` on the overload trace, gated as
+    the module docstring says. ``cfg`` and ``model`` come from the caller
+    (both replicas share the model); ``vocab`` (default: the config's)
+    bounds the trace's token ids; ``attn_impl`` is every server's
+    attention route. The result carries the reference's fields, and per
+    arm its counters (``counters``: the frontend's and each replica's
+    namespaced host counters) and generated tokens."""
+    from ..launch.frontend import (ReplicaFrontend, aggregate_goodput,
+                                   make_replicas, requests_from_trace)
+    vocab = vocab or cfg.vocab_size
+    batch, page_size, max_len = 3, 8, 64
+    num_pages = 1 + 13
+    trace = generate_trace(overload_trace_config(vocab, fast=fast))
+    overload = trace.overload_ratio(batch)
+    common_kw = dict(batch_size=batch, max_len=max_len, page_size=page_size,
+                     num_pages=num_pages, kv_bits=8, prefix_cache="on",
+                     kv_offload="host", sched="slo", preempt=False,
+                     metrics="on", pager_async="on", attn_impl=attn_impl,
+                     device=model.device)
+
+    def arm(n, forced=None):
+        servers = make_replicas(n, cfg, model, **common_kw)
+        if forced is not None:
+            for srv in servers:
+                _teacher_force(srv, forced)
+        fe = ReplicaFrontend(servers)
+        reqs, keys = requests_from_trace(trace)
+        t0 = time.perf_counter()
+        fe.run(reqs, keys)
+        return fe, reqs, time.perf_counter() - t0
+
+    fe1, reqs1, t1 = arm(1)
+    fe2, reqs2, t2 = arm(2)
+
+    # identity: the 1-replica frontend IS the plain server
+    plain = BatchedServer(cfg, model, **common_kw)
+    plain_by_rid = {r.rid: r for r in plain.run(to_requests(trace))}
+    for r in reqs1:
+        p = plain_by_rid[r.rid]
+        if (list(r.out) != list(p.out) or r.done != p.done
+                or r.finish_step != p.finish_step):
+            raise RuntimeError(
+                f"1-replica frontend diverged from the plain server on "
+                f"rid={r.rid}: out {r.out} vs {p.out}, done {r.done} vs "
+                f"{p.done}, finish {r.finish_step} vs {p.finish_step}")
+
+    # agreement with the ample-pool reference (no admission pressure)
+    ref = BatchedServer(cfg, model, batch_size=batch, max_len=max_len,
+                        page_size=page_size, kv_bits=8, attn_impl=attn_impl,
+                        device=model.device)
+    ref_reqs = ref.run(to_requests(trace))
+    ref_by_rid = {r.rid: r for r in ref_reqs}
+    agree1 = _token_agreement(reqs1, ref_by_rid)
+    agree2 = _token_agreement(reqs2, ref_by_rid)
+    free = None
+    if teacher_force:
+        free = (agree1, agree2)
+        forced = {r.rid: list(r.out) for r in ref_reqs}
+        agree1 = _token_agreement(arm(1, forced)[1], ref_by_rid)
+        agree2 = _token_agreement(arm(2, forced)[1], ref_by_rid)
+    if min(agree1, agree2) < 0.9:
+        raise RuntimeError(
+            f"replica routing broke decode numerics: token agreement "
+            f"1rep={agree1:.1%} 2rep={agree2:.1%} vs reference "
+            f"(need >= 0.9 — the frontend must not touch math)")
+
+    g1 = aggregate_goodput(reqs1)
+    g2 = aggregate_goodput(reqs2)
+    if g1 is None or g2 is None:
+        raise RuntimeError("replica replay produced no goodput")
+    if g2 <= g1:
+        raise RuntimeError(
+            f"2-replica pool failed to buy goodput on the overload "
+            f"trace: 2rep={g2:.3f} <= 1rep={g1:.3f} — scaling out must "
+            f"convert the burst backlog into deadline hits")
+
+    c1, c2 = _frontend_counters(fe1), _frontend_counters(fe2)
+    res = {
+        "arch": arch, "fast": fast, "batch": batch,
+        "page_size": page_size, "num_pages": num_pages,
+        "trace": {
+            "requests": len(trace.requests),
+            "horizon": trace.config.horizon,
+            "overload_ratio": overload,
+            "fingerprint": trace_fingerprint(trace),
+        },
+        "one_replica": {"goodput": g1, "token_agreement": agree1,
+                        "wall_s": t1},
+        "two_replica": {
+            "goodput": g2, "token_agreement": agree2, "wall_s": t2,
+            "routed": c2.get("frontend.routed", 0),
+            "routed_per_replica": [
+                c2.get(f"frontend.routed_replica{i}", 0) for i in (0, 1)],
+            "affinity_hits": c2.get("frontend.affinity_hits", 0),
+            "rebalanced": c2.get("frontend.rebalanced", 0),
+            "shared_prefix_pages": c2.get("frontend.shared_prefix_pages", 0),
+        },
+        "goodput_delta": g2 - g1,
+    }
+    for key, c, reqs in (("one_replica", c1, reqs1),
+                         ("two_replica", c2, reqs2)):
+        res[key]["counters"] = c
+        res[key]["gen_tokens"] = sum(len(r.out) for r in reqs)
+    if free is not None:
+        res["one_replica"]["token_agreement_free_running"] = free[0]
+        res["two_replica"]["token_agreement_free_running"] = free[1]
+    if verbose:
+        two = res["two_replica"]
+
+        def note(i):
+            return ("" if free is None else
+                    f" (teacher-forced; free-running {free[i]:.1%})")
+        print(f"[traffic:replicas] {len(trace.requests)} requests, "
+              f"{overload:.1f}x overload at batch={batch}")
+        print(f"  1 replica:  aggregate goodput {g1:.3f}, "
+              f"agreement {agree1:.1%}{note(0)} (identical to plain "
+              f"server)")
+        print(f"  2 replicas: aggregate goodput {g2:.3f}, "
+              f"agreement {agree2:.1%}{note(1)}, routed "
+              f"{two['routed_per_replica']}, "
+              f"{two['affinity_hits']} affinity hits / "
+              f"{two['rebalanced']} rebalances, "
+              f"{two['shared_prefix_pages']} shared prefix pages")
+        print(f"  goodput delta +{res['goodput_delta']:.3f}")
+    save_json("traffic_replicas.json", res)
+    point = {"when": time.strftime("%Y-%m-%d %H:%M:%S"), "arch": arch,
+             "fast": fast, "summary": {"replicas": {
+                 "goodput_1rep": g1,
+                 "goodput_2rep": g2,
+                 "goodput_delta": res["goodput_delta"],
+                 "token_agreement_2rep": agree2,
+                 "affinity_hits": res["two_replica"]["affinity_hits"],
+                 "shared_prefix_pages":
+                     res["two_replica"]["shared_prefix_pages"],
+                 "overload_ratio": overload}}}
+    path = common.append_trajectory(point)
+    if verbose:
+        print(f"  trajectory point appended to {path.name}")
+    return res
 
 
 def run(cfg=None, model=None, *, verbose=True, fast=False, mode="all"):
-    """``accounting``, ``serve`` (needs ``cfg`` and ``model``) or ``all``
-    (both); ``replicas`` raises."""
+    """``accounting``, ``serve``, ``replicas`` (both need ``cfg`` and
+    ``model``) or ``all`` (the three)."""
     if mode not in ("all", "serve", "accounting", "replicas"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "replicas":
-        run_replicas()
     res = {}
     if mode in ("all", "accounting"):
         res["accounting"] = run_accounting(verbose=verbose)
     if mode in ("all", "serve"):
         res["serve"] = run_serve(cfg, model, verbose=verbose, fast=fast)
+    if mode in ("all", "replicas"):
+        res["replicas"] = run_replicas(cfg, model, verbose=verbose,
+                                       fast=fast)
     return res
 
 
@@ -428,14 +589,13 @@ def main(argv=None):
     ap.add_argument("--fast", action="store_true",
                     help="the short trace")
     ap.add_argument("--device", default="cuda",
-                    help="serve / replay: cuda (the default) or cpu")
+                    help="serve / replicas / replay: cuda (the default) "
+                         "or cpu")
     args = ap.parse_args(argv)
     if args.mode == "replay":
         return replay_overload(fast=args.fast, device=args.device)
-    if args.mode == "replicas":
-        run_replicas()
     cfg = model = None
-    if args.mode in ("all", "serve"):
+    if args.mode in ("all", "serve", "replicas"):
         cfg = get_smoke_config("qwen2-72b")
         model = init_model(cfg, seed=0, device=resolve_device(args.device))
     return run(cfg, model, fast=args.fast, mode=args.mode)

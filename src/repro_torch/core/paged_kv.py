@@ -273,7 +273,8 @@ def _pack_grid(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
                  container: str = "int8", int_bits=None, frac_bits=None,
-                 valid_len=None, scale_mode: str = "static"):
+                 valid_len=None, scale_mode: str = "static",
+                 amax_reduce: Optional[Callable] = None):
     """Append S new tokens per sequence to the paged pool, in place.
 
     k_new/v_new: (B, S, KV, hd) float; page_table: (B, NP) int32; pos: scalar
@@ -287,7 +288,10 @@ def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
     Static scale mode: every touched page's scale becomes the layer's
     uniform Q(I,F) step 2^-F. Page mode (int containers): each page's
     scale is the running max-abs of what was written to it over the
-    container's symmetric grid (:func:`_paged_update_page_scale`). Float
+    container's symmetric grid (:func:`_paged_update_page_scale`);
+    ``amax_reduce`` maps each token's absmax over the pool's KV heads to
+    its absmax over every head (a tensor-parallel pool holds a shard of
+    them; None: the pool holds them all). Float
     pages store raw values under a unit scale, reset on each page's first
     write (offset 0). Distinct sequences own distinct pages (pages shared
     through the prefix cache lie before every sharer's write position), so
@@ -320,7 +324,8 @@ def paged_update(pool, k_new, v_new, page_table, pos, *, page_size: int,
     if scale_mode == "page":
         return _paged_update_page_scale(
             pool, k_new, v_new, page_table, pos, pids, offsets, valid,
-            page_size=page_size, container=container)
+            page_size=page_size, container=container,
+            amax_reduce=amax_reduce)
     if scale_mode != "static":
         raise ValueError(f"scale_mode must be 'static' or 'page', "
                          f"got {scale_mode!r}")
@@ -340,7 +345,7 @@ _SCALE_EPS = 2.0 ** -20   # floor for all-zero chunks (no division by 0)
 
 def _paged_update_page_scale(pool, k_new, v_new, page_table, pos, pids,
                              offsets, valid, *, page_size: int,
-                             container: str):
+                             container: str, amax_reduce=None):
     """Per-page max-abs calibrated write (``scale_mode="page"``), in place.
 
     A chunk's positions are contiguous, so each row touches at most
@@ -384,6 +389,8 @@ def _paged_update_page_scale(pool, k_new, v_new, page_table, pos, pids,
 
     def page_scales(x_new, old_scale):
         amax = x_new.to(torch.float32).abs().amax(dim=(-2, -1))  # (B, S)
+        if amax_reduce is not None:
+            amax = amax_reduce(amax)
         amax = torch.where(valid & in_tok, amax, torch.zeros_like(amax))
         need = torch.zeros((B, nb), dtype=torch.float32, device=dev)
         need.scatter_reduce_(1, lb, amax, reduce="amax", include_self=True)

@@ -38,15 +38,15 @@ scale). In order of appearance:
   boundary;
 * traffic at scale: a seeded bursty trace (``core.traffic``), the SLO
   monitor's windowed gauges, the deadline-miss predictor
-  (``predictor="on"``) and the async pager (``pager_async="on"``).
+  (``predictor="on"``) and the async pager (``pager_async="on"``);
+* the multi-replica frontend (``launch.frontend``): the same trace through
+  1 and 2 replicas with prefix-affinity routing and the shared prefix
+  store.
 
 Admission preflights a request's worst-case page demand: one that can
 never fit the pool is rejected with ``core.paged_kv.OutOfPagesError``
 (FIFO mode re-raises it after the serviceable traffic drained), one that
 must wait is deferred.
-
-The reference's multi-replica section (its replica frontend) is not
-ported yet (ROADMAP queue A item 13).
 
     python -m repro_torch.examples.serve_quantized_kv [--device cpu]
 
@@ -322,6 +322,37 @@ def main(argv=None):
           f"offered)")
     out["traffic"] = (len(trace.requests), slo)
     assert srv_tr.release_prefix_cache() == 0
+
+    print("=== multi-replica frontend: prefix-affinity routing + shared "
+          "prefix store ===")
+    from repro_torch.launch.frontend import (ReplicaFrontend,
+                                             aggregate_goodput,
+                                             make_replicas,
+                                             requests_from_trace)
+    common = dict(batch_size=2, max_len=96, kv_bits=8, page_size=16,
+                  num_pages=9, prefix_cache="on", kv_offload="host",
+                  sched="slo", preempt=False, metrics="on",
+                  pager_async="on", device=dev)
+    goodput = {}
+    for n in (1, 2):
+        fe = ReplicaFrontend(make_replicas(n, cfg, model, **common))
+        reqs, keys = requests_from_trace(trace)   # the same offered stream
+        fe.run(reqs, keys)
+        goodput[n] = aggregate_goodput(reqs)
+        if n == 2:
+            c = fe.metrics.snapshot()["counters"]
+            out["replica_counters"] = c
+            print(f"  2 replicas: routed "
+                  f"[{c.get('frontend.routed_replica0', 0)}, "
+                  f"{c.get('frontend.routed_replica1', 0)}], "
+                  f"{c.get('frontend.affinity_hits', 0)} affinity hits, "
+                  f"{c.get('frontend.rebalanced', 0)} rebalances, "
+                  f"{c.get('frontend.shared_prefix_pages', 0)} prefix "
+                  f"pages exchanged through the shared store")
+    print(f"  aggregate goodput on the same trace: 1 replica "
+          f"{goodput[1]:.2f} (== the plain server, bitwise) -> 2 replicas "
+          f"{goodput[2]:.2f}")
+    out["replica_goodput"] = goodput
 
     # admission preflight: a request whose prompt + max_new can never be
     # backed by the pool is rejected with counts, recorded on the request

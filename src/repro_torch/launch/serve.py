@@ -84,8 +84,19 @@ write harmlessly (their own dense row, or the scratch page).
   re-prefill. ``predictor="on"`` gates new
   no-deadline admissions on an online deadline-miss model.
 
-Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+* Tensor-parallel serving (``mesh=``, the CLI's ``--tp N``): SPMD over
+  the ranks of ``launch.mesh.make_serving_mesh``'s "model" axis. Every
+  rank runs the same host scheduler, allocator and prefix cache (they are
+  deterministic, so their counters agree; the one wall-clock input, the
+  predictor's TPOT slowdown, is the first rank's on every rank), and holds its shards of the
+  weights and of the paged pool as ``parallel.sharding`` lays them out:
+  query and KV heads, ``d_ff``, the embedding's D and the head's vocab
+  over "model". The row-parallel products (``wo``, ``w_down``)
+  all-reduce, the embedding rows and the logits all-gather, and a page
+  scale's absmax is maxed over every rank (``parallel.hints``). Dense
+  GQA decoders on paged pools only; a head count the axis does not
+  divide, another family and the quant tier raise
+  ``NotImplementedError`` naming ROADMAP queue A item 13.
 
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
@@ -107,6 +118,8 @@ Tensor-parallel serving (``tp`` > 1) is not ported yet and raises
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --page-size 8 --kv-bits 8 --num-pages 24 --prefix-cache on \\
       --kv-offload host --sched slo --pager-async on
+  python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
+      --page-size 8 --kv-bits 8 --tp 2               # 2 gloo ranks
 """
 from __future__ import annotations
 
@@ -118,6 +131,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..configs.counting import layer_signatures
@@ -133,7 +147,11 @@ from ..core.paged_kv import (SCRATCH_PAGE, OutOfPagesError, PageAllocator,
 from ..core.policy import LayerPolicy, PrecisionPolicy
 from ..core.prefix_cache import PrefixCache
 from ..models.attention import ATTN_IMPLS
-from ..models.transformer import init_cache, init_model
+from ..models.common import frozen
+from ..models.transformer import Transformer, init_cache, init_model
+from ..parallel.hints import activation_hints, first_rank_value
+from ..parallel.sharding import (local_shard, paged_pool_specs, param_specs,
+                                 plan_for_mesh)
 from ..quant.apply import (build_model_quant, kv_profile_key,
                            transformer_layer_names)
 from ..runtime.telemetry import (MetricsRegistry, MetricsSnapshotter,
@@ -233,6 +251,38 @@ def _not_ported(what: str, item: str):
                                f"item {item}")
 
 
+@torch.no_grad()
+def shard_model(model: Transformer, cfg, plan) -> Transformer:
+    """This rank's shards of ``model``'s parameters under ``plan``, the
+    reference's inference placements (``parallel.sharding.param_specs``):
+    a :class:`Transformer` of the same structure whose every parameter is
+    its local shard, marked with its sharded dim as ``tp_dim`` (the
+    collectives of ``parallel.hints`` key on it). An unsharded dim stays
+    a view of ``model``'s tensor."""
+    local = Transformer(cfg, device="meta")
+    src = dict(model.named_parameters())
+    specs = param_specs(model, cfg, plan, inference=True)
+    if set(specs) != set(src):
+        raise ValueError(f"parameters without a placement: "
+                         f"{sorted(set(src) - set(specs))}")
+    for name, spec in specs.items():
+        p = frozen(local_shard(src[name].detach(), spec, plan))
+        dims = [d for d, ax in enumerate(spec) if ax == plan.model_axis]
+        if dims:
+            p.tp_dim = dims[0]
+        mod, _, leaf = name.rpartition(".")
+        setattr(local.get_submodule(mod), leaf, p)
+    return local
+
+
+def _under(plan, fn):
+    """``fn`` run with ``plan``'s collectives active."""
+    def step(*args, **kwargs):
+        with activation_hints(plan):
+            return fn(*args, **kwargs)
+    return step
+
+
 class BatchedServer:
     """Fixed-slot continuous batching with per-slot positions.
 
@@ -259,6 +309,11 @@ class BatchedServer:
     ``host_pages``, ``pager_async``), ``kv_adapt`` (with ``adapt_pages``,
     ``adapt_floor_bits``) and ``sched`` (with ``admit_window``,
     ``preempt``, ``predictor``) are as in the module docstring.
+    ``registry`` injects the server's metrics registry (the replica
+    frontend's namespaced ones); the default is one of its own. ``mesh``
+    (``launch.mesh.make_serving_mesh``) serves tensor-parallel: ``model``
+    is the whole model on every rank, and the server keeps this rank's
+    shards of it (``self.model``).
     """
 
     prefill_forwards = metric_attr("serve.prefill_forwards")
@@ -289,15 +344,15 @@ class BatchedServer:
                  preempt: Optional[bool] = None,
                  kv_adapt: str = "off", adapt_pages: int = 0,
                  adapt_floor_bits: int = 4, fused: str = "off",
-                 metrics: str = "off", snapshot_out: Optional[str] = None,
+                 metrics: str = "off",
+                 registry: Optional[MetricsRegistry] = None,
+                 snapshot_out: Optional[str] = None,
                  snapshot_every: int = 50, predictor: str = "off",
-                 pager_async: str = "off", tp: int = 1, device="cuda"):
+                 pager_async: str = "off", mesh=None, device="cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lies on {model.device}, server asked "
                              f"for {self.device}")
-        if tp != 1:
-            raise _not_ported("tensor-parallel serving (--tp)", "13")
         self.paged = page_size > 0
         if self.paged and cfg.attention_type == "mla":
             raise NotImplementedError("paged KV serving supports GQA archs")
@@ -406,7 +461,7 @@ class BatchedServer:
             raise ValueError("prefill_bucket must be >= 1")
         if prefill_batch < 0:
             raise ValueError("prefill_batch must be >= 0 (0 = auto)")
-        self.metrics = MetricsRegistry()
+        self.metrics = registry if registry is not None else MetricsRegistry()
         self.tracer = make_tracer(metrics)
         self.scheduler = (SLOScheduler(SchedPolicy(admit_window=admit_window,
                                                    preempt=preempt),
@@ -459,6 +514,18 @@ class BatchedServer:
         # the prefix cache namespaces its trie by this key
         self.profile_key = kv_profile_key(kv_profile, kv_bits=kv_bits,
                                           kv_scale_mode=kv_scale)
+        # tensor-parallel placement: ONE replica over the mesh's "model"
+        # ranks (see the module docstring)
+        self.mesh = mesh
+        self.mesh_plan = None
+        cache_cfg = cfg
+        if mesh is not None:
+            if not self.paged:
+                raise ValueError("mesh-sharded serving shards the paged KV "
+                                 "pool; it needs --page-size > 0")
+            self.mesh_plan = plan_for_mesh(mesh)
+            cache_cfg = self._mesh_checks(cfg, kv_adapt)
+            self.model = shard_model(model, cfg, self.mesh_plan)
         self.decode = make_decode_step(cfg, quant=self.quant,
                                        attn_impl=attn_impl)
         self._chunk_prefill = (
@@ -469,6 +536,13 @@ class BatchedServer:
         self._fused = (make_fused_step(cfg, quant=self.quant,
                                        attn_impl=attn_impl)
                        if self.fused else None)
+        if self.mesh_plan is not None:
+            self.decode = _under(self.mesh_plan, self.decode)
+            if self._chunk_prefill is not None:
+                self._chunk_prefill = _under(self.mesh_plan,
+                                             self._chunk_prefill)
+            if self._fused is not None:
+                self._fused = _under(self.mesh_plan, self._fused)
         if self.fused:
             # steady-state span constants: every row decodes (valid_len 1)
             # and every row emits
@@ -513,8 +587,10 @@ class BatchedServer:
                 # pool pressure requantizes, demotes or drops cold cached
                 # prefixes before an allocation fails
                 self.allocator.reclaim = self.prefix_cache.evict
-        self.caches = init_cache(cfg, self.quant, spec, self.device,
+        self.caches = init_cache(cache_cfg, self.quant, spec, self.device,
                                  batch=batch_size, max_len=max_len)
+        if self.mesh_plan is not None:
+            self._mark_pool_shards(cfg, spec, batch_size, max_len)
         # recurrent layers' per-slot states, each layer's initial row: a
         # slot admitting a request restarts from it
         self._state0 = {li: {k: t[:1].clone()
@@ -566,6 +642,51 @@ class BatchedServer:
                 lambda: self.quant_tier.nbytes if self.quant_tier else 0)
             reg("kv.tier_pages",
                 lambda: self.quant_tier.num_pages if self.quant_tier else 0)
+
+    def _mesh_checks(self, cfg, kv_adapt: str):
+        """The refusals of ``mesh=`` outside this slice; returns the
+        config of this rank's pools (its KV-head shard)."""
+        m = self.mesh_plan.model_size
+        if cfg.family != "dense" or cfg.attention_type != "gqa":
+            raise _not_ported(f"tensor-parallel serving of the "
+                              f"{cfg.family} family (mesh=)", "13")
+        if cfg.num_heads % m or cfg.num_kv_heads % m:
+            raise _not_ported(
+                f"tensor-parallel serving with tp={m} not dividing "
+                f"{cfg.num_heads} heads and {cfg.num_kv_heads} KV heads "
+                f"(a replicated pool)", "13")
+        if kv_adapt == "on":
+            raise _not_ported("the quant tier (--kv-adapt on) under "
+                              "mesh=", "13")
+        # NCCL for a card's tensors, gloo for the CPU's, never one for
+        # the other
+        want = "nccl" if self.device.type == "cuda" else "gloo"
+        backend = dist.get_backend(self.mesh_plan.model_group())
+        if backend != want:
+            raise ValueError(f"a {self.device.type} server's mesh needs "
+                             f"{want}; its model group runs {backend}")
+        return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                                   num_kv_heads=cfg.num_kv_heads // m)
+
+    def _mark_pool_shards(self, cfg, spec, batch: int, max_len: int):
+        """Check this rank's pools against the plan's layout of the whole
+        pools (``parallel.sharding.paged_pool_specs``) and mark each
+        sharded one with its dim."""
+        whole = init_cache(cfg, self.quant, spec, "meta", batch=batch,
+                           max_len=max_len)
+        plan = self.mesh_plan
+        for li, (local, specs, w) in enumerate(
+                zip(self.caches, paged_pool_specs(whole, plan), whole)):
+            for key, t in local.items():
+                dims = [d for d, ax in enumerate(specs[key])
+                        if ax == plan.model_axis]
+                want = tuple(n // plan.model_size if d in dims else n
+                             for d, n in enumerate(w[key].shape))
+                if tuple(t.shape) != want:
+                    raise AssertionError(f"layer {li} {key}: local "
+                                         f"{tuple(t.shape)} != {want}")
+                if dims:
+                    t.tp_dim = dims[0]
 
     # -- page bookkeeping ---------------------------------------------------
     def _ensure_page(self, slot: int, position: int):
@@ -1242,7 +1363,17 @@ class BatchedServer:
             debt_cap=self.B * self.prefill_bucket,
             live_frac=live / self.B,
             arrival_ewma=self.slo_monitor.arrival_rate.get(),
-            tpot_slowdown=self.slo_monitor.tpot_slowdown())
+            tpot_slowdown=self._tpot_slowdown())
+
+    def _tpot_slowdown(self) -> float:
+        """The predictor's one wall-clock feature. Under ``mesh=`` every
+        rank takes the model group's first rank's reading: each rank's
+        clock differs, and ranks that admitted differently would run
+        different batches into one collective."""
+        slowdown = self.slo_monitor.tpot_slowdown()
+        if self.mesh_plan is None:
+            return slowdown
+        return first_rank_value(slowdown, self.mesh_plan, self.device)
 
     def _admit(self, queue: List[Request]):
         """One admission cycle: claim as many queued requests as slots and
@@ -1609,9 +1740,15 @@ class BatchedServer:
 class ServeLoop:
     """One in-flight :meth:`BatchedServer.run`, steppable one scheduler
     cycle at a time: arrivals (on the decode-step clock), admission, the
-    promote prefetch, one decode span, then the pager's drain. The
-    frontend's ``limit_step`` clock cap and ``add`` are still to port
-    (ROADMAP queue A item 13)."""
+    promote prefetch, one decode span, then the pager's drain.
+
+    A multi-replica frontend (``launch.frontend.ReplicaFrontend``) drives
+    N loops on one shared clock: :meth:`add` delivers a request mid-run,
+    and ``tick(limit_step=)`` never moves the clock past ``limit_step``,
+    acting exactly as a pending arrival at that step would (a span cap
+    while busy, a clock jump while idle). ``limit_step=None`` is
+    :meth:`BatchedServer.run`'s tick sequence, so one replica's tokens
+    equal the plain server's bit for bit."""
 
     def __init__(self, srv: BatchedServer, requests: List[Request]):
         self.srv = srv
@@ -1624,11 +1761,27 @@ class ServeLoop:
     def live(self) -> bool:
         return any(s is not None for s in self.srv.slots)
 
-    def tick(self) -> bool:
-        """One scheduler cycle. Returns True while there is work left."""
+    def add(self, req: Request) -> None:
+        """Deliver one more request mid-run. A stable insert: same-step
+        arrivals keep their delivery order, as the sort in ``__init__``."""
+        i = len(self.pending)
+        while i > 0 and self.pending[i - 1].arrive_step > req.arrive_step:
+            i -= 1
+        self.pending.insert(i, req)
+        self.finished = False
+
+    def tick(self, limit_step: Optional[int] = None) -> bool:
+        """One scheduler cycle, never moving ``clock`` past ``limit_step``
+        (when given). Returns True while the loop works or moves its
+        clock; False once drained (``finished`` is then set)."""
         srv = self.srv
         pending, queue = self.pending, self.queue
         if not (pending or queue or self.live):
+            if limit_step is not None and limit_step > self.clock:
+                # empty but clock-limited: the frontend may still route
+                # arrivals here, so follow the shared clock
+                self.clock = limit_step
+                return True
             self.finished = True
             return False
         clock = self.clock
@@ -1644,7 +1797,14 @@ class ServeLoop:
         live = [i for i in range(srv.B) if srv.slots[i] is not None]
         if not live:
             if pending:
-                self.clock = max(clock, pending[0].arrive_step)
+                nxt = pending[0].arrive_step
+                if limit_step is not None:
+                    nxt = min(nxt, limit_step)
+                self.clock = max(clock, nxt)
+                return True
+            if limit_step is not None and limit_step > clock:
+                # idle, and the frontend may still route arrivals here
+                self.clock = limit_step
                 return True
             self.finished = True
             return False
@@ -1652,6 +1812,8 @@ class ServeLoop:
         if pending:
             # cap the span at the next arrival so it gets admitted promptly
             span = max(1, min(span, pending[0].arrive_step - clock))
+        if limit_step is not None:
+            span = max(1, min(span, limit_step - clock))
         dev = srv.device
         # device-resident span state: tokens advance device-to-device and
         # come to the host once, at the span boundary
@@ -1828,14 +1990,65 @@ def main(argv=None):
                          "--metrics-every scheduler cycles; implies "
                          "--metrics on")
     ap.add_argument("--metrics-every", type=int, default=50)
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree of ONE serving replica: "
+                         "spawns tp ranks (gloo on --device cpu, NCCL on "
+                         "the cards), a (world // tp, tp) data x model mesh "
+                         "(launch.mesh.make_serving_mesh), heads, d_ff, "
+                         "vocab and the paged pool's KV heads sharded over "
+                         "'model'; needs --page-size > 0; 1 = one device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
     args = ap.parse_args(argv)
     if args.trace_out or args.metrics_out:
         args.metrics = "on"
+    if args.tp > 1:
+        return _spawn_tp(args)
+    return _serve(args)
 
+
+def _spawn_tp(args):
+    """``--tp N``: N ranks on this host, one device each, serve the same
+    requests; rank 0 prints and its requests are returned. Raises the
+    reference's ValueError when N does not divide the visible cards."""
+    from .mesh import spawn_ranks
+    if torch.device(args.device).type == "cuda":
+        resolve_device(args.device)
+        n = torch.cuda.device_count()
+        if n % args.tp:
+            raise ValueError(f"tp={args.tp} does not divide {n} visible "
+                             f"devices")
+    reqs = []
+    for d in spawn_ranks(_tp_rank, args.tp, args, device=args.device)[0]:
+        r = Request(d["rid"], np.asarray(d["prompt"], np.int32),
+                    d["max_new"])
+        r.out, r.done, r.finish_step = d["out"], d["done"], d["finish_step"]
+        reqs.append(r)
+    return reqs
+
+
+def _tp_rank(rank: int, args):
+    """One rank of ``--tp``: its requests' outcomes (rank 0's only)."""
+    from .mesh import make_serving_mesh
+    if rank:
+        # every rank holds its own shards: rank r > 0 writes path.rank<r>
+        args = argparse.Namespace(**vars(args))
+        for k in ("prefix_snapshot", "trace_out", "metrics_out"):
+            if getattr(args, k):
+                setattr(args, k, f"{getattr(args, k)}.rank{rank}")
+    mesh = make_serving_mesh(args.tp, device=args.device)
+    reqs = _serve(args, mesh=mesh, verbose=rank == 0)
+    if rank:
+        return None
+    return [{"rid": r.rid, "prompt": r.prompt.tolist(), "max_new": r.max_new,
+             "out": list(r.out), "done": r.done,
+             "finish_step": r.finish_step} for r in reqs]
+
+
+def _serve(args, mesh=None, verbose: bool = True):
+    """The CLI's run on this process (one rank of ``mesh`` when given)."""
+    say = print if verbose else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
@@ -1873,23 +2086,23 @@ def main(argv=None):
                         snapshot_out=args.metrics_out or None,
                         snapshot_every=args.metrics_every,
                         predictor=args.predictor,
-                        pager_async=args.pager_async, tp=args.tp,
+                        pager_async=args.pager_async, mesh=mesh,
                         device=device)
     if args.prefix_snapshot and os.path.exists(
             snapshot_path(args.prefix_snapshot)):
         n = srv.restore_prefix_cache(args.prefix_snapshot)
-        print(f"[serve] restored {n} prefix pages from "
+        say(f"[serve] restored {n} prefix pages from "
               f"{args.prefix_snapshot} (host tier)")
-    srv.run(reqs, verbose=True)
+    srv.run(reqs, verbose=verbose)
     if args.prefix_snapshot:
         n = srv.snapshot_prefix_cache(args.prefix_snapshot)
-        print(f"[serve] snapshotted {n} prefix pages to "
+        say(f"[serve] snapshotted {n} prefix pages to "
               f"{args.prefix_snapshot}")
     if args.metrics == "on":
         slo = srv.tracer.slo_summary()
         ttft, tpot = slo.get("ttft_p50_s"), slo.get("tpot_p50_s")
         ttft99, goodput = slo.get("ttft_p99_s"), slo.get("goodput")
-        print(f"[serve] slo: "
+        say(f"[serve] slo: "
               f"goodput={'n/a' if goodput is None else format(goodput, '.3f')}"
               f" ({slo['finished']}/{slo['requests']} finished, "
               f"{slo['deadline_misses']} deadline misses), "
@@ -1898,10 +2111,10 @@ def main(argv=None):
               f"tpot p50={0.0 if tpot is None else tpot * 1e3:.2f}ms")
     if args.trace_out:
         srv.tracer.export_chrome(args.trace_out)
-        print(f"[serve] wrote {len(srv.tracer.events)} trace events to "
+        say(f"[serve] wrote {len(srv.tracer.events)} trace events to "
               f"{args.trace_out}")
     for r in reqs[:4]:
-        print(f"  req {r.rid}: {len(r.out)} tokens -> {r.out[:8]}...")
+        say(f"  req {r.rid}: {len(r.out)} tokens -> {r.out[:8]}...")
     return reqs
 
 

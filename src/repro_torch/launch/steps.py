@@ -24,7 +24,6 @@ from typing import Optional
 
 import torch
 
-from ..models.common import lm_head
 from ..models.transformer import (Transformer, forward_hidden, init_cache,
                                   init_model, reference_layout,
                                   reference_tree, train_loss,
@@ -191,13 +190,13 @@ def make_prefill_step(cfg, *, max_len: int, quant=None):
         if cfg.family == "encoder":
             x, _, _ = forward_hidden(model, tokens, cfg, quant=quant,
                                      **inputs)
-            return lm_head(model.head_weight(), x), None
+            return model.logits(x), None
         B = (tokens if tokens is not None else inputs["embeds"]).shape[0]
         caches = init_cache(cfg, quant, None, model.device, batch=B,
                             max_len=max_len)
         x, caches, _ = forward_hidden(model, tokens, cfg, quant=quant,
                                       caches=caches, cache_pos=0, **inputs)
-        return lm_head(model.head_weight(), x)[:, -1], caches
+        return model.logits(x)[:, -1], caches
 
     return step
 
@@ -238,7 +237,7 @@ def make_decode_step(cfg, *, quant=None, attn_impl: str = "gather"):
                                       caches=caches, cache_pos=pos,
                                       page_table=page_table,
                                       attn_impl=attn_impl)
-        logits = lm_head(model.head_weight(), x)[:, 0]
+        logits = model.logits(x)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
 
@@ -279,7 +278,7 @@ def make_fused_step(cfg, *, quant=None, attn_impl: str = "gather"):
         last = valid_len.to(torch.int64)[emit] - 1           # (E,)
         h = torch.gather(h, 1, last[:, None, None].expand(
             -1, 1, h.shape[-1]))                             # (E, 1, D)
-        logits = lm_head(model.head_weight(), h)[:, 0]
+        logits = model.logits(h)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
 
@@ -298,7 +297,7 @@ def make_embed_decode_step(cfg, *, quant=None):
         x, caches, _ = forward_hidden(model, None, cfg, embeds=embeds,
                                       quant=quant, caches=caches,
                                       cache_pos=pos)
-        logits = lm_head(model.head_weight(), x)[:, 0]
+        logits = model.logits(x)[:, 0]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
 

@@ -35,17 +35,20 @@ route keeps them off the kernel, as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import resolve_device
 from ..core.fixedpoint import format_params
-from ..core.paged_kv import paged_gather, paged_update, per_row, \
-    pool_container
+from ..core.paged_kv import (PagedKVLayout, init_paged_pool, paged_gather,
+                             paged_update, per_row, pool_container)
 from ..kernels.paged_kv_attention import (paged_kv_attention_chunk,
                                           paged_kv_attention_decode)
+from ..parallel.hints import active_plan, constrain, model_shards, pool_max
 from .common import apply_mrope, apply_rope, dense_init, frozen, rmsnorm
 
 NEG_INF = -1e30
@@ -82,6 +85,17 @@ def init_kv_cache(batch, max_len, n_kv, head_dim, dtype,
     shape = (batch, max_len, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=store, device=device),
             "v": torch.zeros(shape, dtype=store, device=device)}
+
+
+def init_paged_kv_cache(num_pages, page_size, n_kv, head_dim, dtype,
+                        quant: Optional[KVQuantSpec] = None, device="cuda"):
+    """Paged pool for one GQA layer (no batch dim: pages are shared), in
+    ``quant``'s container or float pages of ``dtype``."""
+    layout = PagedKVLayout(
+        num_pages=num_pages, page_size=page_size, num_kv_heads=n_kv,
+        head_dim=head_dim,
+        container="fp" if quant is None else quant.container, dtype=dtype)
+    return init_paged_pool(layout, resolve_device(device))
 
 
 def _q_store(x, quant: Optional[KVQuantSpec]):
@@ -132,14 +146,20 @@ def paged_cache_update(cache, k_new, v_new, page_table, pos,
                        quant: Optional[KVQuantSpec] = None, valid_len=None):
     """Append S new tokens through the page table (pos scalar or (B,));
     ``valid_len`` sends padded chunk tails to the scratch page. Updates
-    ``cache`` in place and returns it."""
+    ``cache`` in place and returns it. Under a tensor-parallel plan the
+    cache holds this rank's KV heads, and a page scale's absmax is maxed
+    over every rank's (``parallel.hints.pool_max``)."""
+    amax_reduce = None
+    if active_plan() is not None:
+        amax_reduce = functools.partial(pool_max, pages=cache["k_pages"])
     return paged_update(
         cache, k_new, v_new, page_table, pos,
         page_size=cache["k_pages"].shape[1], container=pool_container(cache),
         int_bits=None if quant is None else quant.int_bits,
         frac_bits=None if quant is None else quant.frac_bits,
         valid_len=valid_len,
-        scale_mode="static" if quant is None else quant.scale_mode)
+        scale_mode="static" if quant is None else quant.scale_mode,
+        amax_reduce=amax_reduce)
 
 
 def paged_cache_view(cache, page_table, *, head_dim, dtype):
@@ -364,7 +384,10 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
     reference's ``use_chunked`` rule takes the online softmax once S^2
     exceeds ``cfg.attn_chunk``^2, else :func:`attend_full`."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # a tensor-parallel rank holds its shard of the heads (1 without a plan)
+    H = cfg.num_heads // model_shards(cfg.num_heads)
+    KV = cfg.num_kv_heads // model_shards(cfg.num_kv_heads)
+    hd = cfg.head_dim
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
@@ -380,6 +403,9 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     v = v.reshape(B, S, KV, hd)
+    q = constrain(q, "dp", None, "tp", None, full=(B, S, cfg.num_heads, hd))
+    k = constrain(k, "dp", None, "tp", None,
+                  full=(B, S, cfg.num_kv_heads, hd))
     odt = torch.bfloat16 if cfg.attn_bf16 else torch.float32
     if cache is not None and "k_pages" in cache:
         if page_table is None:

@@ -53,6 +53,7 @@ from .. import resolve_device
 from ..configs.counting import (layer_segments, layer_signatures,
                                 segment_layers)
 from ..core.fixedpoint import fake_quant_ste
+from ..parallel.hints import constrain, full, gather_cols, reduce_rows
 from ..core.paged_kv import (PagedCacheSpec, PagedKVLayout, init_paged_pool,
                              per_row)
 from .attention import (GQAttention, KVQuantSpec, MLAttention, gqa_apply,
@@ -269,7 +270,13 @@ class Transformer(nn.Module):
     def embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
         """The embedding rows of ``ids`` in the compute dtype (rows first,
         then the cast: the same values as casting the table)."""
-        return self._at_use("embed", embed_tokens(self.embed, ids))
+        rows = gather_cols(embed_tokens(self.embed, ids), self.embed)
+        return self._at_use("embed", rows)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The LM head over ``x`` (…, D): (…, V) logits, whole on every
+        rank under a tensor-parallel plan (the vocab shards gathered)."""
+        return gather_cols(lm_head(self.head_weight(), x), self.head)
 
     def head_weight(self) -> torch.Tensor:
         if self.head is None:
@@ -571,7 +578,7 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
     the ``state_quant`` (I, F) grid at chunk boundaries.
     ``mrope_positions`` (B, S, 3) reach a GQA attention (M-RoPE); MLA
     ignores them, as the reference does."""
-    h = rmsnorm(blk.norm1, x, cfg.norm_eps)
+    h = rmsnorm(full(blk.norm1), x, cfg.norm_eps)
     if blk.attn is None:
         y, cache = MIXERS[blk.sig[0]].apply(
             _quant_weights(blk.mixer, w_fmt), h, cfg=cfg, state=cache,
@@ -587,17 +594,18 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
                              mrope_positions=mrope_positions,
                              page_table=page_table, attn_impl=attn_impl,
                              kv_valid_len=kv_valid_len)
+        y = reduce_rows(y, blk.attn.wo)      # row-parallel under a plan
     x = x + y
     aux = {}
     if blk.mlp is not None:
         mlp = _quant_weights(blk.mlp, w_fmt)
-        h = rmsnorm(blk.norm2, x, cfg.norm_eps)
+        h = rmsnorm(full(blk.norm2), x, cfg.norm_eps)
         if isinstance(blk.mlp, MoE):
             y, aux = moe_apply(mlp, h, cfg=cfg)
         elif isinstance(blk.mlp, GeluMLP):
             y = gelu_mlp_apply(mlp, h)
         else:
-            y = swiglu_apply(mlp, h)
+            y = reduce_rows(swiglu_apply(mlp, h), blk.mlp.w_down)
         x = x + y
     if a_fmt is not None:
         x = fake_quant_ste(x, *a_fmt)      # the paper's "data" bits
@@ -638,6 +646,7 @@ def forward_hidden(model: Transformer, tokens, cfg, *, embeds=None,
     else:
         x = model.embed_rows(tokens)
     B, S = x.shape[0], x.shape[1]
+    x = constrain(x, "dp", None, None)   # batch over the data axes
     if positions is None:
         base = per_row(0 if cache_pos is None else cache_pos, B, x.device)
         positions = base[:, None] + torch.arange(S, device=x.device)[None, :]
@@ -670,7 +679,7 @@ def forward(model: Transformer, tokens, cfg, **kw):
     """Returns (hidden, logits, caches, aux), as the reference's
     ``forward``; ``tokens`` and keywords as :func:`forward_hidden`."""
     x, caches, aux = forward_hidden(model, tokens, cfg, **kw)
-    return x, lm_head(model.head_weight(), x), caches, aux
+    return x, model.logits(x), caches, aux
 
 
 def train_loss(model: Transformer, batch, cfg, *,

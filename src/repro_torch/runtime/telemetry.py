@@ -132,12 +132,21 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Injectable named-metric store; metrics are created on first access."""
+    """Injectable named-metric store; metrics are created on first access.
 
-    def __init__(self):
+    ``namespace`` prefixes every name in the exported view
+    (:meth:`snapshot`, :meth:`export_name`) only: components read and
+    write unprefixed names, so a server reads ``gauge("slo.x")`` alike
+    standalone or as one replica of a frontend (``replica0`` ...)."""
+
+    def __init__(self, namespace: str = ""):
+        self.namespace = namespace
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+
+    def export_name(self, name: str) -> str:
+        return f"{self.namespace}.{name}" if self.namespace else name
 
     def counter(self, name: str) -> Counter:
         c = self._counters.get(name)
@@ -174,12 +183,15 @@ class MetricsRegistry:
         raise KeyError(f"unknown metric {name!r}")
 
     def snapshot(self) -> dict:
-        """One JSON-ready view of every metric (gauge callbacks read)."""
+        """One JSON-ready view of every metric (gauge callbacks read),
+        its names carrying the ``namespace`` prefix, if any."""
+        ns = self.export_name
         return {
-            "counters": {n: c.value
+            "counters": {ns(n): c.value
                          for n, c in sorted(self._counters.items())},
-            "gauges": {n: g.value for n, g in sorted(self._gauges.items())},
-            "histograms": {n: h.summary()
+            "gauges": {ns(n): g.value
+                       for n, g in sorted(self._gauges.items())},
+            "histograms": {ns(n): h.summary()
                            for n, h in sorted(self._histograms.items())},
         }
 
@@ -201,6 +213,19 @@ class MetricsRegistry:
             c.reset()
         for h in self._histograms.values():
             h.reset()
+
+
+_DEFAULT: Optional[MetricsRegistry] = None
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry, for components no server owns; the
+    serving path injects its own (two servers in one process must not
+    share counters)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = MetricsRegistry()
+    return _DEFAULT
 
 
 class metric_attr:

@@ -1627,3 +1627,149 @@ def test_cuda_train2_vlm_from_embeddings_matches_cpu(cuda):
     for (lg, gg), (lw, gw) in zip(got, want):
         assert lg == pytest.approx(lw, rel=1e-5)
         assert gg == pytest.approx(gw, rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the serving half of the distributed layer: the replica frontend, the
+# world-size-1 mesh path on NCCL, and B1 on a tensor-parallel rank's heads
+# ---------------------------------------------------------------------------
+_REPLICA_KW = dict(batch_size=2, max_len=48, page_size=8, num_pages=12,
+                   kv_bits=8, attn_impl="kernel", prefix_cache="on",
+                   kv_offload="host", sched="slo", metrics="on",
+                   pager_async="on")
+
+
+def _replica_trace(vocab):
+    from repro_torch.core.traffic import (TenantSpec, TraceConfig,
+                                          generate_trace)
+    return generate_trace(TraceConfig(
+        seed=11, horizon=24, rate=0.3, process="bursty", burst_rate=1.2,
+        p_enter_burst=0.2, p_exit_burst=0.3, vocab_size=vocab,
+        tenants=(TenantSpec("chat", weight=0.7, priority=5,
+                            deadline_slack=6, prompt_mean=8.0,
+                            prompt_sigma=0.4, prompt_cap=12,
+                            max_new_mean=2.5, max_new_sigma=0.4,
+                            max_new_cap=4, shared_prefix_len=6,
+                            prefix_pool=2),
+                 TenantSpec("bulk", weight=0.3, priority=0,
+                            deadline_slack=None, prompt_mean=9.0,
+                            prompt_sigma=0.4, prompt_cap=14,
+                            max_new_mean=6.0, max_new_sigma=0.3,
+                            max_new_cap=8))))
+
+
+def _counters(srv):
+    return {k: v for k, v in srv.metrics.snapshot()["counters"].items()
+            if not k.endswith("_s")}
+
+
+def test_cuda_replicas_one_replica_is_the_plain_server(cuda):
+    """A 1-replica ``ReplicaFrontend`` on the card, through B1 with the
+    prefix cache, the host tier, the async pager and SLO scheduling: its
+    tokens, done flags and finish steps equal the plain server's bit for
+    bit, and so do its host counters."""
+    from repro_torch.launch.frontend import (ReplicaFrontend,
+                                             requests_from_trace)
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    cfg = _small_cfg()
+    model = init_model(cfg, seed=5, device=cuda)
+    trace = _replica_trace(cfg.vocab_size)
+    plain = BatchedServer(cfg, model, device=cuda, **_REPLICA_KW)
+    want = plain.run(requests_from_trace(trace)[0])
+    fe = ReplicaFrontend([BatchedServer(cfg, model, device=cuda,
+                                        **_REPLICA_KW)])
+    before = pka.paged_kv_attention_chunk.launches
+    got, keys = requests_from_trace(trace)
+    fe.run(got, keys)
+    assert pka.paged_kv_attention_chunk.launches - before \
+        == cfg.num_layers * fe.servers[0].program_launches > 0
+    for g, w in zip(got, want):
+        assert (g.rid, list(g.out), g.done, g.finish_step) == \
+            (w.rid, list(w.out), w.done, w.finish_step)
+    assert _counters(fe.servers[0]) == _counters(plain)
+
+
+def test_cuda_replicas_mesh_world_one_is_the_plain_server(cuda):
+    """``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL
+    group (its collectives run, over one rank) against the plain server:
+    the same tokens bit for bit and the same host counters, page scales
+    included."""
+    import torch.distributed as dist
+    from repro_torch.launch.frontend import requests_from_trace
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    cfg = _small_cfg()
+    model = init_model(cfg, seed=6, device=cuda)
+    trace = _replica_trace(cfg.vocab_size)
+    kw = dict(_REPLICA_KW, kv_scale="page")
+    plain = BatchedServer(cfg, model, device=cuda, **kw)
+    want = plain.run(requests_from_trace(trace)[0])
+    mesh = make_serving_mesh(1, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        srv = BatchedServer(cfg, model, mesh=mesh, device=cuda, **kw)
+        assert srv.model is not model
+        got = srv.run(requests_from_trace(trace)[0])
+    finally:
+        dist.destroy_process_group()
+    assert [list(r.out) for r in got] == [list(r.out) for r in want]
+    assert _counters(srv) == _counters(plain)
+
+
+def test_cuda_replicas_mesh_predictor_reads_the_first_rank(cuda):
+    """The deadline-miss predictor under a one-rank NCCL mesh: its
+    wall-clock feature goes through the model group's broadcast
+    (``parallel.hints.first_rank_value``, a float64 on the card), and
+    with both clocks reading one TPOT slowdown the mesh server consults
+    the same features and serves the plain server's tokens and
+    counters."""
+    import torch.distributed as dist
+    from repro_torch.launch.frontend import requests_from_trace
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.hints import first_rank_value
+    cfg = _small_cfg()
+    model = init_model(cfg, seed=7, device=cuda)
+    trace = _replica_trace(cfg.vocab_size)
+    kw = dict(_REPLICA_KW, predictor="on")
+
+    def serve(srv):
+        srv.slo_monitor.tpot_slowdown = lambda: 0.125
+        seen, consult = [], srv.predictor.consult
+        srv.predictor.consult = lambda x: (seen.append(list(x)),
+                                           consult(x))[1]
+        return srv.run(requests_from_trace(trace)[0]), seen
+
+    plain = BatchedServer(cfg, model, device=cuda, **kw)
+    want, want_seen = serve(plain)
+    mesh = make_serving_mesh(1, device="cuda")
+    try:
+        srv = BatchedServer(cfg, model, mesh=mesh, device=cuda, **kw)
+        assert first_rank_value(-0.0625, srv.mesh_plan, cuda) == -0.0625
+        got, seen = serve(srv)
+    finally:
+        dist.destroy_process_group()
+    assert len(seen) >= 3 and seen == want_seen
+    assert {f[-1] for f in seen} == {0.125}
+    assert [list(r.out) for r in got] == [list(r.out) for r in want]
+    assert _counters(srv) == _counters(plain)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("s", [1, 32])
+def test_cuda_replicas_b1_on_local_heads(cuda, bits, s):
+    """B1 on a tensor-parallel rank's heads at qwen2-72b's widths over 2
+    ranks: 32 query heads over 4 KV heads (G = 8), head_dim 128, page size
+    16, against its plain version."""
+    args = _case(700 + bits + s, b=4, kv=4, g=8, hd=128, ps=16, s=s,
+                 bits=bits, start=200, qdt=torch.bfloat16)
+    plain = pka.paged_kv_attention_chunk(*args, bits=bits)
+    before = pka.paged_kv_attention_chunk.launches
+    got = pka.paged_kv_attention_chunk(*[a.to(cuda) for a in args],
+                                       bits=bits)
+    torch.cuda.synchronize()
+    assert pka.paged_kv_attention_chunk.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), **TOL)

@@ -2,7 +2,7 @@
 --device cpu``): the quickstart's paper search on LeNet (its search cut
 to 3 steps here; the whole search takes minutes on one thread), the
 search -> ``--kv-profile`` -> serving loop, and the serving tour of
-``serve_quantized_kv`` (the reference's, less its replica section);
+``serve_quantized_kv`` (the reference's, its replica section included);
 each entry point raises without a card unless given ``--device cpu``."""
 import json
 
@@ -71,7 +71,12 @@ def test_serve_quantized_kv(capsys):
     assert delta["serve.decode_steps"] == 2
     assert "cannot back request 99" in out["rejected"]
     assert out["served_behind"] == (True, 8)
-    assert "multi-replica" not in text
+    assert "multi-replica frontend" in text
+    c = out["replica_counters"]
+    assert (c["frontend.routed_replica0"] + c["frontend.routed_replica1"]
+            == c["frontend.routed"] == out["traffic"][0])
+    assert c["frontend.shared_prefix_pages"] >= 1
+    assert out["replica_goodput"][2] >= out["replica_goodput"][1]
 
 
 @pytest.mark.parametrize("example", [quickstart, serve_policy_profile,

@@ -130,6 +130,7 @@ def test_forward_matches_reference(models, container, attn_impl,
     for w, (k, v, page_table, pos, kw) in enumerate(writes):
         li = w % tcfg.num_layers
         vl = kw.pop("valid_len")
+        assert kw.pop("amax_reduce") is None   # one device: every KV head
         replay[li] = jpaged_update(
             replay[li], jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
             jnp.asarray(page_table.numpy()), jnp.asarray(pos.numpy()),

@@ -145,24 +145,32 @@ def test_admission_rejects_and_defers(models):
 
 @pytest.mark.parametrize("option,item", [
     (dict(sched="slo", preempt=True), "9"), (dict(predictor="on"), "9"),
-    (dict(kv_adapt="on"), "9"), (dict(tp=2), "13")])
+    (dict(kv_adapt="on"), "9"), (dict(mesh=1, page_size=0), "13")])
 def test_options_outside_the_slice_raise(models, option, item):
-    """Tensor-parallel serving (ROADMAP queue A item 13) raises
-    NotImplementedError. Item 9's options are ported: used without what
-    they need (preemption without the host tier, the predictor without
-    the SLO scheduler, adaptation without the prefix cache) they raise the
-    reference's ValueError, word for word."""
+    """Used without what they need, the ported options raise the
+    reference's ValueError, word for word: preemption without the host
+    tier, the predictor without the SLO scheduler, adaptation without the
+    prefix cache (item 9), and tensor-parallel serving (``mesh=``, item
+    13) on a dense slab instead of a paged pool (each package on a
+    one-device serving mesh of its own)."""
     jcfg, tcfg, jparams, model = models
     kw = dict(_KW, kv_bits=8)
     kw.update(option)
-    if item == "13":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            BatchedServer(tcfg, model, device=CPU, **kw)
-        return
-    with pytest.raises(ValueError) as ref:
-        JServer(jcfg, jparams, **kw)
-    with pytest.raises(ValueError) as port:
-        BatchedServer(tcfg, model, device=CPU, **kw)
+    jkw, tkw = dict(kw), dict(kw)
+    if "mesh" in kw:
+        import torch.distributed as dist
+        from repro.launch.mesh import make_serving_mesh as jmesh
+        from repro_torch.launch.mesh import make_serving_mesh as tmesh
+        jkw["mesh"] = jmesh(1)
+        tkw["mesh"] = tmesh(1, device="cpu")
+    try:
+        with pytest.raises(ValueError) as ref:
+            JServer(jcfg, jparams, **jkw)
+        with pytest.raises(ValueError) as port:
+            BatchedServer(tcfg, model, device=CPU, **tkw)
+    finally:
+        if "mesh" in kw:
+            dist.destroy_process_group()
     assert str(port.value) == str(ref.value)
 
 

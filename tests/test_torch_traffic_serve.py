@@ -9,7 +9,7 @@ and promotions. (Each package's page store reads the same fake clock as its
 tracer: the pager's spans are stamped there, and the overlap gate compares
 them with the decode spans.) Both packages' gates pass, their tokens agree
 per ``accuracy_gate``, the overload gate made to fail raises the reference's
-words, and the replica A/B is refused."""
+words, and the replica A/B runs (``--mode replicas``)."""
 import json
 
 import numpy as np
@@ -145,13 +145,19 @@ def test_overload_gate_raises_the_reference_words(tmp_path, monkeypatch):
     assert errors[0].startswith("traffic trace is not an overload")
 
 
-def test_replicas_are_refused_with_their_item():
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        ttraffic.run_replicas()
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        ttraffic.run(mode="replicas")
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        ttraffic.main(["--mode", "replicas"])
+def test_replicas_are_refused_with_their_item(tmp_path, monkeypatch):
+    """The replica A/B is ported: ``--mode replicas`` runs on the CPU and
+    passes the reference's three gates (the 1-replica frontend is the
+    plain server, both arms agree with the ample-pool reference, 2
+    replicas buy goodput); ``tests/test_torch_replicas.py`` holds its
+    fields against the reference's."""
+    monkeypatch.setattr(tcommon, "RESULTS", tmp_path)
+    res = ttraffic.main(["--mode", "replicas", "--fast", "--device", "cpu"])
+    rep = res["replicas"]
+    assert rep["two_replica"]["goodput"] > rep["one_replica"]["goodput"]
+    assert min(rep["one_replica"]["token_agreement"],
+               rep["two_replica"]["token_agreement"]) >= 0.9
+    assert (tmp_path / "torch_traffic_replicas.json").exists()
 
 
 def test_modes(tmp_path, monkeypatch):
