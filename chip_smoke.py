@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase replicas   # the build and [replicas]
     python3 chip_smoke.py --phase train  # the build and [train] alone
     python3 chip_smoke.py --phase train2 # the build and [train2] alone
+    python3 chip_smoke.py --phase dist   # [dist] alone, no kernel build
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -202,7 +203,20 @@ Phases, each of which raises on failure (no phase is caught):
    widths and depth trained from patch embeddings with M-RoPE ids
    (``make_batch`` at 512), then served as ``[train]`` (d) on 8 requests
    of 40-96 prompt tokens and 12 new: B1 at G = 12 / 2 = 6 held against
-   its plain version; the phase time against its 60 s budget;
+   its plain version; the phase time against its 60 s budget; then
+   ``[dist]``, the sharded trainer on a one-rank NCCL group
+   (``make_host_mesh("cuda")``): (a) deepseek-7b at published widths cut
+   to 2 layers, 5 steps of 4 x 512 ``lm_batch`` tokens through
+   ``make_train_step(plan=)`` against 5 plain steps from the same state,
+   fp32 moments: losses, grad norms and every state leaf bit for bit;
+   (b) the same with W10 / D12 / KV8, int8 moments and the int8 wire;
+   (c) a deepseek-7b-smoke checkpoint written under the plan and
+   ``elastic_restore``d onto a plain state, bit for bit; (d) the trainer
+   under ``python -m torch.distributed.run --nproc-per-node 1`` (a child
+   process) against the plain CLI, losses within rtol 1e-5; (e)
+   ``quantized_allreduce`` and ``gpipe_apply`` (S = 1) on CUDA tensors;
+   step ms (mesh and plain), peak memory, the phase time against its
+   45 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -236,6 +250,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4972,6 +4987,290 @@ def train2_phase(seed: int):
     return launches, [record]
 
 
+# ---------------------------------------------------------------------------
+# [dist]: distributed training on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+DIST_LAYERS = 2          # deepseek-7b's 30 cut: two ~15 GB states side by side
+DIST_STEPS = 5
+DIST_SMOKE_STEPS = 3
+DIST_CLI_STEPS = 6
+DIST_BUDGET_S = 45
+
+
+def dist_state_leaves(state):
+    """Every leaf of a train state (masters, moments' grids and scales or
+    float32 moments, residuals, the step) as {key: tensor}."""
+    out = {f"params/{n}": p.detach()
+           for n, p in state["params"].named_parameters()}
+    out["opt/step"] = state["opt"]["step"]
+    for k in ("m", "v"):
+        for n, v in state["opt"][k].items():
+            if isinstance(v, dict):
+                out.update({f"opt/{k}/{n}/{j}": x for j, x in v.items()})
+            else:
+                out[f"opt/{k}/{n}"] = v
+    for n, r in state.get("ef_residual", {}).items():
+        out[f"ef_residual/{n}"] = r
+    return out
+
+
+def dist_arm(cfg, label: str, seed: int, plan, *, quantized: bool) -> dict:
+    """(a) / (b): ``DIST_STEPS`` steps of 4 x 512 ``lm_batch`` tokens
+    through ``make_train_step(plan=)`` and through the plain step, each
+    from its own copy of one seeded state: losses, grad norms and every
+    state leaf compared bit for bit; each step timed alone (a device
+    sync, then CUDA events: :class:`SyncTimer`); peak memory."""
+    import gc
+
+    import torch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          make_train_step, shard_train_state)
+    from repro_torch.launch.train import build_quant
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import CompressionConfig
+    hp = TrainHParams(lr=TRAIN_LR, adamw=AdamWConfig(
+        quantize_moments=quantized),
+        grad_compress=CompressionConfig() if quantized else None)
+    quant = (build_quant(cfg, weight_bits=10, data_bits=12, kv_bits=8,
+                         policy_json="") if quantized else None)
+    dcfg = train_data(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
+    batches = [{k: v.to("cuda") for k, v in lm_batch(dcfg, s).items()}
+               for s in range(DIST_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    plain = init_train_state(cfg, hp, seed=seed, device="cuda")
+    mesh = shard_train_state(init_train_state(cfg, hp, seed=seed,
+                                              device="cuda"), cfg, plan)
+    before = dist_state_leaves(mesh)
+    same_start = all(torch.equal(x, before[k])
+                     for k, x in dist_state_leaves(plain).items())
+    del before
+    runs = {}
+    for name, state, p in (("plain", plain, None), ("mesh", mesh, plan)):
+        step = SyncTimer(make_train_step(cfg, hp, quant=quant, plan=p))
+        metrics = []
+        for b in batches:
+            _, m = step(state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        runs[name] = {"metrics": metrics, "ms": step.ms()}
+    a, b = dist_state_leaves(plain), dist_state_leaves(mesh)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = (same_start and not differ
+          and runs["mesh"]["metrics"] == runs["plain"]["metrics"])
+    print(f"[dist] ({'b' if quantized else 'a'}) {label}: {DIST_STEPS} steps "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, mesh vs plain: losses "
+          f"{[m[0] for m in runs['mesh']['metrics']]} vs "
+          f"{[m[0] for m in runs['plain']['metrics']]}, grad norms "
+          f"{[m[1] for m in runs['mesh']['metrics']]} vs "
+          f"{[m[1] for m in runs['plain']['metrics']]}; {len(a)} state "
+          f"leaves, {len(differ)} differ {differ[:4]}; step ms mesh "
+          f"{runs['mesh']['ms']:.2f} plain {runs['plain']['ms']:.2f} "
+          f"(median, CUDA events after a sync); peak {peak:.2f} GiB",
+          flush=True)
+    leaves = len(a)
+    del plain, mesh, a, b, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"[dist] {label}: the mesh step is not the "
+                             f"plain step bit for bit")
+    return {"label": label, "quantized": quantized, "leaves": leaves,
+            "mesh": runs["mesh"], "plain": runs["plain"], "peak_gib": peak}
+
+
+def dist_elastic(seed: int, mesh, plan) -> dict:
+    """(c): deepseek-7b-smoke trained ``DIST_SMOKE_STEPS`` steps through the
+    mesh step, its checkpoint written under the plan (each leaf gathered,
+    rank 0 writing), then ``elastic_restore`` onto a plain state from
+    another seed: every leaf bit for bit; one more step of each (the
+    mesh step on the trained state, the plain step on the restored one)
+    equal bit for bit."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.ckpt import save_checkpoint
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.steps import (TrainHParams, init_train_state,
+                                          make_train_step, shard_train_state,
+                                          train_state_tree)
+    from repro_torch.runtime import elastic_restore
+    cfg = get_smoke_config(TRAIN_ARCH)
+    hp = TrainHParams(lr=1e-3)
+    dcfg = train_data(cfg, batch=4, seq=64, seed=seed)
+    state = shard_train_state(init_train_state(cfg, hp, seed=seed,
+                                               device="cuda"), cfg, plan)
+    step = make_train_step(cfg, hp, plan=plan)
+    for s in range(DIST_SMOKE_STEPS):
+        step(state, {k: v.to("cuda") for k, v in lm_batch(dcfg, s).items()})
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, DIST_SMOKE_STEPS, train_state_tree(
+            state, cfg, plan=plan), extra={"data": {"step": 3}}, plan=plan)
+        got, restored, extra = elastic_restore(
+            d, init_train_state(cfg, hp, seed=seed + 1, device="cuda"), mesh)
+    a, b = dist_state_leaves(state), dist_state_leaves(restored)
+    differ = [k for k in a if not torch.equal(a[k], b[k].to(a[k].device))]
+    nxt = {k: v.to("cuda") for k, v in lm_batch(dcfg, 3).items()}
+    _, m_mesh = step(state, nxt)
+    _, m_plain = make_train_step(cfg, hp)(restored, nxt)
+    same = all(torch.equal(m_mesh[k], m_plain[k]) for k in m_mesh)
+    print(f"[dist] (c) {TRAIN_ARCH}-smoke: checkpoint of step {got} "
+          f"(extra {extra}) elastic_restore'd onto a plain state: "
+          f"{len(a)} leaves, {len(differ)} differ; the next step mesh vs "
+          f"plain: loss {float(m_mesh['loss'])} vs "
+          f"{float(m_plain['loss'])}, bitwise {same}", flush=True)
+    if got != DIST_SMOKE_STEPS or differ or not same:
+        raise AssertionError("[dist] (c): the elastic round trip is not "
+                             "bit for bit")
+    return {"leaves": len(a), "differ": len(differ), "next_bitwise": same}
+
+
+def dist_cli(seed: int) -> dict:
+    """(d): ``python -m torch.distributed.run --nproc-per-node 1 -m
+    repro_torch.launch.train`` (a child process, the launcher's group
+    joined through ``env://``) against the plain CLI in this process (on
+    the phase's group): losses within rtol 1e-5."""
+    import json as _json
+    import tempfile
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import free_port
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--mesh", "host", "--steps",
+            str(DIST_CLI_STEPS), "--batch-size", "4", "--seq-len", "64",
+            "--lr", "1e-3", "--warmup", "2", "--log-every", "1",
+            "--seed", str(seed)]
+    src = str(Path(__file__).resolve().parent / "src")
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "m.json")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "1", "--master-port", str(free_port()),
+             "-m", "repro_torch.launch.train"] + args
+            + ["--metrics-out", out], capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, PYTHONPATH=src))
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise RuntimeError(f"[dist] (d) torch.distributed.run failed:\n"
+                               f"{child.stderr[-3000:]}")
+        launched = _json.loads(Path(out).read_text())
+    plain = train_mod.main(args)
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(launched, plain))
+    ok = (len(launched) == len(plain) == DIST_CLI_STEPS and rel <= 1e-5)
+    print(f"[dist] (d) torch.distributed.run --nproc-per-node 1 ... "
+          f"--mesh host ({child_s:.1f} s, a child process): losses "
+          f"{[r['loss'] for r in launched]} vs the plain CLI's "
+          f"{[r['loss'] for r in plain]}: max rel diff {rel:.3g} (rtol "
+          f"1e-5)", flush=True)
+    if not ok:
+        raise AssertionError("[dist] (d): the launched CLI parts from the "
+                             "plain CLI")
+    return {"max_rel": rel, "child_s": child_s}
+
+
+def dist_world_one(plan) -> dict:
+    """(e): ``quantized_allreduce`` over the one-rank "data" axis returns
+    its CUDA input; ``gpipe_apply`` on a one-stage mesh equals the
+    sequential chain, forward and gradient."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.compress import quantized_allreduce
+    from repro_torch.parallel.hints import activation_hints
+    from repro_torch.parallel.pipeline import gpipe_apply
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4096, generator=g).to("cuda")
+    with activation_hints(plan):
+        ring = quantized_allreduce(x, "data") is x
+    stage = make_test_mesh((1,), ("stage",), device="cuda")
+    W = (torch.randn(1, 64, 64, generator=g) * 0.3).to("cuda")
+    xs = torch.randn(4, 2, 64, generator=g).to("cuda")
+    got_w = W.clone().requires_grad_(True)
+    got = gpipe_apply(lambda w, h: torch.tanh(h @ w), got_w, xs, mesh=stage)
+    got.sum().backward()
+    want_w = W.clone().requires_grad_(True)
+    want = torch.tanh(xs @ want_w[0])
+    want.sum().backward()
+    fwd = float((got - want).detach().abs().max())
+    bwd = float((got_w.grad - want_w.grad).abs().max())
+    print(f"[dist] (e) world size 1 on CUDA tensors: quantized_allreduce "
+          f"returns its input {ring}; gpipe_apply S = 1, M = 4 vs the "
+          f"chain: forward {fwd:.3g}, weight gradient {bwd:.3g}",
+          flush=True)
+    if not ring or fwd > 1e-6 or bwd > 1e-5:
+        raise AssertionError("[dist] (e) failed")
+    return {"ring_identity": ring, "gpipe_fwd": fwd, "gpipe_bwd": bwd}
+
+
+def dist_phase(seed: int) -> dict:
+    """``[dist]``: the sharded trainer on a one-rank NCCL group
+    (``make_host_mesh("cuda")``, ``plan_for_mesh``): (a) deepseek-7b at
+    published widths cut to ``DIST_LAYERS`` layers, ``DIST_STEPS`` steps of
+    4 x 512 ``lm_batch`` tokens through ``make_train_step(plan=)`` against
+    the plain step from the same state, fp32 moments: losses, grad norms
+    and every state leaf bit for bit; (b) the same with W10 / D12 / KV8,
+    int8 moments and the int8 wire; (c) the elastic round trip on
+    deepseek-7b-smoke; (d) the CLI under ``torch.distributed.run`` against
+    the plain CLI; (e) ``quantized_allreduce`` and ``gpipe_apply`` at world
+    size 1 on CUDA tensors. Step ms by CUDA events, peak memory, the
+    phase's seconds against ``DIST_BUDGET_S``. No kernel of the port is on
+    this path (a training forward reaches no B1-B6). Returns the record."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import close_process_group, make_host_mesh
+    from repro_torch.parallel.sharding import plan_for_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    opened = not dist.is_initialized()
+    mesh = make_host_mesh("cuda")
+    try:
+        plan = plan_for_mesh(mesh)
+        print(f"[dist] host mesh {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names} on {dist.get_backend()}, world "
+              f"{dist.get_world_size()}", flush=True)
+        cfg = dc.replace(get_config(TRAIN_ARCH), num_layers=DIST_LAYERS)
+        print(f"[dist] {TRAIN_ARCH} at published widths cut to "
+              f"{cfg.num_layers} of 30 layers ({cfg.param_count():,} "
+              f"parameters)", flush=True)
+        part_s = {}
+        t0 = time.perf_counter()
+        arm_a = dist_arm(cfg, "fp32 moments", seed, plan, quantized=False)
+        part_s["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arm_b = dist_arm(cfg, "W10/D12/KV8 int8 moments int8 wire", seed,
+                         plan, quantized=True)
+        part_s["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elastic = dist_elastic(seed, mesh, plan)
+        part_s["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli = dist_cli(seed)
+        part_s["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        world_one = dist_world_one(plan)
+        part_s["e"] = time.perf_counter() - t0
+    finally:
+        if opened:
+            close_process_group()
+    wall = time.perf_counter() - t_phase
+    print(f"[dist] phase {wall:.1f} s against a {DIST_BUDGET_S} s budget "
+          f"((a) {part_s['a']:.1f}, (b) {part_s['b']:.1f}, (c) "
+          f"{part_s['c']:.1f}, (d) {part_s['d']:.1f}, (e) "
+          f"{part_s['e']:.1f} s)", flush=True)
+    return {"phase": "dist", "layers": DIST_LAYERS, "arms": [arm_a, arm_b],
+            "elastic": elastic, "cli": cli, "world_one": world_one,
+            "phase_s": wall, "part_s": part_s, "budget_s": DIST_BUDGET_S}
+
+
 def dense_trace(cfg, seed: int):
     """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
     prefill through the decode step stays short at full width."""
@@ -5349,7 +5648,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
                              "ssm", "frontend", "bench", "replicas",
-                             "train", "train2"],
+                             "train", "train2", "dist"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -5378,6 +5677,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    if args.phase == "dist":
+        dist_phase(SEED)
+        return 0
     if args.phase == "cnn":
         cnn_phase()
         print(json.dumps({"ok": True, "device": {
@@ -5434,11 +5736,12 @@ def main(argv=None) -> int:
         rep_launches, rep_runs = replicas_phase(SEED)
         train_launches, train_runs = train_phase(SEED)
         train2_launches, train2_runs = train2_phase(SEED)
+        dist_record = dist_phase(SEED)
         launches += (moe_launches + ssm_launches + fe_launches
                      + bench_launches + rep_launches + train_launches
                      + train2_launches)
         runs += (moe_runs + ssm_runs + fe_runs + bench_runs + rep_runs
-                 + train_runs + train2_runs)
+                 + train_runs + train2_runs + [dist_record])
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

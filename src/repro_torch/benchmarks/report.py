@@ -5,7 +5,8 @@ as the reference's ``benchmarks/report.py::repro_section`` renders its own,
 and (``--serve``) the serving trajectory's latest point against its first
 per workload, from ``results/torch_BENCH_serve.json`` as the reference's
 ``serve_section`` reads its own record. The dry-run, roofline and perf
-sections analyze XLA programs and wait for ROADMAP queue A item 13.
+sections analyze XLA programs and wait for ROADMAP queue A item 13 part
+5.
 
     python -m repro_torch.benchmarks.report [--serve]
 """

@@ -16,7 +16,7 @@ the kernel bench and the serving benches.
 
 The serving stages serve the reference's qwen2-72b smoke config, randomly
 initialized from seed 0. The reference's ``roofline`` stage waits for
-ROADMAP queue A item 13.
+ROADMAP queue A item 13 part 5.
 
     python -m repro_torch.benchmarks.run [--only a,b] [--fast] [--device D]
 

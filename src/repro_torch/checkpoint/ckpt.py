@@ -22,6 +22,12 @@
   ``policy``, a >= 2-D float leaf whose key contains a layer's name is
   stored on that layer's weight Q(I,F) grid in an int8/int16 container;
   restore dequantizes.
+* Under a mesh (``plan``) the ranks share one global-shape checkpoint,
+  cross-loadable with the reference's and between meshes: the trainer
+  gathers each leaf whole (``launch.steps.train_state_tree(plan=)``),
+  rank 0 writes today's layout, and every rank waits for its COMMIT
+  (a barrier) before it goes on; on restore every rank reads the global
+  leaves and keeps its shard (``launch.steps.load_train_state(plan=)``).
 * bf16 leaves: numpy has no bf16, so a bf16 leaf is stored as its 16-bit
   pattern (``uint16``) and the manifest's ``dtypes`` records
   ``"bfloat16"``; restore rebuilds it bit for bit. (The reference saves
@@ -125,11 +131,34 @@ def _fmt_for_key(policy, key: str):
     return None
 
 
+def _shared(plan) -> bool:
+    """True when ``plan``'s ranks share the checkpoint (more than one)."""
+    import torch.distributed as dist
+    return (plan is not None and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _writes(plan) -> bool:
+    """True on the rank that writes (rank 0 of a shared checkpoint)."""
+    import torch.distributed as dist
+    return not _shared(plan) or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, state, *,
                     extra: Optional[dict] = None, keep: int = 3,
-                    async_: bool = False, policy=None):
+                    async_: bool = False, policy=None, plan=None):
     """``state``: nested dicts / lists of tensors, arrays or scalars.
-    Returns a join()-able thread when ``async_``, else None."""
+    Returns a join()-able thread when ``async_``, else None. ``plan``:
+    every rank of the mesh calls this with the same global ``state``;
+    rank 0 writes it (synchronously) and every rank returns after its
+    COMMIT."""
+    if _shared(plan):
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            save_checkpoint(directory, step, state, extra=extra, keep=keep,
+                            policy=policy)
+        dist.barrier()
+        return None
     os.makedirs(directory, exist_ok=True)
     arrays, qmeta, dtypes = {}, {}, {}
     for k, v in _flatten(state).items():
@@ -208,29 +237,39 @@ def restore_checkpoint(directory: str, template, *,
 
 
 class CheckpointManager:
-    """Step-gated async save + restore-latest, used by ``launch.train``."""
+    """Step-gated async save + restore-latest, used by ``launch.train``.
+    ``plan``: the mesh's ranks share the checkpoints; every rank calls
+    each method at the same steps with the same global state, rank 0
+    writes in the background, and :meth:`wait` (before the next save, a
+    restore and at the end) returns on every rank once the write is
+    committed."""
 
     def __init__(self, directory: str, *, interval: int = 100, keep: int = 3,
-                 policy=None):
+                 policy=None, plan=None):
         self.directory = directory
         self.interval = interval
         self.keep = keep
         self.policy = policy
+        self.plan = plan
         self._pending: Optional[threading.Thread] = None
 
     def maybe_save(self, step: int, state, extra=None, force=False):
         if not force and (self.interval <= 0 or step % self.interval != 0):
             return False
         self.wait()
-        self._pending = save_checkpoint(
-            self.directory, step, state, extra=extra, keep=self.keep,
-            async_=True, policy=self.policy)
+        if _writes(self.plan):
+            self._pending = save_checkpoint(
+                self.directory, step, state, extra=extra, keep=self.keep,
+                async_=True, policy=self.policy)
         return True
 
     def wait(self):
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if _shared(self.plan):
+            import torch.distributed as dist
+            dist.barrier()
 
     def restore_latest(self, template, device="cpu"):
         self.wait()

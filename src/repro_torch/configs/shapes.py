@@ -16,7 +16,8 @@ Four shapes per LM arch:
 A frontend arch (hubert-xlarge's audio, qwen2-vl-2b's vision) takes a stub
 frontend's precomputed embeddings in place of token ids; an M-RoPE arch
 also takes (B, S, 3) temporal / height / width position ids. The decode
-shapes' cache specs go with the HLO tools (ROADMAP queue A item 13).
+shapes' cache specs go with the dry run (ROADMAP queue A item 13 part
+5).
 """
 from __future__ import annotations
 

@@ -6,6 +6,8 @@ module constants: importing this module touches no process group.
 
     python -m repro_torch.launch.serve --arch qwen2-72b --smoke \\
         --device cpu --page-size 8 --kv-bits 8 --tp 2   # 2 gloo ranks
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch yi-34b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -105,9 +107,36 @@ def _running_world(device) -> int:
     return 1
 
 
+def _launched() -> bool:
+    """True in a process that ``python -m torch.distributed.run`` started
+    (its rank and world size are in the environment)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def _join_launcher(device) -> torch.device:
+    """Join the group of ``torch.distributed.run`` through ``env://``:
+    gloo for ``device`` "cpu", NCCL for a card, rank r on its node's card
+    ``LOCAL_RANK``. Returns this rank's device."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        dev = resolve_device(f"cuda:{local % torch.cuda.device_count()}")
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://")
+    return dev
+
+
 def _ensure_group(device) -> None:
-    """A one-rank group when none is running (a world of one device)."""
-    if not dist.is_initialized():
+    """The launcher's group under ``torch.distributed.run``, else a
+    one-rank group, when none is running."""
+    if dist.is_initialized():
+        return
+    if _launched():
+        _join_launcher(device)
+    else:
         init_process_group(0, 1, free_port(), device)
 
 
@@ -118,15 +147,18 @@ def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device):
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's (16, 16) / (2, 16, 16) TPU pod layouts are laid out
-    by its dry run, which comes with ROADMAP queue A item 13 part 5."""
+    """The reference's (16, 16) / (2, 16, 16) TPU pod layouts exist only
+    in its dry run, which comes with ROADMAP queue A item 13 part 5."""
     raise NotImplementedError(
         "the production mesh (the dry run's 256 / 512-device layouts) is "
-        "not ported yet: ROADMAP queue A item 13")
+        "not ported yet: ROADMAP queue A item 13 part 5")
 
 
 def make_host_mesh(device="cuda"):
-    """The running group as a 1-D data mesh (one rank when none runs)."""
+    """The running group as a 1-D data mesh. With no group running: the
+    launcher's group under ``python -m torch.distributed.run`` (joined
+    through ``env://``), else a one-rank group (gloo on the CPU, NCCL on
+    a card)."""
     _ensure_group(device)
     return _mesh((dist.get_world_size(),), ("data",), device)
 

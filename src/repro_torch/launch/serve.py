@@ -96,7 +96,7 @@ write harmlessly (their own dense row, or the scratch page).
   scale's absmax is maxed over every rank (``parallel.hints``). Dense
   GQA decoders on paged pools only; a head count the axis does not
   divide, another family and the quant tier raise
-  ``NotImplementedError`` naming ROADMAP queue A item 13.
+  ``NotImplementedError`` naming ROADMAP queue A item 13 part 4.
 
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
@@ -649,15 +649,15 @@ class BatchedServer:
         m = self.mesh_plan.model_size
         if cfg.family != "dense" or cfg.attention_type != "gqa":
             raise _not_ported(f"tensor-parallel serving of the "
-                              f"{cfg.family} family (mesh=)", "13")
+                              f"{cfg.family} family (mesh=)", "13 part 4")
         if cfg.num_heads % m or cfg.num_kv_heads % m:
             raise _not_ported(
                 f"tensor-parallel serving with tp={m} not dividing "
                 f"{cfg.num_heads} heads and {cfg.num_kv_heads} KV heads "
-                f"(a replicated pool)", "13")
+                f"(a replicated pool)", "13 part 4")
         if kv_adapt == "on":
             raise _not_ported("the quant tier (--kv-adapt on) under "
-                              "mesh=", "13")
+                              "mesh=", "13 part 4")
         # NCCL for a card's tensors, gloo for the CPU's, never one for
         # the other
         want = "nccl" if self.device.type == "cuda" else "gloo"

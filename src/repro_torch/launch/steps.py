@@ -15,10 +15,24 @@ state, "ef_residual": residuals}`` (the last with gradient compression),
 the optimizer's leaves keyed by parameter name; :func:`train_state_tree`
 nests it as the reference's tree for checkpoints, and
 :func:`load_train_state` writes such a tree back.
+
+Under a mesh (``make_train_step(plan=)``) the state is SPMD over a
+``torch.distributed`` group: :func:`shard_train_state` keeps this rank's
+shard of every leaf under the reference's training placements
+(``parallel.sharding.state_specs``), and the step gathers each parameter
+whole before its forward (``parallel.hints.gather_param``), so it
+computes the single-device step's function, as GSPMD does for the
+reference's ``pjit``'d step. Its reductions are global: the batch's rows split over
+the data axes (``parallel.sharding.shard_batch``), the loss the global
+masked mean, the gradients summed over the ranks of other rows, and the
+grad norm, the wire's absmax and the int8 moments' per-row absmax taken
+over whole leaves (``parallel.hints.ShardReductions``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import weakref
 from typing import Optional
 
@@ -31,6 +45,9 @@ from ..models.transformer import (Transformer, forward_hidden, init_cache,
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..optim.compress import (CompressionConfig, compress_gradients,
                               error_feedback_init)
+from ..parallel.hints import ShardReductions, all_reduce_over, gather_param
+from ..parallel.sharding import (_axes, gather_whole, local_shard,
+                                 shard_batch, state_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +96,159 @@ def reference_groups(model: Transformer, cfg) -> tuple:
     return tuple(tuple(g) for g in groups.values() if len(g) > 1)
 
 
-def make_train_step(cfg, hp: TrainHParams, *, quant=None):
+def _meta_state(cfg, *, int8: bool, residual: bool) -> dict:
+    """A train state of ``cfg``'s global shapes on the meta device (the
+    leaves ``adamw_init`` and ``error_feedback_init`` make, unfilled)."""
+    model = Transformer(cfg, device="meta", trainable=True)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def moment(p):
+        if not int8:
+            return empty(p.shape)
+        return {"q": empty(p.shape, torch.int8),
+                "scale": empty(p.shape[:-1] + (1,))}
+
+    named = dict(model.named_parameters())
+    state = {"params": model,
+             "opt": {"step": empty((), torch.int32),
+                     "m": {n: moment(p) for n, p in named.items()},
+                     "v": {n: moment(p) for n, p in named.items()}}}
+    if residual:
+        state["ef_residual"] = {n: empty(p.shape) for n, p in named.items()}
+    return state
+
+
+def train_state_specs(state, cfg, plan) -> dict:
+    """``parallel.sharding.state_specs`` of a train state laid out as
+    ``state`` (its moments' kind, its residuals), whole or sharded: the
+    specs come from ``cfg``'s global shapes."""
+    first = next(iter(state["opt"]["m"].values()))
+    return state_specs(_meta_state(cfg, int8=isinstance(first, dict),
+                                   residual="ef_residual" in state),
+                       cfg, plan)
+
+
+def _shard_leaf(t, spec, plan):
+    """This rank's shard of ``t`` as a tensor of its own (``t`` itself
+    when the shard is the whole)."""
+    piece = local_shard(t, spec, plan)
+    return t if piece.shape == t.shape else piece.clone()
+
+
+@torch.no_grad()
+def shard_train_state(state, cfg, plan):
+    """Keep only this rank's shard of every leaf of the whole train state
+    ``state`` under ``plan`` (``parallel.sharding.state_specs``): the
+    float32 masters (each parameter's data replaced in place), the
+    moments (an int8 moment's ``q`` and ``scale``) and the residuals.
+    Returns ``state``."""
+    specs = train_state_specs(state, cfg, plan)
+    for name, p in state["params"].named_parameters():
+        p.data = _shard_leaf(p.data, specs["params"][name], plan)
+
+    def shard(values, spec):
+        for name, v in values.items():
+            if isinstance(v, dict):
+                shard(v, spec[name])
+            else:
+                values[name] = _shard_leaf(v, spec[name], plan)
+
+    for k in ("m", "v"):
+        shard(state["opt"][k], specs["opt"][k])
+    if "ef_residual" in state:
+        shard(state["ef_residual"], specs["ef_residual"])
+    return state
+
+
+@contextlib.contextmanager
+def _swapped(model: Transformer, tensors):
+    """``model`` reading ``tensors`` (name -> tensor) in place of its
+    parameters while the context is open."""
+    saved = []
+    for name, t in tensors.items():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        saved.append((mod, leaf, mod._parameters[leaf]))
+        mod._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for mod, leaf, p in saved:
+            mod._parameters[leaf] = p
+
+
+def _share(labels, mask, axes, plan) -> torch.Tensor:
+    """This rank's share of a global masked mean: its valid tokens over
+    the batch's (each at least 1, as ``models.common.cross_entropy``
+    divides), 1.0 exactly when the rank holds every row."""
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    n = torch.sum(valid.to(torch.float32))
+    total = all_reduce_over(n.clone(), axes, plan)
+    return torch.clamp(n, min=1.0) / torch.clamp(total, min=1.0)
+
+
+def _sharded_loss_backward(model, batch, cfg, plan, specs, *, quant,
+                           lb_coeff) -> dict:
+    """The sharded step's forward and backward: each parameter gathered
+    whole, this rank's rows through ``train_loss``, each loss term
+    weighted by the rank's share of its tokens, so that the sum over the
+    ranks of other rows is the global masked mean; the backward leaves
+    each parameter's gradient shard, summed over those ranks, in its
+    ``grad``. Returns the global metrics."""
+    rows = shard_batch(batch, plan)
+    axes = _axes(rows.axes)
+    whole = {n: gather_param(p, specs[n], axes, plan)
+             for n, p in model.named_parameters()}
+    with _swapped(model, whole):
+        _, metrics = train_loss(model, rows, cfg, quant=quant,
+                                lb_coeff=lb_coeff)
+    share = {"ce_loss": _share(rows["labels"], rows.get("mask"), axes,
+                               plan)}
+    local = metrics["ce_loss"] * share["ce_loss"]
+    if cfg.num_experts:
+        local = local + lb_coeff * metrics["moe_lb_loss"]
+    if cfg.mtp_depth > 0:
+        share["mtp_loss"] = _share(rows["labels"][:, 1:], None, axes, plan)
+        local = local + 0.3 * (metrics["mtp_loss"] * share["mtp_loss"])
+    local.backward()
+    out = {}
+    for k, v in metrics.items():
+        if k == "moe_lb_loss":
+            out[k] = v.detach()
+            continue
+        v = local if k == "loss" else v * share[k]
+        out[k] = all_reduce_over(v.detach().clone(), axes, plan)
+    return out
+
+
+def loss_and_grads(model: Transformer, batch, cfg, *, quant=None,
+                   lb_coeff: float = 0.01, plan=None, specs=None):
+    """The train step's loss and backward: (metrics, {name: gradient or
+    None}). ``plan``: the sharded step's (``specs``: the parameters'
+    specs, :func:`train_state_specs`), each gradient this rank's shard of
+    the whole one and the metrics global."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    with torch.enable_grad():
+        if plan is None:
+            loss, metrics = train_loss(model, batch, cfg, quant=quant,
+                                       lb_coeff=lb_coeff)
+            loss.backward()
+        else:
+            metrics = _sharded_loss_backward(model, batch, cfg, plan, specs,
+                                             quant=quant, lb_coeff=lb_coeff)
+    grads = {n: p.grad for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return metrics, grads
+
+
+def make_train_step(cfg, hp: TrainHParams, *, quant=None, plan=None):
     """fn(state, batch, *, lr=None) -> (state, metrics): loss and
     gradients, then (with ``hp.grad_compress``) the int8 wire with error
     feedback, one scale per leaf of the reference's tree
@@ -91,8 +260,29 @@ def make_train_step(cfg, hp: TrainHParams, *, quant=None):
     gives it: it adds nothing to the grad norm, goes through the wire as
     zeros, and AdamW ages its moments and decays it. Metrics: the loss
     terms of ``train_loss``, ``grad_norm`` and ``clip`` (0-dim
-    tensors)."""
+    tensors).
+
+    ``plan``: the sharded step over the plan's mesh (see the module's
+    docstring) on a state from :func:`shard_train_state`; ``batch`` the
+    global batch or this rank's rows of it (``parallel.sharding.
+    shard_batch``, as ``data.pipeline.DataPipeline(plan=)`` yields them).
+    Under a mesh of one rank it is the plain step bit for bit. A MoE
+    config under a mesh of more than one rank raises (its load-balance
+    loss is not a mean of per-row terms, and the reference dispatches
+    its experts per token shard: ROADMAP queue A item 13 part 4)."""
     layouts = weakref.WeakKeyDictionary()   # model -> (decay, groups)
+    specs = shards = None
+    if plan is not None:
+        if cfg.num_experts and math.prod(plan.shape.values()) > 1:
+            raise NotImplementedError(
+                f"training the {cfg.family} family's experts on a mesh of "
+                f"more than one rank (expert-parallel dispatch) is not "
+                f"ported yet: ROADMAP queue A item 13 part 4")
+        specs = train_state_specs(
+            _meta_state(cfg, int8=hp.adamw.quantize_moments,
+                        residual=hp.grad_compress is not None),
+            cfg, plan)["params"]
+        shards = ShardReductions(plan, specs)
 
     def step(state, batch, *, lr=None):
         model = state["params"]
@@ -101,24 +291,18 @@ def make_train_step(cfg, hp: TrainHParams, *, quant=None):
                               reference_groups(model, cfg))
         decay, groups = layouts[model]
         params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        with torch.enable_grad():
-            loss, metrics = train_loss(model, batch, cfg, quant=quant,
-                                       lb_coeff=hp.lb_coeff)
-            loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
-        for p in params.values():
-            p.grad = None
+        metrics, grads = loss_and_grads(model, batch, cfg, quant=quant,
+                                        lb_coeff=hp.lb_coeff, plan=plan,
+                                        specs=specs)
         if hp.grad_compress is not None:
             grads = {n: torch.zeros_like(params[n]) if g is None else g
                      for n, g in grads.items()}
             grads, state["ef_residual"] = compress_gradients(
                 grads, state["ef_residual"], hp.grad_compress,
-                groups=groups)
+                groups=groups, shards=shards)
         _, state["opt"], opt_metrics = adamw_update(
             params, grads, state["opt"], hp.lr if lr is None else lr,
-            hp.adamw, decay=decay)
+            hp.adamw, decay=decay, shards=shards)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(opt_metrics)
         return state, metrics
@@ -126,51 +310,83 @@ def make_train_step(cfg, hp: TrainHParams, *, quant=None):
     return step
 
 
-def train_state_tree(state, cfg, *, device="cpu"):
+def train_state_tree(state, cfg, *, device="cpu", plan=None):
     """The train state nested as the reference's tree (``params``,
     ``opt`` {"step", "m", "v"}, ``ef_residual``), every layer leaf stacked
-    on its period axis, as tensors on ``device`` (``"meta"``: shapes and
-    dtypes only, a restore template)."""
+    on its period axis, as tensors on ``device`` (``"meta"``: global
+    shapes and dtypes only, a restore template). ``plan``: ``state``
+    holds this rank's shards (:func:`shard_train_state`), and each leaf
+    is gathered whole first (a collective: every rank calls it), so the
+    tree is the global one on every rank."""
     model = state["params"]
+    step = state["opt"]["step"]
+    specs = {}
+    if device == "meta":
+        first = next(iter(state["opt"]["m"].values()))
+        state = _meta_state(cfg, int8=isinstance(first, dict),
+                            residual="ef_residual" in state)
+    elif plan is not None:
+        specs = train_state_specs(state, cfg, plan)
 
-    def nest(values):
-        moved = {n: ({k: x.detach().to(device) for k, x in v.items()}
-                     if isinstance(v, dict) else v.detach().to(device))
+    def whole(x, spec):
+        x = x.detach()
+        return (x if spec is None else gather_whole(x, spec, plan)).to(
+            device)
+
+    def nest(values, spec):
+        moved = {n: ({k: whole(x, None if spec is None else spec[n][k])
+                      for k, x in v.items()} if isinstance(v, dict)
+                     else whole(v, None if spec is None else spec[n]))
                  for n, v in values.items()}
         return reference_tree(moved, model, cfg, stack=torch.stack)
 
-    out = {"params": nest(dict(model.named_parameters())),
-           "opt": {"step": state["opt"]["step"].detach().to(device),
-                   "m": nest(state["opt"]["m"]),
-                   "v": nest(state["opt"]["v"])}}
+    opt = specs.get("opt", {})
+    out = {"params": nest(dict(state["params"].named_parameters()),
+                          specs.get("params")),
+           "opt": {"step": step.detach().to(device),
+                   "m": nest(state["opt"]["m"], opt.get("m")),
+                   "v": nest(state["opt"]["v"], opt.get("v"))}}
     if "ef_residual" in state:
-        out["ef_residual"] = nest(state["ef_residual"])
+        out["ef_residual"] = nest(state["ef_residual"],
+                                  specs.get("ef_residual"))
     return out
 
 
 @torch.no_grad()
-def load_train_state(state, tree, cfg):
+def load_train_state(state, tree, cfg, *, plan=None):
     """Write a tree of :func:`train_state_tree`'s layout (a restored
-    checkpoint, this package's or the reference's) into ``state`` in
-    place."""
+    checkpoint, this package's or the reference's; global shapes) into
+    ``state`` in place; with ``plan``, ``state`` holds this rank's shards
+    (:func:`shard_train_state`) and each keeps its shard of the tree's
+    leaf."""
     model = state["params"]
+    specs = None if plan is None else train_state_specs(state, cfg, plan)
 
-    def copy(dst, src):
+    def copy(dst, src, spec):
         if isinstance(dst, dict):
             for k in dst:
-                copy(dst[k], src[k])
+                copy(dst[k], src[k], None if spec is None else spec[k])
         else:
+            if spec is not None:
+                src = local_shard(src, spec, plan)
             dst.copy_(src.to(dst.device))
 
+    def sp(*keys):
+        out = specs
+        for k in keys:
+            out = None if out is None else out[k]
+        return out
+
     copy(dict(model.named_parameters()),
-         unstack_reference_tree(tree["params"], model, cfg))
+         unstack_reference_tree(tree["params"], model, cfg), sp("params"))
     state["opt"]["step"].copy_(tree["opt"]["step"])
     for k in ("m", "v"):
         copy(state["opt"][k], unstack_reference_tree(tree["opt"][k], model,
-                                                     cfg))
+                                                     cfg), sp("opt", k))
     if "ef_residual" in state:
         copy(state["ef_residual"],
-             unstack_reference_tree(tree["ef_residual"], model, cfg))
+             unstack_reference_tree(tree["ef_residual"], model, cfg),
+             sp("ef_residual"))
     return state
 
 

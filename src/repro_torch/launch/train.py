@@ -15,11 +15,24 @@ ValueError), the encoder hubert (it has an embedding table) and qwen2-vl
 (plain RoPE from tokens). Training from a stub frontend's embeddings goes
 through ``launch.steps.make_train_step`` with
 ``configs.shapes.make_batch`` batches; the reference's launcher has no
-flag for it. ``--mesh single|multi`` (ROADMAP queue A item 13) raises.
+flag for it.
+
+``--mesh host`` (the default) trains SPMD over ``launch.mesh.
+make_host_mesh``: one rank alone (a one-rank group), or N ranks under
+``python -m torch.distributed.run --nproc-per-node N`` (gloo on the CPU,
+NCCL on cards), the state sharded by the reference's training placements
+(``launch.steps.shard_train_state``), each rank fed its rows of the
+global batch. Rank 0 prints, checkpoints (each leaf gathered whole: the
+checkpoint is the global one) and writes ``--metrics-out``.
+``--mesh single|multi`` name the reference's 256- and 512-device pods,
+which exist here only in the dry run (ROADMAP queue A item 13 part 5):
+they raise.
 
 Usage (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --smoke --device cpu --steps 20 --batch-size 4 --seq-len 64 --lr 1e-3
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch yi-34b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -38,11 +51,13 @@ from ..data.pipeline import DataPipeline
 from ..optim.adamw import AdamWConfig
 from ..optim.compress import CompressionConfig
 from ..optim.schedule import cosine_warmup
+from ..parallel.sharding import plan_for_mesh
 from ..quant.apply import build_model_quant, transformer_layer_names
 from ..runtime.fault import StragglerMonitor, TrainSupervisor
+from .mesh import close_process_group, make_host_mesh
 from .serve import _not_ported
 from .steps import (TrainHParams, init_train_state, load_train_state,
-                    make_train_step, train_state_tree)
+                    make_train_step, shard_train_state, train_state_tree)
 
 
 def build_quant(cfg, *, weight_bits: int, data_bits: int, kv_bits: int,
@@ -101,8 +116,24 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.mesh != "host":
-        raise _not_ported(f"--mesh {args.mesh}", "13")
-    dev = resolve_device(args.device)
+        raise _not_ported(f"--mesh {args.mesh} (the dry run's 256 / "
+                          f"512-device pods)", "13 part 5")
+    import torch.distributed as dist
+    resolve_device(args.device)         # no card: raise, never fall back
+    opened = not dist.is_initialized()
+    mesh = make_host_mesh(args.device)
+    try:
+        return _train(args, cfg, mesh)
+    finally:
+        if opened:
+            close_process_group()
+
+
+def _train(args, cfg, mesh):
+    import torch.distributed as dist
+    plan = plan_for_mesh(mesh)
+    lead = dist.get_rank() == 0
+    dev = resolve_device(args.device)   # this rank's card (make_host_mesh)
 
     hp = TrainHParams(
         lr=args.lr,
@@ -115,39 +146,45 @@ def main(argv=None):
                         batch_size=args.batch_size, seed=args.seed + 1)
     lr_fn = cosine_warmup(args.lr, args.warmup, args.steps)
 
-    train_step = make_train_step(cfg, hp, quant=quant)
+    train_step = make_train_step(cfg, hp, quant=quant, plan=plan)
 
     state = init_train_state(cfg, hp, seed=args.seed, device=dev)
+    template = train_state_tree(state, cfg, device="meta")
+    shard_train_state(state, cfg, plan)
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
-        ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval)
-    template = train_state_tree(state, cfg, device="meta")
+        ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval,
+                                 plan=plan)
     if args.resume and args.ckpt_dir and \
             latest_step(args.ckpt_dir) is not None:
         start_step, tree, _ = ckpt.restore_latest(template)
-        load_train_state(state, tree, cfg)
-        print(f"[train] resumed from step {start_step}")
+        load_train_state(state, tree, cfg, plan=plan)
+        if lead:
+            print(f"[train] resumed from step {start_step}")
 
     pipe = DataPipeline(lambda s: lm_batch(dcfg, s), device=dev,
-                        start_step=start_step)
+                        start_step=start_step, plan=plan)
     monitor = StragglerMonitor()
 
     def one_step(state, step):
         batch = next(pipe)
         return train_step(state, batch, lr=lr_fn(step))
 
-    def save_hook(step, state):
+    def save(step, state, force=False):
         # the data state is the step consumed, not the pipeline's own
         # (which counts its prefetched batches: the reference records that,
         # and a supervisor restart then skips them)
+        ckpt.maybe_save(step, train_state_tree(state, cfg, plan=plan),
+                        extra={"data": {"step": step}}, force=force)
+
+    def save_hook(step, state):
         if ckpt and ckpt.interval > 0 and step % ckpt.interval == 0:
-            ckpt.maybe_save(step, train_state_tree(state, cfg),
-                            extra={"data": {"step": step}})
+            save(step, state)
 
     def restore_fn():
         step, tree, extra = ckpt.restore_latest(template)
-        load_train_state(state, tree, cfg)
+        load_train_state(state, tree, cfg, plan=plan)
         pipe.restore(extra.get("data", {"step": step}))
         return step, state
 
@@ -168,15 +205,16 @@ def main(argv=None):
         tok_s = (args.batch_size * args.seq_len * n /
                  max(time.time() - t_start, 1e-9))
         t_start = time.time()
-        print(f"[train] step {step:5d} loss {loss:8.4f} "
-              f"grad_norm {float(m['grad_norm']):8.3f} tok/s {tok_s:,.0f}")
+        if lead:
+            print(f"[train] step {step:5d} loss {loss:8.4f} grad_norm "
+                  f"{float(m['grad_norm']):8.3f} tok/s {tok_s:,.0f}")
 
     if ckpt:
-        ckpt.maybe_save(step, train_state_tree(state, cfg),
-                        extra={"data": {"step": step}}, force=True)
+        save(step, state, force=True)
         ckpt.wait()
-    print("[train] straggler summary:", json.dumps(monitor.summary()))
-    if args.metrics_out:
+    if lead:
+        print("[train] straggler summary:", json.dumps(monitor.summary()))
+    if lead and args.metrics_out:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         with open(args.metrics_out, "w") as f:
             json.dump(log, f, indent=1)

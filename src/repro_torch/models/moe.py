@@ -20,8 +20,9 @@ Aux: the Switch load-balance loss and the router z-loss.
 
 Expert parallelism (the reference's ``_sharded_dispatch`` under a mesh
 plan, and the int8/int16 all-to-all wire format ``moe_a2a_bits``) is
-ROADMAP queue A item 13: the port has no mesh plans yet, and the refusal
-of one comes with them.
+ROADMAP queue A item 13 part 4: until then the sharded train step
+refuses a MoE config on a mesh of more than one rank, and the server
+refuses the family under ``mesh=``.
 """
 from __future__ import annotations
 

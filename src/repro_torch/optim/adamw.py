@@ -17,10 +17,17 @@ rank >= 2); a model's trainer passes the leaves the reference decays,
 whose stacked layout gives every layer leaf, 1-D norm scales and biases
 included, a leading period axis
 (``launch.steps.reference_decay``).
+
+Under a mesh each leaf is this rank's shard (``launch.steps.
+shard_train_state``) and ``shards`` (``parallel.hints.ShardReductions``)
+takes the update's two whole-leaf reductions over the ranks: the grad
+norm counts each element once, and an int8 moment's per-row absmax is
+maxed over the axis that shards the leaf's last dim.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Iterable, Optional
 
 import torch
@@ -41,11 +48,15 @@ class AdamWConfig:
 # ---------------------------------------------------------------------------
 # int8 moment container
 # ---------------------------------------------------------------------------
-def _q8_encode(x: torch.Tensor):
+def _q8_encode(x: torch.Tensor, row_max=None):
     """float32 -> (int8 q, float32 scale), per-row absmax over the last
-    dim (keepdim). Divides by tensors (see ``optim.compress._q_encode``);
-    ``torch.round`` is half to even, as ``jnp.round``."""
+    dim (keepdim), passed through ``row_max`` when given (the max over
+    the ranks that hold the rest of each row). Divides by tensors (see
+    ``optim.compress._q_encode``); ``torch.round`` is half to even, as
+    ``jnp.round``."""
     absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    if row_max is not None:
+        absmax = row_max(absmax)
     scale = torch.clamp(absmax, min=1e-12) / torch.full_like(absmax, 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -55,10 +66,10 @@ def _q8_decode(q, scale):
     return q.to(torch.float32) * scale
 
 
-def _encode_moment(x, signed_sqrt: bool):
+def _encode_moment(x, signed_sqrt: bool, row_max=None):
     if signed_sqrt:
         x = torch.sqrt(torch.clamp(x, min=0.0))
-    return _q8_encode(x)
+    return _q8_encode(x, row_max)
 
 
 def _decode_moment(q, scale, signed_sqrt: bool):
@@ -104,18 +115,26 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads: Dict[str, Optional[torch.Tensor]],
-                 state: dict, lr, cfg: AdamWConfig, *, decay=None):
+                 state: dict, lr, cfg: AdamWConfig, *, decay=None,
+                 shards=None):
     """One AdamW step, in place. ``grads[name]`` None counts as zeros (a
     leaf no loss term reached). ``lr`` is a float or float32 scalar;
     ``decay`` the set of leaf names that take weight decay (default: rank
-    >= 2). Returns (params, state, {"grad_norm", "clip"})."""
+    >= 2); ``shards`` the whole-leaf reductions of a sharded state (see
+    the module's docstring). Returns (params, state, {"grad_norm",
+    "clip"})."""
     params = _named(params)
     dev = next(iter(params.values())).device
     f32 = dict(dtype=torch.float32, device=dev)
     state["step"] = state["step"] + 1
     step = state["step"]
-    present = [g for g in grads.values() if g is not None]
-    gnorm = global_norm(present) if present else torch.zeros((), **f32)
+    present = [(n, g) for n, g in grads.items() if g is not None]
+    if not present:
+        gnorm = torch.zeros((), **f32)
+    elif shards is None:
+        gnorm = global_norm([g for _, g in present])
+    else:
+        gnorm = shards.global_norm(*zip(*present))
     clip = torch.clamp(torch.full((), cfg.grad_clip_norm, **f32)
                        / torch.clamp(gnorm, min=1e-12), max=1.0)
     sf = step.to(torch.float32)
@@ -128,6 +147,8 @@ def adamw_update(params, grads: Dict[str, Optional[torch.Tensor]],
         pr = _rows(p.data)
         gr = None if g is None else _rows(g)
         mc, vc = state["m"][name], state["v"][name]
+        row_max = (None if shards is None
+                   else functools.partial(shards.row_max, name))
         step_rows = max(1, ROW_BLOCK // pr.shape[1])
         for r0 in range(0, pr.shape[0], step_rows):
             sl = slice(r0, r0 + step_rows)
@@ -149,7 +170,7 @@ def adamw_update(params, grads: Dict[str, Optional[torch.Tensor]],
             pb.copy_((pb.to(torch.float32) - lr_t * delta).to(p.dtype))
             if cfg.quantize_moments:
                 for cont, x, sq in ((mc, m, False), (vc, v, True)):
-                    q, s = _encode_moment(x, sq)
+                    q, s = _encode_moment(x, sq, row_max)
                     _rows(cont["q"])[sl] = q
                     _rows(cont["scale"])[sl] = s
             else:

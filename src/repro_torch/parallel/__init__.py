@@ -1,7 +1,7 @@
-"""Mesh plans, placement rules and the tensor-parallel collectives of
-the serving path (``sharding``, ``hints``). The reference's
-``state_shardings`` / ``cache_shardings`` / ``auto_batch_sharding`` and
-``pipeline`` come with distributed training (ROADMAP queue A item 13)."""
+"""Mesh plans and placement rules (``sharding``: parameters, train
+states, batches, dense and paged caches), the collectives of
+tensor-parallel serving and of the sharded train step (``hints``), and
+the GPipe schedule (``pipeline``)."""
 from .sharding import (MeshPlan, auto_batch_sharding, cache_shardings,
                        param_shardings, plan_for_mesh)
 

@@ -1,5 +1,5 @@
-"""Activation-sharding hints and the tensor-parallel collectives of the
-serving path.
+"""Activation-sharding hints, the tensor-parallel collectives of the
+serving path and the sharded train step's collectives.
 
 Model code declares LOGICAL axes; a launcher activates a plan
 (:func:`activation_hints`) around its step functions. With no active
@@ -30,6 +30,19 @@ every rank: :func:`first_rank_value` hands each rank the model group's
 first rank's reading of a host input that differs between ranks (the
 wall clock's TPOT slowdown, a deadline-miss predictor feature).
 
+The sharded train step (``launch.steps.make_train_step(plan=)``) keeps
+each leaf of its state as this rank's shard under the reference's
+training placements and computes on whole leaves, as GSPMD computes the
+reference's ``pjit`` step: :func:`gather_param` all-gathers a parameter
+whole before the forward (the whole copies live until the backward has
+read them: the state is sharded between steps, not within one), and its
+backward hands the rank its shard of the gradient summed over the ranks
+that hold other rows of the batch.
+Every reduction that the reference takes over a whole leaf or a whole
+batch is an explicit collective here (:class:`ShardReductions`: the
+grad norm, the wire's per-leaf absmax, the int8 moments' per-row
+absmax).
+
 Logical names: "dp" -> the batch axes; "tp" / "ep" -> "model"; None ->
 skip. Every assignment is divisibility-checked like
 ``parallel.sharding``.
@@ -38,11 +51,11 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
-from .sharding import MeshPlan
+from .sharding import MeshPlan, _axes, gather_whole, local_shard
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_sharding_hints", default=None)
@@ -160,3 +173,105 @@ def first_rank_value(value: float, plan: MeshPlan, device) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=device)
     dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
     return t.item()
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step's collectives
+# ---------------------------------------------------------------------------
+def axis_group(plan: MeshPlan, axis: str):
+    """The process group of this rank's ``axis``, or None when the axis
+    has one rank (nothing to communicate)."""
+    if plan.shape[axis] == 1:
+        return None
+    return plan.mesh.get_group(axis)
+
+
+def all_reduce_over(t: torch.Tensor, axes: Sequence[str], plan: MeshPlan,
+                    op: str = "sum") -> torch.Tensor:
+    """``t`` reduced in place over every rank of ``axes`` (one axis after
+    another; an axis of one rank is skipped)."""
+    import torch.distributed as dist
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for ax in axes:
+        group = axis_group(plan, ax)
+        if group is not None:
+            dist.all_reduce(t, op=red, group=group)
+    return t
+
+
+class _GatherParam(torch.autograd.Function):
+    """Forward: the whole tensor of this rank's shard. Backward: the
+    whole gradient summed over the batch axes, then this rank's shard of
+    it."""
+
+    @staticmethod
+    def forward(ctx, shard, spec, batch_axes, plan):
+        ctx.spec, ctx.batch_axes, ctx.plan = spec, batch_axes, plan
+        whole = gather_whole(shard.detach(), spec, plan)
+        return whole if whole is not shard else shard.view_as(shard)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = all_reduce_over(grad.contiguous(), ctx.batch_axes, ctx.plan)
+        return local_shard(grad, ctx.spec, ctx.plan), None, None, None
+
+
+def gather_param(shard: torch.Tensor, spec, batch_axes, plan: MeshPlan
+                 ) -> torch.Tensor:
+    """The whole parameter of which ``shard`` is this rank's piece under
+    ``spec``, differentiable: the gradient that reaches the shard is its
+    piece of the whole gradient summed over ``batch_axes`` (the axes
+    whose ranks hold other rows of the batch; the ranks of any other
+    axis computed the same gradient and are not summed)."""
+    return _GatherParam.apply(shard, tuple(spec), tuple(batch_axes), plan)
+
+
+class ShardReductions:
+    """The whole-leaf reductions of AdamW and the gradient wire over a
+    state sharded by ``specs`` ({parameter name: per-dim spec}) under
+    ``plan``. Every rank calls each method with its own shards, in the
+    same order; an axis of one rank costs nothing, so under a one-rank
+    mesh each result is the unsharded computation bit for bit."""
+
+    def __init__(self, plan: MeshPlan, specs: Dict[str, tuple]):
+        self.plan, self.specs = plan, specs
+
+    def _leaf_axes(self, name: str) -> tuple:
+        return tuple(ax for e in self.specs[name] for ax in _axes(e)
+                     if self.plan.shape[ax] > 1)
+
+    def leaf_max(self, names: Sequence[str], amax: torch.Tensor
+                 ) -> torch.Tensor:
+        """``amax`` (a max over the local shards of ``names``, one leaf
+        of the reference's tree) maxed over every axis that shards
+        them."""
+        axes = sorted({ax for n in names for ax in self._leaf_axes(n)})
+        return all_reduce_over(amax.clone(), axes, self.plan, "max")
+
+    def row_max(self, name: str, amax: torch.Tensor) -> torch.Tensor:
+        """``amax`` (a per-row max over the last dim of ``name``'s local
+        shard) maxed over the axis that shards that last dim."""
+        spec = self.specs[name]
+        axes = [ax for ax in _axes(spec[-1]) if self.plan.shape[ax] > 1] \
+            if spec else []
+        return all_reduce_over(amax, axes, self.plan, "max") if axes \
+            else amax
+
+    def global_norm(self, names: Sequence[str],
+                    grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """sqrt of the sum over leaves of each WHOLE leaf's float32 sum
+        of squares: each shard's sum of squares summed over the axes
+        that shard its leaf (a replicated leaf counted once), then the
+        leaves summed in order, as ``optim.adamw.global_norm``."""
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+        by_axes: Dict[tuple, list] = {}
+        for i, n in enumerate(names):
+            by_axes.setdefault(self._leaf_axes(n), []).append(i)
+        for axes, idx in by_axes.items():
+            if not axes:
+                continue
+            part = all_reduce_over(torch.stack([sq[i] for i in idx]), axes,
+                                   self.plan)
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+        return torch.sqrt(torch.sum(torch.stack(sq)))

@@ -1,9 +1,9 @@
 """The port's packages export the reference packages' public names (C9):
 every name of ``repro.core``, ``repro.quant`` and ``repro.runtime``'s
-``__all__`` resolves on the port's package of the same name, but the
-elastic restore's two names, which come with distributed training
-(ROADMAP queue A item 13). Also the two names that had no counterpart:
-the process-wide metrics registry and the one-layer paged pool."""
+``__all__`` resolves on the port's package of the same name (the elastic
+restore's two names since distributed training, ROADMAP queue A item 13
+part 3). Also the two names that had no counterpart: the process-wide
+metrics registry and the one-layer paged pool."""
 import importlib
 
 import numpy as np
@@ -24,8 +24,8 @@ from repro_torch.models.attention import (KVQuantSpec,  # noqa: E402
 from repro_torch.runtime import default_registry  # noqa: E402
 from repro_torch.runtime.telemetry import MetricsRegistry  # noqa: E402
 
-# part 3 of item 13 (distributed training) brings these
-LATER = {"repro.runtime": {"elastic_restore", "divisor_meshes"}}
+# names still to come (none since part 3 of item 13)
+LATER = {}
 PACKAGES = (repro.core, repro.quant, repro.runtime)
 NAMES = [(pkg.__name__, name) for pkg in PACKAGES for name in pkg.__all__
          if name not in LATER.get(pkg.__name__, ())]

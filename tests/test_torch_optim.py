@@ -120,8 +120,20 @@ def test_compress_bits_reduce_error_monotonically():
 
 
 def test_quantized_allreduce_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        quantized_allreduce(torch.zeros(4), "data")
+    """The name predates the port of the ring (its multi-rank parity is
+    ``tests/test_torch_dist_train.py``'s): outside an active plan, or
+    over an axis its mesh lacks, it raises; over an axis of one rank it
+    returns its input, as the reference's does."""
+    from repro_torch.parallel.hints import activation_hints
+    from repro_torch.parallel.sharding import AbstractMesh, plan_for_mesh
+    x = torch.arange(4, dtype=torch.float32)
+    with pytest.raises(ValueError, match="needs an active plan"):
+        quantized_allreduce(x, "data")
+    plan = plan_for_mesh(AbstractMesh((1, 2), ("data", "model")))
+    with activation_hints(plan):
+        assert quantized_allreduce(x, "data") is x
+        with pytest.raises(ValueError, match="'pod'"):
+            quantized_allreduce(x, "pod")
 
 
 # ---------------------------------------------------------------------------

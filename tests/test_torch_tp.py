@@ -119,8 +119,19 @@ def test_param_placements_equal_the_references(which, shape):
             assert (pl.is_shard(dims[0]) if dims
                     else pl.is_replicate()), (name, ax, pl)
     assert sharded == len(got) - 1     # all but the final norm
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        param_specs(model, tcfg, plan)     # training placements: part 3
+    # the training placements: the reference's spec with its FSDP axis,
+    # a layer's norm scales replicated over "data" (their stacked
+    # period axis, which the reference shards there, is the one exception)
+    train = jsharding.param_shardings(shapes, jplan)
+    got = param_specs(model, tcfg, plan)
+    for name, path, period in reference_layout(model, tcfg):
+        want = tuple(_ref_leaf(train, path).spec)
+        want = want + (None,) * (len(_ref_leaf(shapes, path).shape)
+                                 - len(want))
+        if period is not None:
+            assert want[0] is None or name.endswith(("norm1", "norm2"))
+            want = want[1:]
+        assert got[name] == want, (name, got[name], want)
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -369,12 +380,22 @@ def test_serving_mesh_refusals_in_the_references_words():
         with pytest.raises(ValueError) as got:
             tmesh.make_serving_mesh(tp, device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    with pytest.raises(NotImplementedError,
+                       match="queue A item 13 part 5"):
         tmesh.make_production_mesh()
-    for fn in (parallel.cache_shardings, parallel.auto_batch_sharding,
-               parallel.sharding.state_shardings):
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
-            fn()
+    # the training half's placements are ported (part 3): they lay out a
+    # batch, a dense cache and a train state on a 2 x 2 mesh
+    plan = plan_for_mesh(AbstractMesh((2, 2), ("data", "model")))
+    batch = {"tokens": torch.zeros(4, 8, dtype=torch.int32)}
+    assert parallel.auto_batch_sharding(batch, plan)["tokens"][0].is_shard(0)
+    cache = [{"k": torch.zeros(2, 8, 2, 4), "v": torch.zeros(2, 8, 2, 4)}]
+    k_data, k_model = parallel.cache_shardings(cache, plan)[0]["k"]
+    assert k_data.is_shard(0) and k_model.is_shard(2)
+    from repro_torch.launch.steps import _meta_state
+    tcfg = _configs("smoke")[1]
+    state = _meta_state(tcfg, int8=True, residual=True)
+    placed = parallel.sharding.state_shardings(state, tcfg, plan)
+    assert placed["opt"]["m"]["embed"]["q"] == placed["params"]["embed"]
     import repro.parallel
     assert parallel.__all__ == repro.parallel.__all__
 
