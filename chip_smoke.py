@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phase train  # the build and [train] alone
     python3 chip_smoke.py --phase train2 # the build and [train2] alone
     python3 chip_smoke.py --phase dist   # [dist] alone, no kernel build
+    python3 chip_smoke.py --phase ep     # [ep] alone, no kernel build
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -76,7 +77,10 @@ Phases, each of which raises on failure (no phase is caught):
    on paged pools through B1 (16 requests of 32-160 prompt tokens and 16
    new, batch 8): eval_all at int8 on both routes and int4, the
    published scatter dispatch (stepwise by the server's rule) on both
-   routes; then deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE of 256
+   routes, and the kernel-route scatter run again through
+   ``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL group
+   (experts split E / 1, no copy: bit for bit the plain run); then
+   deepseek-v3-671b cut to 4 layers (3 dense, 1 MoE of 256
    experts top-8, sigmoid router; MLA) on dense latent caches (8
    requests of 32-96 prompt tokens and 16 new, stepwise): bf16 and int8
    latents on the expanded route, int8 on the absorbed route:
@@ -216,7 +220,22 @@ Phases, each of which raises on failure (no phase is caught):
    process) against the plain CLI, losses within rtol 1e-5; (e)
    ``quantized_allreduce`` and ``gpipe_apply`` (S = 1) on CUDA tensors;
    step ms (mesh and plain), peak memory, the phase time against its
-   45 s budget;
+   45 s budget; then ``[ep]``, expert parallelism on a one-rank NCCL
+   group with a ("data", "model") mesh: (a) one MoE layer of
+   deepseek-v3 at published widths (256 experts of F 2048 top-8, D 7168,
+   a shared expert, sigmoid router), scatter, bf16, 4 x 512 tokens:
+   ``moe_apply`` forward and backward under the train step's mark
+   against the plain dispatch (at 8 and 16 bits with the wire's
+   quantize-dequantize at its two points), the output and every
+   gradient bit for bit, ms and peak memory of each, and the wire's
+   exchange on the NCCL model group itself (int8 / int16 payload and
+   float32 scales); (b) jamba-v0.1 at published widths cut to 2 layers
+   (Mamba + MLP, Mamba + 16 experts top-2), scatter, int8 moments, 3
+   steps of 4 x 512 tokens: the plain step, the expert-parallel mesh
+   step (bit for bit: losses, grad norms, a checksum of every state
+   leaf) and the mesh step on the 8-bit wire (finite losses, every
+   expert reached by step 1's gradient); step ms, peak memory, the
+   phase time against its 45 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -2273,6 +2292,9 @@ MOE_GATED = {"b": "a", "d": "e", "h": "g"}   # teacher-forced gates
 # stepwise prefill spends a program on each prompt token
 MOE_SHORT = {"d", "e"}
 MOE_BUDGET_S = 60
+# the first requests of run (d), served plain and on a one-rank NCCL
+# mesh; the mesh run's decode step captured
+MOE_MESH, MOE_MESH_DECODE_AT, MOE_MESH_REQUESTS = "d", 6, 2
 
 
 def moe_trace(label, seed: int, vocab=None):
@@ -2450,7 +2472,106 @@ def moe_arch_runs(arch, seed: int, runs: dict, caps: dict) -> int:
                  f"{st['median_max_abs_logit_diff']:.4g}, "
                  f"{st['top2_tied_steps']} steps with the top two tied)"
                  if by else ""), flush=True)
+    if arch == LLAMA4:
+        n, caps[f"{MOE_MESH} mesh"] = moe_mesh_check(cfg, model, seed, runs)
+        launches += n
     return launches
+
+
+def moe_mesh_check(cfg, model, seed: int, runs: dict) -> tuple:
+    """[moe] ``MOE_MESH`` on a mesh: the first ``MOE_MESH_REQUESTS``
+    requests of run ``MOE_MESH`` (scatter, int8 pages, B1, teacher-forced
+    as the plain run was) served by the plain server and then by
+    ``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL group,
+    on the same model (its experts split E / 1 over "model", each MoE
+    layer's partial output all-reduced): the mesh server's tokens and host
+    counters bit for bit the plain server's, every parameter of its model
+    a view of the plain model's (no second copy of the experts), B1
+    against its plain version on one captured decode step, every layer.
+    A prefix, not the whole run: the capacity of the scatter dispatch is
+    that of the batch, so the check needs its own plain run, and two
+    short runs cost less than one long one. Returns (B1 launches,
+    record)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import attention
+    arch, over, kw, impl, by = MOE_RUNS[MOE_MESH]
+    rcfg = dataclasses.replace(cfg, **over)
+    forced = {r.rid: r.out for r in runs[by][0]} if by else None
+
+    def prefix(c, sd):
+        return moe_trace(MOE_MESH, sd)[:MOE_MESH_REQUESTS]
+
+    keep = {}
+    t0 = time.perf_counter()
+    paged_kv_attention_chunk.launches = 0
+    want, wst, _ = serve_once(rcfg, model, attn_impl=impl, seed=seed,
+                              trace=prefix, forced=forced, keep=keep,
+                              **MOE_SERVE[arch], **kw)
+    n = paged_kv_attention_chunk.launches
+    want_counters = moe_counters(keep["srv"])
+    keep.clear()
+    t_plain = time.perf_counter() - t0
+    cap = B1Capture(attention.paged_kv_attention_decode,
+                    at=MOE_MESH_DECODE_AT * cfg.num_layers,
+                    layers=cfg.num_layers)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mesh = make_serving_mesh(1, device="cuda")
+    t_group = time.perf_counter() - t0
+    paged_kv_attention_chunk.launches = 0
+    attention.paged_kv_attention_decode = cap
+    try:
+        backend = dist.get_backend()
+        reqs, st, _ = serve_once(
+            rcfg, model, attn_impl=impl, seed=seed, trace=prefix,
+            forced=forced, keep=keep, mesh=mesh, **MOE_SERVE[arch], **kw)
+    finally:
+        attention.paged_kv_attention_decode = cap.fn
+        dist.destroy_process_group()
+    n += paged_kv_attention_chunk.launches
+    t_mesh = time.perf_counter() - t0
+    srv = keep["srv"]
+    plain = dict(model.named_parameters())
+    views = all(p.data_ptr() == plain[name].data_ptr()
+                for name, p in srv.model.named_parameters())
+    experts = sum(p.numel() * p.element_size()
+                  for name, p in srv.model.named_parameters()
+                  if ".mlp.w_" in name and p.dim() == 3) / 2 ** 30
+    same = [list(r.out) for r in reqs] == [list(r.out) for r in want]
+    counters = moe_counters(srv)
+    del srv, keep
+    b1 = check_captured_b1(cap.saved, f"({MOE_MESH}) on a mesh, "
+                           f"make_serving_mesh(1) on {backend}, G="
+                           f"{cfg.num_heads // cfg.num_kv_heads}",
+                           tag="[moe]")
+    print(f"[moe] ({MOE_MESH}) on a mesh: its first {len(reqs)} requests "
+          f"served plain ({t_plain:.1f} s) and by BatchedServer(mesh="
+          f"make_serving_mesh(1)) on a one-rank {backend} group "
+          f"({t_mesh:.1f} s, the group's start {t_group:.1f} s of it), "
+          f"{rcfg.moe_mode} kv_bits={kw['kv_bits']} {impl}: tokens equal "
+          f"{same}, counters equal {counters == want_counters} "
+          f"({counters}); every parameter a view of the plain model's "
+          f"{views} ({experts:.2f} GiB of experts not copied; "
+          f"{held / 2 ** 30:.2f} GiB held before the server); {n} B1 "
+          f"launches over both; decode step {st['decode_step_ms']:.2f} ms "
+          f"against the plain server's {wst['decode_step_ms']:.2f}",
+          flush=True)
+    if not (same and views and counters == want_counters):
+        raise AssertionError(f"[moe] ({MOE_MESH}) on a mesh: the world-size-1 "
+                             f"mesh server is not the plain server bit for "
+                             f"bit")
+    return n, {"label": f"{MOE_MESH} mesh", "arch": arch, "phase": "moe",
+               "requests": len(reqs), "backend": backend,
+               "b1_launches": n, "b1_vs_plain": b1, "views": views,
+               "experts_gib": experts, "counters": counters,
+               "decode_step_ms": st["decode_step_ms"],
+               "plain_decode_step_ms": wst["decode_step_ms"],
+               "tok_per_s": st["tok_per_s"],
+               "plain_tok_per_s": wst["tok_per_s"]}
 
 
 def moe_phase(seed: int):
@@ -2466,14 +2587,16 @@ def moe_phase(seed: int):
     sigmoid router) on dense latent caches, max_len 128, 8 requests of
     32-96 prompt tokens and 16 new, stepwise: (f) bf16 latent, (g) int8
     latent on the expanded route, (h) int8 on the absorbed route
-    teacher-forced by (g). One model on the card at a time, each after
+    teacher-forced by (g); and (d)'s first requests, plain and on a
+    one-rank NCCL mesh (:func:`moe_mesh_check`). One model on the card at a time, each after
     an untimed warm-up run. Fails unless every request finishes, B1 runs
     once per layer per program on the kernel runs, (b), (d) and (h) pass
     the gate, B1 equals its plain version on the pools of one captured
     decode step (S = 1) and of one captured bucketed prefill forward
-    (S = 32) of (b) and (c) (G = 5), and every run's host counters equal
-    the smoke config's on the CPU for the same trace (a child process).
-    Returns (B1 launches, run records)."""
+    (S = 32) of (b) and (c) (G = 5) and of one decode step of (d) on the
+    mesh, the mesh run is its plain run bit for bit, and every run's host counters
+    equal the smoke config's on the CPU for the same trace (a child
+    process). Returns (B1 launches, run records)."""
     import concurrent.futures
     import gc
     import multiprocessing
@@ -5271,6 +5394,357 @@ def dist_phase(seed: int) -> dict:
             "phase_s": wall, "part_s": part_s, "budget_s": DIST_BUDGET_S}
 
 
+# ---------------------------------------------------------------------------
+# [ep]: expert parallelism on a one-rank NCCL mesh with a model axis: one
+# deepseek-v3 MoE layer's dispatch, and jamba-v0.1 trained through the
+# expert-parallel step
+# ---------------------------------------------------------------------------
+EP_TOKENS = (4, 512)          # (a): one train step's rows of deepseek-v3
+EP_BITS = (0, 8, 16)
+EP_TRAIN_LAYERS = 2           # jamba-v0.1's 32 cut: ~37 GB of state an arm
+EP_TRAIN_STEPS = 3
+EP_BUDGET_S = 45
+
+
+@functools.lru_cache(maxsize=None)
+def _wire_ste():
+    """The wire's quantize-dequantize with the identity's gradient (an
+    autograd Function): the plain version of the expert-parallel
+    dispatch's wire at one rank."""
+    import torch
+    from repro_torch.parallel.hints import wire_round_trip
+
+    class WireSTE(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, bits):
+            return wire_round_trip(t, bits)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    return WireSTE
+
+
+def plain_dispatch(p, x, cfg):
+    """The MoE forward with the plain local dispatch (the capacity of all
+    of x's tokens), the wire's quantize-dequantize applied where the
+    expert-parallel dispatch sends and receives (``cfg.moe_a2a_bits``)."""
+    from repro_torch.models import moe
+    from repro_torch.models.mlp import swiglu_apply
+    B, S, D = x.shape
+    T, k, bits = B * S, cfg.experts_per_token, cfg.moe_a2a_bits
+    w, idx, _ = moe._route(p, x, cfg)
+    buf, e_a, pos_s, keep = moe._dispatch(x.reshape(T, D), idx.reshape(T, k),
+                                          cfg)
+    if bits:
+        buf = _wire_ste().apply(buf, bits)
+    y = moe._experts_ffn(p, buf)
+    if bits:
+        y = _wire_ste().apply(y, bits)
+    out = moe._combine(y, e_a, pos_s, keep, w.reshape(T, k)).reshape(B, S, D)
+    return out + swiglu_apply(p.shared, x)
+
+
+def ep_dispatch(seed: int, plan) -> dict:
+    """(a): one MoE layer of deepseek-v3 at published widths (256 experts
+    of F 2048 top-8, D 7168, a shared expert, sigmoid router), scatter,
+    bf16, on ``EP_TOKENS`` rows: ``moe_apply`` forward and backward under
+    the train step's mark against :func:`plain_dispatch`, at each wire
+    width: the output and every gradient (experts, router, shared expert,
+    x) bit for bit; ms of each (CUDA events after a sync) and peak memory.
+    Then the wire on the NCCL model group itself (at one rank the dispatch
+    skips the exchange): ``wire_all_to_all`` of a (256, C, 7168) buffer
+    against its round trip, and what crossed the group."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.parallel import hints
+    cfg = dataclasses.replace(get_config(DSV3), moe_mode="scatter")
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    B, S = EP_TOKENS
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    mod = moe.MoE(cfg, torch.bfloat16, device="cuda")
+    moe.init_moe(mod, g)
+    leaves = {"router": mod.router, "w_gate": mod.w_gate, "w_up": mod.w_up,
+              "w_down": mod.w_down, "shared.w_gate": mod.shared.w_gate,
+              "shared.w_up": mod.shared.w_up,
+              "shared.w_down": mod.shared.w_down}
+    leaves = {n: t.detach().requires_grad_(True) for n, t in leaves.items()}
+    p = types.SimpleNamespace(
+        shared=types.SimpleNamespace(
+            **{n[7:]: t for n, t in leaves.items() if n.startswith("shared")}),
+        **{n: t for n, t in leaves.items() if "." not in n})
+    x = torch.randn(B, S, D, generator=g, device="cuda", dtype=torch.bfloat16)
+    cot = torch.randn(B, S, D, generator=g, device="cuda",
+                      dtype=torch.bfloat16)
+    C = max(1, int(np.ceil(B * S * cfg.experts_per_token / E
+                           * cfg.moe_capacity_factor)))
+    expert_gib = sum(leaves[n].numel() * 2 for n in ("w_gate", "w_up",
+                                                     "w_down")) / 2 ** 30
+    print(f"[ep] (a) {DSV3} MoE layer at published widths: {E} experts of "
+          f"F {F} top-{cfg.experts_per_token} sigmoid + "
+          f"{cfg.num_shared_experts} shared, D {D}, bf16; {B} x {S} tokens, "
+          f"capacity C = {C}; the experts {expert_gib:.2f} GiB (and their "
+          f"gradients as much)", flush=True)
+
+    def arm(mesh: bool, bits: int):
+        c = dataclasses.replace(cfg, moe_a2a_bits=bits)
+        for t in leaves.values():
+            t.grad = None
+        xg = x.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        if mesh:
+            with hints.train_step_mark(plan, ("data",)):
+                y, _ = moe.moe_apply(p, xg, cfg=c)
+        else:
+            y = plain_dispatch(p, xg, c)
+        y.backward(cot)
+        e.record()
+        torch.cuda.synchronize()
+        grads = {n: t.grad for n, t in leaves.items()}
+        grads["x"] = xg.grad
+        for t in leaves.values():
+            t.grad = None
+        return (y.detach(), grads, s.elapsed_time(e),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    for bits in (0, 8):         # untimed: the card's first launches
+        arm(True, bits)
+        arm(False, bits)
+    out = {}
+    for bits in EP_BITS:
+        ym, gm, ms_m, peak_m = arm(True, bits)
+        yp, gp, ms_p, peak_p = arm(False, bits)
+        differ = [n for n in gm if not torch.equal(gm[n], gp[n])]
+        same = torch.equal(ym, yp) and not differ
+        out[bits] = {"bitwise": same, "differ": differ, "mesh_ms": ms_m,
+                     "plain_ms": ms_p, "mesh_peak_gib": peak_m,
+                     "plain_peak_gib": peak_p,
+                     "finite": bool(torch.isfinite(ym).all())}
+        del ym, gm, yp, gp
+        print(f"[ep] (a) {bits or 'no'} wire{' bits' if bits else ''}: "
+              f"moe_apply under the mark vs the plain dispatch"
+              f"{' with the wire round trip at its two points' if bits else ''}"
+              f": output and {len(leaves) + 1} gradients bit for bit {same} "
+              f"{differ}; forward + backward {ms_m:.2f} ms (plain "
+              f"{ms_p:.2f}), peak {peak_m:.2f} GiB (plain {peak_p:.2f})",
+              flush=True)
+    # the wire on the NCCL model group
+    group = plan.mesh.get_group(plan.model_axis)
+    buf = torch.randn(1, E, C, D, generator=g, device="cuda",
+                      dtype=torch.bfloat16)
+    seen = {"payload": [], "sent": []}
+    orig_x, orig_a = hints._exchange, dist.all_to_all_single
+
+    def exchange(t, grp):
+        seen["payload"].append(str(t.dtype).replace("torch.", ""))
+        return orig_x(t, grp)
+
+    def send(o, i, *a, **kw):
+        seen["sent"].append(str(i.dtype).replace("torch.", ""))
+        return orig_a(o, i, *a, **kw)
+
+    hints.all_to_all(buf, group)      # untimed: NCCL's first call
+    hints._exchange, dist.all_to_all_single = exchange, send
+    wire = {}
+    try:
+        for bits in EP_BITS:
+            seen["payload"].clear()
+            seen["sent"].clear()
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            got = (hints.wire_all_to_all(buf, group, bits) if bits
+                   else hints.all_to_all(buf, group))
+            e.record()
+            torch.cuda.synchronize()
+            want = hints.wire_round_trip(buf, bits) if bits else buf
+            wire[bits] = {"equal": torch.equal(got, want),
+                          "payload": list(seen["payload"]),
+                          "sent": list(seen["sent"]),
+                          "ms": s.elapsed_time(e)}
+    finally:
+        hints._exchange, dist.all_to_all_single = orig_x, orig_a
+    print(f"[ep] (a) the exchange of a ({E}, {C}, {D}) buffer on the "
+          f"{dist.get_backend(group)} model group ({dist.get_world_size(group)} "
+          f"rank): " + "; ".join(
+              f"{b or 'no'} wire{' bits' if b else ''}: payload "
+              f"{w['payload']} sent as {w['sent']}, {w['ms']:.3f} ms, equal "
+              f"to its round trip {w['equal']}" for b, w in wire.items()),
+          flush=True)
+    del leaves, p, mod, x, cot, buf
+    bad = [b for b, r in out.items() if not (r["bitwise"] and r["finite"])]
+    want_payload = {0: ["bfloat16"], 8: ["int8", "float32"],
+                    16: ["int16", "float32"]}
+    bad += [f"wire {b}" for b, w in wire.items()
+            if not w["equal"] or w["payload"] != want_payload[b]]
+    if bad:
+        raise AssertionError(f"[ep] (a) failed: {bad}")
+    return {"arms": out, "wire": wire, "capacity": C,
+            "experts_gib": expert_gib}
+
+
+def leaf_checksum(t, chunk: int = 1 << 26) -> tuple:
+    """(sum, position-weighted sum) of a tensor's bytes read as integers
+    of its element size, int64 arithmetic (wrapping), chunk by chunk."""
+    import torch
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    v = t.detach().contiguous().reshape(-1).view(ints[t.element_size()])
+    s0 = torch.zeros((), dtype=torch.int64, device=v.device)
+    s1 = torch.zeros((), dtype=torch.int64, device=v.device)
+    pos = (torch.arange(min(chunk, v.numel()), device=v.device) % 65521) + 1
+    for i in range(0, v.numel(), chunk):
+        c = v[i:i + chunk].to(torch.int64)
+        s0 += c.sum()
+        s1 += (c * pos[:c.numel()]).sum() * (i // chunk + 1)
+    return int(s0), int(s1)
+
+
+def ep_train(seed: int, plan) -> dict:
+    """(b): jamba-v0.1 at published widths cut to ``EP_TRAIN_LAYERS``
+    layers (Mamba + MLP, Mamba + 16 experts top-2), scatter, int8
+    moments, ``EP_TRAIN_STEPS`` steps of 4 x 512 ``lm_batch`` tokens in
+    three arms one after another, each from the same seeded state: the
+    plain step; ``make_train_step(plan=)`` (expert-parallel, the experts
+    E / 1); the same at ``moe_a2a_bits`` 8. The first two bit for bit in
+    losses, grad norms and a checksum of every state leaf's bytes; the
+    wired arm's losses finite and its first gradient nonzero on every
+    expert of every stack (straight-through: C10). Step ms (CUDA events
+    after a sync) and peak memory per arm."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.steps import (TrainHParams, _expert_leaves,
+                                          init_train_state, loss_and_grads,
+                                          make_train_step, shard_train_state,
+                                          train_state_specs)
+    from repro_torch.optim.adamw import AdamWConfig
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full, num_layers=EP_TRAIN_LAYERS,
+                              moe_mode="scatter")
+    hp = TrainHParams(lr=TRAIN_LR, adamw=AdamWConfig(quantize_moments=True))
+    dcfg = train_data(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
+    batches = [{k: v.to("cuda") for k, v in lm_batch(dcfg, s).items()}
+               for s in range(EP_TRAIN_STEPS)]
+    print(f"[ep] (b) {JAMBA} at published widths cut to {cfg.num_layers} of "
+          f"{full.num_layers} layers ({cfg.param_count():,} parameters; "
+          f"layer 1: Mamba + {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}), scatter, int8 moments, "
+          f"{EP_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
+          flush=True)
+    arms = {}
+    for label, p, bits in (("plain", None, 0), ("mesh", plan, 0),
+                           ("mesh, 8-bit wire", plan, 8)):
+        c = dataclasses.replace(cfg, moe_a2a_bits=bits)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(c, hp, seed=seed, device="cuda")
+        if p is not None:
+            shard_train_state(state, c, p)
+        reached = None
+        if bits:
+            specs = train_state_specs(state, c, p)["params"]
+            _, grads = loss_and_grads(state["params"], batches[0], c,
+                                      plan=p, specs=specs)
+            names = sorted(_expert_leaves(state["params"]))
+            reached = {n: int((grads[n].flatten(1).abs().amax(1) > 0).sum())
+                       for n in names}
+            del grads
+        step = SyncTimer(make_train_step(c, hp, plan=p))
+        metrics = []
+        for b in batches:
+            m = step(state, b)[1]      # (the state is updated in place)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        sums = {k: leaf_checksum(v)
+                for k, v in dist_state_leaves(state).items()}
+        arms[label] = {"metrics": metrics, "ms": step.ms(),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "sums": sums, "experts_reached": reached}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[ep] (b) {label}: losses {[m[0] for m in metrics]}, grad "
+              f"norms {[m[1] for m in metrics]}; step ms "
+              f"{arms[label]['ms']:.2f} (median, CUDA events after a sync), "
+              f"peak {arms[label]['peak_gib']:.2f} GiB"
+              + (f"; step 1's gradient nonzero on {reached} of "
+                 f"{cfg.num_experts} experts a stack" if reached else ""),
+              flush=True)
+    a, b = arms["plain"], arms["mesh"]
+    differ = [k for k in a["sums"] if a["sums"][k] != b["sums"][k]]
+    wired = arms["mesh, 8-bit wire"]
+    print(f"[ep] (b) mesh vs plain: losses and grad norms equal "
+          f"{a['metrics'] == b['metrics']}, {len(a['sums'])} state leaves, "
+          f"{len(differ)} checksums differ {differ[:4]}; the wired arm's "
+          f"losses differ from the plain's by "
+          f"{[w[0] - p[0] for w, p in zip(wired['metrics'], a['metrics'])]}",
+          flush=True)
+    ok = (a["metrics"] == b["metrics"] and not differ
+          and all(np.isfinite(m[0]) for m in wired["metrics"])
+          and all(n == cfg.num_experts
+                  for n in wired["experts_reached"].values()))
+    leaves = len(a["sums"])
+    for r in arms.values():
+        del r["sums"]
+    if not ok:
+        raise AssertionError("[ep] (b) failed")
+    return {"arms": arms, "leaves": leaves, "differ": len(differ),
+            "params": cfg.param_count()}
+
+
+def ep_phase(seed: int) -> dict:
+    """``[ep]``: expert parallelism on a one-rank NCCL group whose mesh
+    has a model axis (``make_test_mesh((1, 1), ("data", "model"))``): (a)
+    :func:`ep_dispatch`, (b) :func:`ep_train`. No kernel of the port is on
+    this path (a training forward reaches none of B1-B6). The phase's
+    seconds against ``EP_BUDGET_S``. Returns the record."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import close_process_group, make_test_mesh
+    from repro_torch.parallel.sharding import plan_for_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    opened = not dist.is_initialized()
+    mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        plan = plan_for_mesh(mesh)
+        print(f"[ep] mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+              f"{dist.get_backend()}, world {dist.get_world_size()}",
+              flush=True)
+        part_s = {}
+        t0 = time.perf_counter()
+        dispatch = ep_dispatch(seed, plan)
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = ep_train(seed, plan)
+        part_s["b"] = time.perf_counter() - t0
+    finally:
+        if opened:
+            close_process_group()
+    wall = time.perf_counter() - t_phase
+    print(f"[ep] phase {wall:.1f} s against a {EP_BUDGET_S} s budget ((a) "
+          f"{part_s['a']:.1f}, (b) {part_s['b']:.1f} s)", flush=True)
+    return {"phase": "ep", "dispatch": dispatch, "train": train,
+            "phase_s": wall, "part_s": part_s, "budget_s": EP_BUDGET_S}
+
+
 def dense_trace(cfg, seed: int):
     """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
     prefill through the decode step stays short at full width."""
@@ -5648,7 +6122,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
                              "ssm", "frontend", "bench", "replicas",
-                             "train", "train2", "dist"],
+                             "train", "train2", "dist", "ep"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -5679,6 +6153,9 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
     if args.phase == "dist":
         dist_phase(SEED)
+        return 0
+    if args.phase == "ep":
+        ep_phase(SEED)
         return 0
     if args.phase == "cnn":
         cnn_phase()
@@ -5737,11 +6214,12 @@ def main(argv=None) -> int:
         train_launches, train_runs = train_phase(SEED)
         train2_launches, train2_runs = train2_phase(SEED)
         dist_record = dist_phase(SEED)
+        ep_record = ep_phase(SEED)
         launches += (moe_launches + ssm_launches + fe_launches
                      + bench_launches + rep_launches + train_launches
                      + train2_launches)
         runs += (moe_runs + ssm_runs + fe_runs + bench_runs + rep_runs
-                 + train_runs + train2_runs + [dist_record])
+                 + train_runs + train2_runs + [dist_record, ep_record])
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

@@ -93,10 +93,13 @@ write harmlessly (their own dense row, or the scratch page).
   query and KV heads, ``d_ff``, the embedding's D and the head's vocab
   over "model". The row-parallel products (``wo``, ``w_down``)
   all-reduce, the embedding rows and the logits all-gather, and a page
-  scale's absmax is maxed over every rank (``parallel.hints``). Dense
-  GQA decoders on paged pools only; a head count the axis does not
-  divide, another family and the quant tier raise
-  ``NotImplementedError`` naming ROADMAP queue A item 13 part 4.
+  scale's absmax is maxed over every rank (``parallel.hints``). A MoE
+  layer's experts are split E / tp over "model": every rank routes every
+  token with the global capacity, runs its own experts' rows and the
+  partial outputs are summed (``models.moe``). Dense and MoE GQA
+  decoders on paged pools only; a head count the axis does not divide,
+  another family and the quant tier raise ``NotImplementedError``
+  naming ROADMAP queue A item 13 part 4b.
 
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
@@ -647,17 +650,21 @@ class BatchedServer:
         """The refusals of ``mesh=`` outside this slice; returns the
         config of this rank's pools (its KV-head shard)."""
         m = self.mesh_plan.model_size
-        if cfg.family != "dense" or cfg.attention_type != "gqa":
+        if cfg.family not in ("dense", "moe") or cfg.attention_type != "gqa":
             raise _not_ported(f"tensor-parallel serving of the "
-                              f"{cfg.family} family (mesh=)", "13 part 4")
+                              f"{cfg.family} family (mesh=)", "13 part 4b")
         if cfg.num_heads % m or cfg.num_kv_heads % m:
             raise _not_ported(
                 f"tensor-parallel serving with tp={m} not dividing "
                 f"{cfg.num_heads} heads and {cfg.num_kv_heads} KV heads "
-                f"(a replicated pool)", "13 part 4")
+                f"(a replicated pool)", "13 part 4b")
+        if cfg.num_experts % m:
+            raise _not_ported(
+                f"tensor-parallel serving with tp={m} not dividing "
+                f"{cfg.num_experts} experts", "13 part 4b")
         if kv_adapt == "on":
             raise _not_ported("the quant tier (--kv-adapt on) under "
-                              "mesh=", "13 part 4")
+                              "mesh=", "13 part 4b")
         # NCCL for a card's tensors, gloo for the CPU's, never one for
         # the other
         want = "nccl" if self.device.type == "cuda" else "gloo"

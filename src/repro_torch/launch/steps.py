@@ -24,20 +24,26 @@ whole before its forward (``parallel.hints.gather_param``), so it
 computes the single-device step's function, as GSPMD does for the
 reference's ``pjit``'d step. Its reductions are global: the batch's rows split over
 the data axes (``parallel.sharding.shard_batch``), the loss the global
-masked mean, the gradients summed over the ranks of other rows, and the
-grad norm, the wire's absmax and the int8 moments' per-row absmax taken
-over whole leaves (``parallel.hints.ShardReductions``).
+masked mean, the load-balance loss the global batch's, the gradients
+summed over the ranks of other rows, and the grad norm, the wire's
+absmax and the int8 moments' per-row absmax taken over whole leaves
+(``parallel.hints.ShardReductions``). The one exception is the
+reference's expert-parallel MoE (``models.moe.expert_parallel``): its
+expert stacks stay E / tp a rank (gathered over "data" only) and its
+forward runs under ``parallel.hints.train_step_mark``, which dispatches
+each token shard with its own capacity over an all-to-all, as the
+reference's ``shard_map`` does.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 import weakref
 from typing import Optional
 
 import torch
 
+from ..models.moe import MoE, expert_parallel
 from ..models.transformer import (Transformer, forward_hidden, init_cache,
                                   init_model, reference_layout,
                                   reference_tree, train_loss,
@@ -45,7 +51,8 @@ from ..models.transformer import (Transformer, forward_hidden, init_cache,
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..optim.compress import (CompressionConfig, compress_gradients,
                               error_feedback_init)
-from ..parallel.hints import ShardReductions, all_reduce_over, gather_param
+from ..parallel.hints import (ShardReductions, all_reduce_over, gather_param,
+                              train_step_mark)
 from ..parallel.sharding import (_axes, gather_whole, local_shard,
                                  shard_batch, state_specs)
 
@@ -191,19 +198,32 @@ def _share(labels, mask, axes, plan) -> torch.Tensor:
     return torch.clamp(n, min=1.0) / torch.clamp(total, min=1.0)
 
 
+def _expert_leaves(model: Transformer) -> frozenset:
+    """Names of the MoE expert stacks of ``model``."""
+    return frozenset(f"{n}.{leaf}" for n, m in model.named_modules()
+                     if isinstance(m, MoE)
+                     for leaf in ("w_gate", "w_up", "w_down"))
+
+
 def _sharded_loss_backward(model, batch, cfg, plan, specs, *, quant,
                            lb_coeff) -> dict:
     """The sharded step's forward and backward: each parameter gathered
-    whole, this rank's rows through ``train_loss``, each loss term
-    weighted by the rank's share of its tokens, so that the sum over the
-    ranks of other rows is the global masked mean; the backward leaves
-    each parameter's gradient shard, summed over those ranks, in its
-    ``grad``. Returns the global metrics."""
+    whole (an expert-parallel expert stack gathered over every axis but
+    "model"), this rank's rows through ``train_loss`` under the step's
+    mark, each token-mean loss term weighted by the rank's share of its
+    tokens, so that the sum over the ranks of other rows is the global
+    masked mean (the load-balance loss is global already, its gradient
+    this rank's part); the backward leaves each parameter's gradient
+    shard, summed over those ranks, in its ``grad``. Returns the global
+    metrics."""
     rows = shard_batch(batch, plan)
     axes = _axes(rows.axes)
-    whole = {n: gather_param(p, specs[n], axes, plan)
+    keep = (plan.model_axis,) if expert_parallel(cfg, plan) else ()
+    experts = _expert_leaves(model) if keep else frozenset()
+    whole = {n: gather_param(p, specs[n], axes, plan,
+                             keep=keep if n in experts else ())
              for n, p in model.named_parameters()}
-    with _swapped(model, whole):
+    with _swapped(model, whole), train_step_mark(plan, axes):
         _, metrics = train_loss(model, rows, cfg, quant=quant,
                                 lb_coeff=lb_coeff)
     share = {"ce_loss": _share(rows["labels"], rows.get("mask"), axes,
@@ -217,11 +237,16 @@ def _sharded_loss_backward(model, batch, cfg, plan, specs, *, quant,
     local.backward()
     out = {}
     for k, v in metrics.items():
-        if k == "moe_lb_loss":
-            out[k] = v.detach()
-            continue
-        v = local if k == "loss" else v * share[k]
-        out[k] = all_reduce_over(v.detach().clone(), axes, plan)
+        if k in share:
+            out[k] = all_reduce_over(v.detach() * share[k], axes, plan)
+    # the loss as train_loss sums it, from the global terms
+    loss = out["ce_loss"]
+    out["moe_lb_loss"] = metrics["moe_lb_loss"].detach()
+    if cfg.num_experts:
+        loss = loss + lb_coeff * out["moe_lb_loss"]
+    if cfg.mtp_depth > 0:
+        loss = loss + 0.3 * out["mtp_loss"]
+    out["loss"] = loss
     return out
 
 
@@ -266,18 +291,13 @@ def make_train_step(cfg, hp: TrainHParams, *, quant=None, plan=None):
     docstring) on a state from :func:`shard_train_state`; ``batch`` the
     global batch or this rank's rows of it (``parallel.sharding.
     shard_batch``, as ``data.pipeline.DataPipeline(plan=)`` yields them).
-    Under a mesh of one rank it is the plain step bit for bit. A MoE
-    config under a mesh of more than one rank raises (its load-balance
-    loss is not a mean of per-row terms, and the reference dispatches
-    its experts per token shard: ROADMAP queue A item 13 part 4)."""
+    Under a mesh of one rank it is the plain step bit for bit, but for a
+    ``scatter`` MoE under a plan with a model axis: that dispatches
+    expert-parallel, as the reference's, and so applies the
+    ``moe_a2a_bits`` wire (C10-port)."""
     layouts = weakref.WeakKeyDictionary()   # model -> (decay, groups)
     specs = shards = None
     if plan is not None:
-        if cfg.num_experts and math.prod(plan.shape.values()) > 1:
-            raise NotImplementedError(
-                f"training the {cfg.family} family's experts on a mesh of "
-                f"more than one rank (expert-parallel dispatch) is not "
-                f"ported yet: ROADMAP queue A item 13 part 4")
         specs = train_state_specs(
             _meta_state(cfg, int8=hp.adamw.quantize_moments,
                         residual=hp.grad_compress is not None),

@@ -23,7 +23,10 @@ make_host_mesh``: one rank alone (a one-rank group), or N ranks under
 NCCL on cards), the state sharded by the reference's training placements
 (``launch.steps.shard_train_state``), each rank fed its rows of the
 global batch. Rank 0 prints, checkpoints (each leaf gathered whole: the
-checkpoint is the global one) and writes ``--metrics-out``.
+checkpoint is the global one) and writes ``--metrics-out``. A MoE arch
+trains there too: the host mesh has no model axis, so a ``scatter`` MoE
+dispatches the global batch, as the reference's does on that mesh, and
+its load-balance loss is the global batch's.
 ``--mesh single|multi`` name the reference's 256- and 512-device pods,
 which exist here only in the dry run (ROADMAP queue A item 13 part 5):
 they raise.
@@ -31,6 +34,9 @@ they raise.
 Usage (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --smoke --device cpu --steps 20 --batch-size 4 --seq-len 64 --lr 1e-3
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch llama4-maverick-400b-a17b \\
+      --smoke --device cpu --steps 4 --batch-size 4 --seq-len 32
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch yi-34b --smoke --device cpu
 """

@@ -43,6 +43,19 @@ batch is an explicit collective here (:class:`ShardReductions`: the
 grad norm, the wire's per-leaf absmax, the int8 moments' per-row
 absmax).
 
+Expert parallelism is the one place where the sharded step computes
+another function than the single-device step, as the reference's
+``shard_map`` dispatch does: the step runs its forward under
+:func:`train_step_mark`, and a ``scatter`` MoE then dispatches this
+rank's tokens with a per-shard capacity and exchanges them with the
+model axis's other ranks (:func:`all_to_all`, optionally on an int8 /
+int16 wire), holding only its E / tp experts (``gather_param(keep=)``).
+:func:`slice_rows` and :func:`gather_rows` move a tensor between its
+whole and this rank's piece along one dim with the matching backward,
+and :func:`sum_grad` / :func:`scale_grad` give a computation replicated
+over an axis its gradient once. The server never sets the mark: served
+MoE tokens keep the reference's unsharded dispatch.
+
 Logical names: "dp" -> the batch axes; "tp" / "ep" -> "model"; None ->
 skip. Every assignment is divisibility-checked like
 ``parallel.sharding``.
@@ -51,6 +64,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -216,14 +231,24 @@ class _GatherParam(torch.autograd.Function):
         return local_shard(grad, ctx.spec, ctx.plan), None, None, None
 
 
-def gather_param(shard: torch.Tensor, spec, batch_axes, plan: MeshPlan
-                 ) -> torch.Tensor:
+def gather_param(shard: torch.Tensor, spec, batch_axes, plan: MeshPlan,
+                 *, keep: Sequence[str] = ()) -> torch.Tensor:
     """The whole parameter of which ``shard`` is this rank's piece under
     ``spec``, differentiable: the gradient that reaches the shard is its
     piece of the whole gradient summed over ``batch_axes`` (the axes
     whose ranks hold other rows of the batch; the ranks of any other
-    axis computed the same gradient and are not summed)."""
-    return _GatherParam.apply(shard, tuple(spec), tuple(batch_axes), plan)
+    axis computed the same gradient and are not summed). ``keep``: mesh
+    axes not gathered, so the result stays this rank's piece along the
+    dims they shard (an expert stack keeps its E / tp experts and
+    gathers its F shards over "data")."""
+    spec = tuple(_without(e, keep) for e in spec)
+    return _GatherParam.apply(shard, spec, tuple(batch_axes), plan)
+
+
+def _without(entry, keep):
+    """A spec entry without the axes of ``keep``."""
+    axes = tuple(a for a in _axes(entry) if a not in keep)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
 
 
 class ShardReductions:
@@ -275,3 +300,201 @@ class ShardReductions:
             for j, i in enumerate(idx):
                 sq[i] = part[j]
         return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: the train step's mark and the dispatch's collectives
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class StepMark:
+    """The sharded train step's mark: its ``plan`` and ``row_axes``, the
+    mesh axes that split the batch's rows between ranks (``()`` when
+    every rank holds every row)."""
+
+    plan: MeshPlan
+    row_axes: tuple
+
+    @property
+    def row_ranks(self) -> int:
+        """Ranks that hold different rows (1: every rank holds all)."""
+        return math.prod(self.plan.shape[a] for a in self.row_axes)
+
+
+_STEP: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_train_step", default=None)
+
+
+@contextlib.contextmanager
+def train_step_mark(plan: MeshPlan, row_axes: Sequence[str]):
+    """Mark the forward inside as the sharded train step's (see the
+    module's docstring); :func:`active_step` reads it."""
+    token = _STEP.set(StepMark(plan, tuple(row_axes)))
+    try:
+        yield
+    finally:
+        _STEP.reset(token)
+
+
+def active_step() -> Optional[StepMark]:
+    """The mark of :func:`train_step_mark`, or None."""
+    return _STEP.get()
+
+
+class _AllToAll(torch.autograd.Function):
+    """(n, ...) -> (n, ...): chunk i of dim 0 goes to group rank i, and
+    chunk j of the result came from group rank j. Its own inverse, so the
+    backward sends the gradient back the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def _exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` of ``t``'s contiguous chunks of dim 0. An
+    int16 tensor travels as its bytes (neither gloo nor NCCL carries
+    int16), and arrives as int16 again."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    wire = t.view(torch.int8) if t.dtype == torch.int16 else t
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    return out.view(t.dtype)
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` (n, ...) exchanged over ``group`` of n ranks by contiguous
+    chunks of dim 0, differentiable; ``t`` itself when ``group`` is None
+    (an axis of one rank)."""
+    return t if group is None else _AllToAll.apply(t, group)
+
+
+def wire_all_to_all(t: torch.Tensor, group, bits: int) -> torch.Tensor:
+    """:func:`all_to_all` of ``t`` (n, ..., D) on the reference's int8 /
+    int16 wire (``_a2a``): each row over D quantized to ``bits`` with its
+    float32 absmax scale (the absmax times the float32 reciprocal of
+    qmax = 2^(bits-1) - 1, as XLA compiles the reference's division by
+    the constant; at least 1e-12), rounded half to even and clipped; the
+    integer payload and the scales travel as two all-to-alls and are
+    multiplied back into ``t``'s dtype on arrival. With ``group`` None the
+    quantize-dequantize alone (the reference applies its wire on an axis
+    of one rank too). The backward is straight-through: the gradient
+    goes back unquantized by the inverse all-to-all."""
+    return _Wire.apply(t, group, bits)
+
+
+def _wire_encode(t: torch.Tensor, bits: int):
+    qmax = 2.0 ** (bits - 1) - 1.0
+    amax = torch.amax(torch.abs(t), dim=-1, keepdim=True).to(torch.float32)
+    scale = torch.clamp(amax * torch.full_like(amax, 1.0 / qmax), min=1e-12)
+    q = torch.clamp(torch.round(t.to(torch.float32) / scale), -qmax, qmax)
+    return q.to(torch.int8 if bits <= 8 else torch.int16), scale
+
+
+def _wire_decode(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def wire_round_trip(t: torch.Tensor, bits: int) -> torch.Tensor:
+    """``t`` through the wire's quantize-dequantize, without exchange."""
+    return _wire_decode(*_wire_encode(t, bits), t.dtype)
+
+
+class _Wire(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, bits):
+        ctx.group = group
+        q, scale = _wire_encode(t, bits)
+        if group is not None:
+            q, scale = _exchange(q, group), _exchange(scale, group)
+        return _wire_decode(q, scale, t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.group is not None:
+            grad = _exchange(grad, ctx.group)
+        return grad, None, None
+
+
+class _SlicePiece(torch.autograd.Function):
+    """Forward: this rank's piece of ``whole`` under ``spec``. Backward:
+    the pieces' gradients gathered whole."""
+
+    @staticmethod
+    def forward(ctx, whole, spec, plan):
+        ctx.spec, ctx.plan = spec, plan
+        piece = local_shard(whole.detach(), spec, plan)
+        # a view would alias the input: hand back storage of its own
+        return piece.clone() if piece._base is not None else piece
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_whole(grad.contiguous(), ctx.spec, ctx.plan), None, None
+
+
+def _dim_spec(t: torch.Tensor, dim: int, axes) -> tuple:
+    spec = [None] * t.dim()
+    spec[dim] = tuple(axes) if len(axes) > 1 else axes[0]
+    return tuple(spec)
+
+
+def gather_rows(piece: torch.Tensor, dim: int, axes: Sequence[str],
+                plan: MeshPlan) -> torch.Tensor:
+    """``piece`` all-gathered along ``dim`` over ``axes`` (major first);
+    the backward hands each rank its own piece of the gradient, not a sum
+    over the ranks (right when the gradient downstream is the same on
+    every rank, or zero outside the rank's piece)."""
+    axes = tuple(a for a in axes if plan.shape[a] > 1)
+    if not axes:
+        return piece
+    return _GatherParam.apply(piece, _dim_spec(piece, dim, axes), (), plan)
+
+
+def slice_rows(whole: torch.Tensor, dim: int, axes: Sequence[str],
+               plan: MeshPlan) -> torch.Tensor:
+    """This rank's piece of ``whole`` along ``dim`` over ``axes``; the
+    backward gathers the pieces' gradients whole (the whole tensor was
+    the same on every rank)."""
+    axes = tuple(a for a in axes if plan.shape[a] > 1)
+    if not axes:
+        return whole
+    return _SlicePiece.apply(whole, _dim_spec(whole, dim, axes), plan)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, plan):
+        ctx.axes, ctx.plan = axes, plan
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_over(grad.contiguous().clone(), ctx.axes,
+                               ctx.plan), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def sum_grad(t: torch.Tensor, axes: Sequence[str], plan: MeshPlan
+             ) -> torch.Tensor:
+    """``t`` as it is; its gradient summed over ``axes``."""
+    return _SumGrad.apply(t, tuple(axes), plan)
+
+
+def scale_grad(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` as it is; its gradient divided by ``n``."""
+    return _ScaleGrad.apply(t, n)

@@ -22,13 +22,15 @@ runs in a subprocess on virtual host devices
   between the shards; each rank's state bytes equal to its spec's. On
   (2, 2) also W10 / D12 / KV8 with int8 moments and the int8 wire, and
   the wire and AdamW on shared gradients bit for bit the unsharded ones;
-  xlstm-350m-smoke on (2, 1); the MoE refusal.
+  xlstm-350m-smoke on (2, 1); a MoE config's step builds on meshes of
+  more than one rank, expert-parallel where the reference's is.
 * Elastic restore: a state trained on (2, 2) and saved, restored onto
   (4, 1) and onto one rank bit for bit; the checkpoint cross-loads with
   the reference's both ways.
 * The CLI under ``torch.distributed.run`` on 2 ranks against one rank,
   its checkpoint resumed on one rank, and ``--mesh single`` refused.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -456,21 +458,24 @@ def test_xlstm_on_2x1_tracks_the_single_device_steps(single, two):
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
                                   "deepseek-v3-671b", "jamba-v0.1-52b"])
-def test_moe_training_under_a_mesh_is_refused(arch):
-    """A MoE config under a mesh of more than one rank raises (its
-    load-balance loss is not a mean of per-row terms; the reference
-    dispatches its experts per token shard: part 4); under one rank it
-    builds."""
-    cfg = get_smoke_config(arch)
+def test_moe_training_under_a_mesh_builds(arch):
+    """A MoE config's sharded step builds on meshes of more than one rank
+    (expert parallelism is ported: ``tests/test_torch_ep.py`` holds it
+    against the reference), and it dispatches expert-parallel exactly
+    where the reference's ``moe_apply`` takes ``_sharded_dispatch``:
+    ``scatter``, a model axis, and E divisible by it."""
+    from repro_torch.models.moe import expert_parallel
     hp = ranks._hp(False)
-    for shape in ((2, 1), (1, 2)):
-        plan = plan_for_mesh(AbstractMesh(shape, ("data", "model")))
-        with pytest.raises(NotImplementedError,
-                           match="experts on a mesh of more than one rank.*"
-                                 "queue A item 13 part 4"):
+    for mode in ("eval_all", "scatter"):
+        cfg = dataclasses.replace(get_smoke_config(arch), moe_mode=mode)
+        for shape in ((2, 1), (1, 2), (1, 3), (1, 1)):
+            plan = plan_for_mesh(AbstractMesh(shape, ("data", "model")))
             make_train_step(cfg, hp, plan=plan)
-    make_train_step(cfg, hp, plan=plan_for_mesh(AbstractMesh(
-        (1, 1), ("data", "model"))))
+            want = mode == "scatter" and cfg.num_experts % shape[1] == 0
+            assert expert_parallel(cfg, plan) == want, (mode, shape)
+        host = plan_for_mesh(AbstractMesh((2,), ("data",)))
+        make_train_step(cfg, hp, plan=host)
+        assert not expert_parallel(cfg, host)
 
 
 # ---------------------------------------------------------------------------

@@ -403,7 +403,7 @@ def test_serving_mesh_refusals_in_the_references_words():
 @pytest.mark.parametrize("arch,kw,words", [
     ("qwen2-72b", dict(kv_adapt="on"), "quant tier"),
     ("qwen2-72b", dict(), "not dividing 8 heads and 2 KV heads"),
-    ("llama4-maverick-400b-a17b", dict(), "moe family"),
+    ("jamba-v0.1-52b", dict(), "hybrid family"),
     ("qwen2-vl-2b", dict(), "vlm family"),
 ])
 def test_mesh_outside_the_slice_raises_item_13(arch, kw, words):
@@ -418,8 +418,24 @@ def test_mesh_outside_the_slice_raises_item_13(arch, kw, words):
     if kw.get("kv_adapt"):
         base["prefix_cache"] = "on"
     with pytest.raises(NotImplementedError,
-                       match=f"{words}.*queue A item 13"):
+                       match=f"{words}.*queue A item 13 part 4b"):
         tserve.BatchedServer(cfg, model, mesh=mesh, **base, **kw)
+
+
+def test_mesh_refuses_tp_not_dividing_the_experts():
+    # the expert stacks would stay whole while the shared expert's w_down
+    # is row-parallel: its partial product would never be summed
+    import dataclasses
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_smoke_config("llama4-maverick-400b-a17b"),
+                              num_experts=3)
+    model = init_model(cfg, seed=0, device=CPU)
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError,
+                       match="not dividing 3 experts.*queue A item 13 part 4b"):
+        tserve.BatchedServer(cfg, model, mesh=mesh, batch_size=2, max_len=32,
+                             page_size=8, kv_bits=8, device=CPU)
 
 
 def test_cli_tp2_on_gloo(capsys):
