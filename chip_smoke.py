@@ -105,7 +105,13 @@ Phases, each of which raises on failure (no phase is caught):
    routing with SLO scheduling, the host tier and preemption at batch
    size 1 (three requests, two preemptions: a preempted request resumes
    on its parked recurrent state rows) teacher-forced by the same
-   requests served uninterrupted, its counters against the CPU's; the
+   requests served uninterrupted, its counters against the CPU's; and
+   the first 2 requests of (d) and of xlstm's (a) (on pages: the mesh
+   needs them) served plain and through ``BatchedServer(mesh=
+   make_serving_mesh(1))`` on a one-rank NCCL group (the mixers whole,
+   their gathers and reductions on the group): tokens and every host
+   counter bit for bit, every parameter a view, B1 against its plain
+   version on a captured decode step of jamba's mesh run; the
    phase time against its 60 s budget; then, those models freed,
    ``[frontend]``: hubert-xlarge at its published widths and depth (48
    layers, bidirectional, GELU FFN) on stub frame embeddings at 4 x 1024
@@ -118,7 +124,8 @@ Phases, each of which raises on failure (no phase is caught):
    teacher-forced by it (gated), int4 kernel; B1 against its plain
    version on a captured decode step and a bucketed S = 32 prefill
    forward of each kernel run, counters against qwen2-vl-2b-smoke's on
-   the CPU; and its embeds path: ``prefill`` of stub patch embeddings
+   the CPU, the first 2 requests of the kernel run on a one-rank NCCL
+   mesh as ``[ssm]``'s; and its embeds path: ``prefill`` of stub patch embeddings
    with M-RoPE ids (a 16 x 16 grid, then 32 text positions) and 8
    embed-decode steps, each against a forward over the extended sequence
    within the reference's decode-consistency bound; the phase time
@@ -150,8 +157,10 @@ Phases, each of which raises on failure (no phase is caught):
    frontend and namespaced replica counters equal to the same bench's
    on the smoke config at the card's KV geometry on the CPU (a child
    process); (c) ``BatchedServer(mesh=make_serving_mesh(1))`` on a
-   one-rank NCCL group against the plain server, page scales on: the
-   same tokens bit for bit and the same counters, B1 against its plain
+   one-rank NCCL group against the plain server, page scales, the host
+   tier and the quant tier on (a 10-page pool: it requantizes): the
+   same tokens bit for bit and the same counters, the quant tier's
+   included, and the same peak tier bytes, B1 against its plain
    version on one captured decode step, every layer; the phase time
    against its 45 s budget; then, that model freed, ``[train]``:
    (a) deepseek-7b-smoke trained 5 steps on the card against the same
@@ -2478,100 +2487,131 @@ def moe_arch_runs(arch, seed: int, runs: dict, caps: dict) -> int:
     return launches
 
 
-def moe_mesh_check(cfg, model, seed: int, runs: dict) -> tuple:
-    """[moe] ``MOE_MESH`` on a mesh: the first ``MOE_MESH_REQUESTS``
-    requests of run ``MOE_MESH`` (scatter, int8 pages, B1, teacher-forced
-    as the plain run was) served by the plain server and then by
-    ``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL group,
-    on the same model (its experts split E / 1 over "model", each MoE
-    layer's partial output all-reduced): the mesh server's tokens and host
-    counters bit for bit the plain server's, every parameter of its model
-    a view of the plain model's (no second copy of the experts), B1
-    against its plain version on one captured decode step, every layer.
-    A prefix, not the whole run: the capacity of the scatter dispatch is
-    that of the batch, so the check needs its own plain run, and two
-    short runs cost less than one long one. Returns (B1 launches,
-    record)."""
+def host_counters(srv) -> dict:
+    """Every counter of a server's registry but the timers."""
+    return {k: v for k, v in srv.metrics.snapshot()["counters"].items()
+            if not k.endswith("_s")}
+
+
+def mesh_arm(tag: str, what: str, cfg, model, *, seed: int, trace,
+             impl: str, forced=None, decode_at: int = 6,
+             **serve_kw) -> tuple:
+    """``what`` (a served prefix of one of the phase's runs: ``trace``)
+    on a mesh: served by the plain server, then by
+    ``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL group
+    opened for the arm (its start and its first collective, NCCL's
+    one-time cost, untimed before the run), on the same model and
+    options, teacher-forced alike: the mesh server's tokens and every
+    host counter bit for bit the plain server's, every parameter of its
+    model a view of the plain model's (no second copy of the weights),
+    and, on the kernel route, B1 against its plain version on one
+    captured decode step of the mesh run, every attention layer. A
+    prefix, not the whole run: two short runs cost less than one long
+    one. Returns (B1 launches over both runs, record)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels.paged_kv_attention import \
         paged_kv_attention_chunk
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import attention
-    arch, over, kw, impl, by = MOE_RUNS[MOE_MESH]
-    rcfg = dataclasses.replace(cfg, **over)
-    forced = {r.rid: r.out for r in runs[by][0]} if by else None
-
-    def prefix(c, sd):
-        return moe_trace(MOE_MESH, sd)[:MOE_MESH_REQUESTS]
-
+    n_attn = sum(blk.sig[0] == "attn" for blk in model.layers)
     keep = {}
     t0 = time.perf_counter()
     paged_kv_attention_chunk.launches = 0
-    want, wst, _ = serve_once(rcfg, model, attn_impl=impl, seed=seed,
-                              trace=prefix, forced=forced, keep=keep,
-                              **MOE_SERVE[arch], **kw)
+    want, wst, _ = serve_once(cfg, model, attn_impl=impl, seed=seed,
+                              trace=trace, forced=forced, keep=keep,
+                              **serve_kw)
     n = paged_kv_attention_chunk.launches
-    want_counters = moe_counters(keep["srv"])
+    want_counters = host_counters(keep["srv"])
     keep.clear()
     t_plain = time.perf_counter() - t0
-    cap = B1Capture(attention.paged_kv_attention_decode,
-                    at=MOE_MESH_DECODE_AT * cfg.num_layers,
-                    layers=cfg.num_layers)
+    cap = None
+    if impl == "kernel" and n_attn:
+        cap = B1Capture(attention.paged_kv_attention_decode,
+                        at=decode_at * n_attn, layers=n_attn)
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     mesh = make_serving_mesh(1, device="cuda")
-    t_group = time.perf_counter() - t0
-    paged_kv_attention_chunk.launches = 0
-    attention.paged_kv_attention_decode = cap
+    backend = dist.get_backend()
     try:
-        backend = dist.get_backend()
-        reqs, st, _ = serve_once(
-            rcfg, model, attn_impl=impl, seed=seed, trace=prefix,
-            forced=forced, keep=keep, mesh=mesh, **MOE_SERVE[arch], **kw)
+        first = torch.ones(1, device="cuda")
+        dist.all_reduce(first)
+        torch.cuda.synchronize()
+        t_group = time.perf_counter() - t0
+        paged_kv_attention_chunk.launches = 0
+        if cap is not None:
+            attention.paged_kv_attention_decode = cap
+        t0 = time.perf_counter()
+        reqs, st, _ = serve_once(cfg, model, attn_impl=impl, seed=seed,
+                                 trace=trace, forced=forced, keep=keep,
+                                 mesh=mesh, **serve_kw)
+        t_mesh = time.perf_counter() - t0
     finally:
-        attention.paged_kv_attention_decode = cap.fn
+        if cap is not None:
+            attention.paged_kv_attention_decode = cap.fn
         dist.destroy_process_group()
     n += paged_kv_attention_chunk.launches
-    t_mesh = time.perf_counter() - t0
     srv = keep["srv"]
     plain = dict(model.named_parameters())
     views = all(p.data_ptr() == plain[name].data_ptr()
                 for name, p in srv.model.named_parameters())
-    experts = sum(p.numel() * p.element_size()
-                  for name, p in srv.model.named_parameters()
-                  if ".mlp.w_" in name and p.dim() == 3) / 2 ** 30
+    weights = sum(p.numel() * p.element_size()
+                  for p in srv.model.parameters()) / 2 ** 30
     same = [list(r.out) for r in reqs] == [list(r.out) for r in want]
-    counters = moe_counters(srv)
+    counters = host_counters(srv)
     del srv, keep
-    b1 = check_captured_b1(cap.saved, f"({MOE_MESH}) on a mesh, "
-                           f"make_serving_mesh(1) on {backend}, G="
-                           f"{cfg.num_heads // cfg.num_kv_heads}",
-                           tag="[moe]")
-    print(f"[moe] ({MOE_MESH}) on a mesh: its first {len(reqs)} requests "
-          f"served plain ({t_plain:.1f} s) and by BatchedServer(mesh="
+    b1 = None
+    if cap is not None:
+        b1 = check_captured_b1(cap.saved, f"{what} on a mesh, "
+                               f"make_serving_mesh(1) on {backend}, G="
+                               f"{cfg.num_heads // cfg.num_kv_heads}",
+                               tag=tag)
+    print(f"{tag} {what} on a mesh: its first {len(reqs)} requests served "
+          f"plain ({t_plain:.1f} s) and by BatchedServer(mesh="
           f"make_serving_mesh(1)) on a one-rank {backend} group "
-          f"({t_mesh:.1f} s, the group's start {t_group:.1f} s of it), "
-          f"{rcfg.moe_mode} kv_bits={kw['kv_bits']} {impl}: tokens equal "
-          f"{same}, counters equal {counters == want_counters} "
-          f"({counters}); every parameter a view of the plain model's "
-          f"{views} ({experts:.2f} GiB of experts not copied; "
+          f"({t_mesh:.1f} s; the group's start and first collective "
+          f"{t_group:.2f} s before it, untimed), {impl} kv_bits="
+          f"{serve_kw.get('kv_bits', 0)} page size "
+          f"{serve_kw.get('page_size', PS)}: tokens equal {same}, "
+          f"{len(counters)} host counters equal "
+          f"{counters == want_counters}; every parameter a view of the "
+          f"plain model's {views} ({weights:.2f} GiB not copied; "
           f"{held / 2 ** 30:.2f} GiB held before the server); {n} B1 "
           f"launches over both; decode step {st['decode_step_ms']:.2f} ms "
           f"against the plain server's {wst['decode_step_ms']:.2f}",
           flush=True)
     if not (same and views and counters == want_counters):
-        raise AssertionError(f"[moe] ({MOE_MESH}) on a mesh: the world-size-1 "
+        diff = {k: (counters.get(k), want_counters.get(k))
+                for k in set(counters) | set(want_counters)
+                if counters.get(k) != want_counters.get(k)}
+        raise AssertionError(f"{tag} {what} on a mesh: the world-size-1 "
                              f"mesh server is not the plain server bit for "
-                             f"bit")
-    return n, {"label": f"{MOE_MESH} mesh", "arch": arch, "phase": "moe",
-               "requests": len(reqs), "backend": backend,
-               "b1_launches": n, "b1_vs_plain": b1, "views": views,
-               "experts_gib": experts, "counters": counters,
-               "decode_step_ms": st["decode_step_ms"],
+                             f"bit (tokens {same}, views {views}, counters "
+                             f"that differ {diff})")
+    return n, {"label": f"{what} mesh", "arch": cfg.name,
+               "phase": tag.strip("[]"), "requests": len(reqs),
+               "backend": backend, "b1_launches": n, "b1_vs_plain": b1,
+               "views": views, "weights_gib": weights,
+               "counters": counters, "plain_s": t_plain, "mesh_s": t_mesh,
+               "group_s": t_group, "decode_step_ms": st["decode_step_ms"],
                "plain_decode_step_ms": wst["decode_step_ms"],
                "tok_per_s": st["tok_per_s"],
                "plain_tok_per_s": wst["tok_per_s"]}
+
+
+def moe_mesh_check(cfg, model, seed: int, runs: dict) -> tuple:
+    """[moe] ``MOE_MESH`` on a mesh (:func:`mesh_arm`): the first
+    ``MOE_MESH_REQUESTS`` requests of run ``MOE_MESH`` (scatter, int8
+    pages, B1, teacher-forced as the plain run was), its experts split
+    E / 1 over "model", each MoE layer's partial output all-reduced.
+    Returns (B1 launches, record)."""
+    arch, over, kw, impl, by = MOE_RUNS[MOE_MESH]
+    forced = {r.rid: r.out for r in runs[by][0]} if by else None
+    return mesh_arm(
+        "[moe]", f"({MOE_MESH})", dataclasses.replace(cfg, **over), model,
+        seed=seed, impl=impl, forced=forced, decode_at=MOE_MESH_DECODE_AT,
+        trace=lambda c, sd: moe_trace(MOE_MESH, sd)[:MOE_MESH_REQUESTS],
+        **MOE_SERVE[arch], **kw)
 
 
 def moe_phase(seed: int):
@@ -2697,6 +2737,11 @@ SSM_BUDGET_S = 60
 SSM_PREEMPT_SERVE = dict(batch_size=1, max_len=96, page_size=PS, kv_bits=8)
 SSM_PREEMPT_POOL = dict(num_pages=4, sched="slo", kv_offload="host")
 SSM_PREEMPT_PLAN = ((8, 0, 0), (6, 5, 3), (4, 9, 6))
+# the mesh arms (:func:`mesh_arm`): the first requests of a run, served
+# plain and on a one-rank NCCL mesh; xlstm's (a) serves dense states and
+# the mesh needs pages, so both servers of its arm take page size PS
+SSM_MESH = {XLSTM: ("a", dict(page_size=PS)), JAMBA: ("d", {})}
+SSM_MESH_REQUESTS = 2
 
 
 def ssm_trace(arch, seed: int, vocab=None):
@@ -2919,6 +2964,14 @@ def ssm_arch_runs(arch, seed: int, runs: dict, caps: dict,
                  f"{st['top2_tied_steps']} steps with the top two tied)"
                  if by else ""), flush=True)
     alone[arch] = ssm_alone_check(cfg, model, seed, *SSM_ALONE[arch])
+    label, over = SSM_MESH[arch]
+    _, kw, impl, by = SSM_RUNS[label]
+    n, caps[f"{label} mesh"] = mesh_arm(
+        "[ssm]", f"({label})", cfg, model, seed=seed, impl=impl,
+        forced={r.rid: r.out for r in runs[by][0]} if by else None,
+        trace=lambda c, sd: ssm_trace(arch, sd)[:SSM_MESH_REQUESTS],
+        **dict(SSM_SERVE[arch], **over), **kw)
+    launches += n
     if arch == JAMBA:
         launches += ssm_preempt_check(cfg, model, seed, runs)
     return launches
@@ -2998,9 +3051,10 @@ def ssm_phase(seed: int):
     (e), three requests served alone equal (by the gate) their batched
     tokens, (f) (:func:`ssm_preempt_check`: C4 on the card) preempts at
     least twice and passes the gate against the same requests served
-    uninterrupted, and every run's host counters equal the smoke configs'
-    on the CPU for the same trace (a child process). Returns (B1
-    launches, run records)."""
+    uninterrupted, every run's host counters equal the smoke configs'
+    on the CPU for the same trace (a child process), and the mesh arms
+    (``SSM_MESH``, :func:`mesh_arm`) are their plain servers bit for bit.
+    Returns (B1 launches, run records)."""
     import concurrent.futures
     import gc
     import multiprocessing
@@ -3084,6 +3138,7 @@ VLM_RUNS = {
 VLM_GATED = {"b2": "b1"}              # teacher-forced gate
 VLM_OBSERVED = {"b3": "b1"}           # teacher-forced, no limit
 VLM_GRID, VLM_TEXT, VLM_DECODE = (1, 16, 16), 32, 8   # (c)
+VLM_MESH, VLM_MESH_REQUESTS = "b2", 2      # (b2)'s prefix on a mesh
 DECODE_RTOL, DECODE_ATOL = 0.12, 0.08  # tests/test_models.py's bound
 BF16_FLOP_PER_S = 989e12               # H100 SXM dense bf16 (data sheet)
 FRONTEND_BUDGET_S = 45
@@ -3327,7 +3382,13 @@ def vlm_serve_runs(cfg, model, seed: int, runs: dict, caps: dict) -> int:
                  f"most {st['max_abs_logit_diff']:.4g} (median "
                  f"{st['median_max_abs_logit_diff']:.4g})" if by else ""),
               flush=True)
-    return launches
+    kw, impl, by = VLM_RUNS[VLM_MESH]
+    n, caps[f"{VLM_MESH} mesh"] = mesh_arm(
+        "[frontend]", f"({VLM_MESH})", cfg, model, seed=seed, impl=impl,
+        forced={r.rid: r.out for r in runs[by][0]} if by else None,
+        trace=lambda c, sd: vlm_trace(sd)[:VLM_MESH_REQUESTS],
+        **VLM_SERVE, **kw)
+    return launches + n
 
 
 def vlm_embeds_check(cfg, model, seed: int, *, gated: bool) -> dict:
@@ -3427,8 +3488,9 @@ def frontend_phase(seed: int):
     and (b3) at G = 6, every (b) run's host counters equal qwen2-vl-2b-
     smoke's on the CPU for the same trace (a child process), (a) passes
     its checks and (c) holds the reference's decode bound on the model
-    cast to float32 ((c) in bf16 is printed as observed). Returns (B1
-    launches, run records)."""
+    cast to float32 ((c) in bf16 is printed as observed), and (b2)'s
+    first requests on a one-rank NCCL mesh (:func:`mesh_arm`) are its
+    plain server's bit for bit. Returns (B1 launches, run records)."""
     import concurrent.futures
     import gc
     import multiprocessing
@@ -3740,10 +3802,14 @@ REPLICAS_ARMS = ("1 replica", "2 replicas", "1 replica, teacher-forced",
                  "2 replicas, teacher-forced")
 # (c)'s server: run_replicas's settings through B1, with page scales (their
 # absmax goes through the mesh's max all-reduce)
-REPLICAS_MESH = dict(batch_size=3, max_len=64, page_size=8, num_pages=14,
+REPLICAS_MESH = dict(batch_size=3, max_len=64, page_size=8, num_pages=10,
                      kv_bits=8, kv_scale="page", prefix_cache="on",
                      kv_offload="host", sched="slo", preempt=False,
-                     metrics="on", pager_async="on", attn_impl="kernel")
+                     metrics="on", pager_async="on", attn_impl="kernel",
+                     kv_adapt="on")
+# and, on its 9 usable pages, the quant tier: cold cached pages narrowed
+# int8 -> int4 (10 requantizations, 1 restore on the CPU at the card's KV
+# geometry) beside the host tier's demotions
 
 
 class FrontendMeter:
@@ -3829,9 +3895,11 @@ def replicas_phase(seed: int):
         (the frontend's and each namespaced replica's) equal to the CPU
         rehearsal's (:func:`cpu_replica_counters`, a child process);
     (c) ``BatchedServer(mesh=make_serving_mesh(1))`` on a one-rank NCCL
-        group against the plain server (page scales on): the same tokens
-        bit for bit and the same host counters; B1 against its plain
-        version on one captured decode step of the mesh run, every layer.
+        group against the plain server (page scales, the host tier and
+        the quant tier on): the same tokens bit for bit and the same host
+        counters, the quant tier's among them (it must requantize), and
+        the same peak tier bytes; B1 against its plain version on one
+        captured decode step of the mesh run, every layer.
 
     Returns (B1 launches, run records)."""
     import concurrent.futures
@@ -3903,10 +3971,9 @@ def replicas_phase(seed: int):
             attention.paged_kv_attention_decode = cap.fn
             dist.destroy_process_group()
         launches = paged_kv_attention_chunk.launches
-        c_plain = {k: v for k, v in plain.metrics.snapshot()[
-            "counters"].items() if not k.endswith("_s")}
-        c_mesh = {k: v for k, v in srv.metrics.snapshot()[
-            "counters"].items() if not k.endswith("_s")}
+        c_plain, c_mesh = host_counters(plain), host_counters(srv)
+        tier_bytes = {"plain": plain.quant_tier.peak_bytes,
+                      "mesh": srv.quant_tier.peak_bytes}
         del model, plain, srv
         gc.collect()
         torch.cuda.empty_cache()
@@ -3972,6 +4039,11 @@ def replicas_phase(seed: int):
     if c_mesh != c_plain:
         raise AssertionError(f"[replicas] (c) counters {c_mesh} != "
                              f"{c_plain}")
+    tier = {k: c_mesh[f"prefix.{k}"] for k in ("requants", "deepens",
+                                                "tier_promotions")}
+    if not tier["requants"] or tier_bytes["mesh"] != tier_bytes["plain"]:
+        raise AssertionError(f"[replicas] (c) the quant tier: {tier}, peak "
+                             f"bytes {tier_bytes}")
     b1 = check_captured_b1(cap.saved, f"(c) mesh=make_serving_mesh(1) on "
                            f"{backend}, kv_bits=8 page scales G="
                            f"{cfg.num_heads // cfg.num_kv_heads}",
@@ -3979,6 +4051,8 @@ def replicas_phase(seed: int):
     print(f"[replicas] (c) BatchedServer(mesh=make_serving_mesh(1)) on a "
           f"one-rank {backend} group: {len(got)} requests, tokens equal the "
           f"plain server's bit for bit, {len(c_mesh)} counters equal; "
+          f"the quant tier {tier}, its peak bytes {tier_bytes['mesh']} "
+          f"(the whole pool's) as the plain server's; "
           f"{launches - launches_b} B1 launches", flush=True)
     wall = time.perf_counter() - t_phase
     print(f"[replicas] main path: {launches} B1 launches; phase "
@@ -3987,7 +4061,8 @@ def replicas_phase(seed: int):
           flush=True)
     record = {"phase": "replicas", "layers": cfg.num_layers, "results": res,
               "arms": arms, "cpu_counters": cpu, "mesh_backend": backend,
-              "mesh_counters": c_mesh, "b1_launches": launches,
+              "mesh_counters": c_mesh, "mesh_tier": tier,
+              "mesh_tier_peak_bytes": tier_bytes, "b1_launches": launches,
               "b1_vs_plain": b1, "phase_s": wall,
               "budget_s": REPLICAS_BUDGET_S}
     return launches, [record]

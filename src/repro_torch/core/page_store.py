@@ -715,11 +715,16 @@ def _dequant_plane(q: np.ndarray, scale: np.ndarray, container: str,
     return _float32(q) * _bcast_scale(scale)
 
 
-def _quant_plane(vals: np.ndarray, container: str):
+def _quant_plane(vals: np.ndarray, container: str, amax_reduce=None):
     """Freshly calibrated per-(layer-)page max-abs quantization, float32
-    numpy with ``np.round`` (half to even), as the reference computes it."""
+    numpy with ``np.round`` (half to even), as the reference computes it.
+    ``amax_reduce`` maxes the absmax over every tensor-parallel rank's KV
+    heads (``parallel.hints.group_max``), so each rank scales its shard
+    as the reference scales the whole page."""
     qmax = _QMAX[container]
     amax = np.max(np.abs(vals), axis=(-3, -2, -1))
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scale = np.maximum(amax / qmax, _SCALE_EPS).astype(np.float32)
     grid = np.clip(np.round(vals / _bcast_scale(scale)), -qmax, qmax)
     if container == "int4":
@@ -730,16 +735,16 @@ def _quant_plane(vals: np.ndarray, container: str):
 
 def requantize_blob(blob: PageBlob, *, steps: Optional[int] = 1,
                     floor_bits: int = 4,
-                    valid_len: Optional[int] = None
+                    valid_len: Optional[int] = None, amax_reduce=None
                     ) -> Tuple[PageBlob, int]:
     """Repack every record of one page toward a narrower container:
     ``steps`` rungs down fp -> int8 -> int4 (``None`` = to its floor) with
     a freshly calibrated per-(layer-)page max-abs scale. Any pool reads the
     result through its per-page scales (a float pool legally holds an int8
     grid under a non-unit scale). ``valid_len`` zeroes token slots past a
-    partial page's written count before calibration. Returns
-    ``(new_blob, records_narrowed)``; records at their floor pass
-    through."""
+    partial page's written count before calibration; ``amax_reduce`` as
+    :func:`_quant_plane`. Returns ``(new_blob, records_narrowed)``;
+    records at their floor pass through."""
     out: List[Dict[str, np.ndarray]] = []
     narrowed = 0
     for rec in blob.arrays:
@@ -760,8 +765,8 @@ def requantize_blob(blob: PageBlob, *, steps: Optional[int] = 1,
         if valid_len is not None and valid_len < k.shape[-3]:
             k[..., valid_len:, :, :] = 0.0
             v[..., valid_len:, :, :] = 0.0
-        kq, ks = _quant_plane(k, tgt)
-        vq, vs = _quant_plane(v, tgt)
+        kq, ks = _quant_plane(k, tgt, amax_reduce)
+        vq, vs = _quant_plane(v, tgt, amax_reduce)
         out.append({"k": kq, "v": vq, "ks": ks, "vs": vs})
         narrowed += 1
     return PageBlob(out), narrowed
@@ -769,13 +774,14 @@ def requantize_blob(blob: PageBlob, *, steps: Optional[int] = 1,
 
 def requantize_page(caches, page: int, *, steps: Optional[int] = 1,
                     floor_bits: int = 4, valid_len: Optional[int] = None,
-                    scan: str = "group") -> Tuple[PageBlob, int]:
+                    scan: str = "group", amax_reduce=None
+                    ) -> Tuple[PageBlob, int]:
     """Extract and requantize one logical page (:func:`requantize_blob`).
     The narrowed blob does not go back into its source page: callers park
     it in a :class:`QuantTierStore` or widen and inject it later."""
     return requantize_blob(extract_page(caches, page, scan=scan),
                            steps=steps, floor_bits=floor_bits,
-                           valid_len=valid_len)
+                           valid_len=valid_len, amax_reduce=amax_reduce)
 
 
 def _to_pool_dtype(a: np.ndarray, dtype: torch.dtype) -> np.ndarray:
@@ -842,12 +848,20 @@ class QuantTierStore:
     The host time of each requantize, deepen and restore goes to the
     ``tier.requantize_s`` / ``tier.deepen_s`` / ``tier.restore_s``
     histograms (on a card it includes the page's device <-> host
-    copies)."""
+    copies).
+
+    Under a tensor-parallel ``plan`` (``parallel.sharding.MeshPlan``) each
+    rank's pools hold its shard of the KV heads: a fresh scale is the
+    max-abs over every rank's heads (``parallel.hints.group_max``), so the
+    ranks requantize alike, and every byte figure (the quotes, ``nbytes``,
+    the ``tier.bytes`` gauge) is the whole pool's, as the reference's:
+    a sharded record's k / v bytes times the ranks, its replicated
+    scales once."""
 
     def __init__(self, get_caches, *, pages: int,
                  floor_bits: int = 4,
                  metrics: Optional[MetricsRegistry] = None,
-                 scan: str = "group"):
+                 scan: str = "group", plan=None):
         if pages < 1:
             raise ValueError("quant tier needs >= 1 page of capacity")
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -861,17 +875,25 @@ class QuantTierStore:
         self._get = get_caches
         self.floor_bits = floor_bits
         self.scan = scan
-        step_blob, can_narrow = requantize_page(get_caches(), 0, steps=1,
-                                                floor_bits=floor_bits,
-                                                scan=scan)
-        floor_blob, _ = requantize_page(get_caches(), 0, steps=None,
-                                        floor_bits=floor_bits, scan=scan)
+        self._reduce = None
+        # each record's k / v bytes over the whole pool: its shard times
+        # the ranks it is split over
+        self._shards = [1] * len(kv_pool_groups(get_caches(), scan))
+        if plan is not None:
+            from ..parallel.hints import group_max
+            self._reduce = lambda a: group_max(a, plan, self._device())
+            self._shards = [
+                plan.model_size
+                if getattr(pools[0]["k_pages"], "tp_dim", None) is not None
+                else 1 for pools, _ in kv_pool_groups(get_caches(), scan)]
+        step_blob, can_narrow = self._requantize_page(0, steps=1)
+        floor_blob, _ = self._requantize_page(0, steps=None)
         if not can_narrow:
             raise ValueError(
                 "quant tier has nothing to narrow: every pool is already "
                 "at its floor container")
-        self.page_bytes_step = step_blob.nbytes
-        self.page_bytes_floor = floor_blob.nbytes
+        self.page_bytes_step = self._nbytes(step_blob)
+        self.page_bytes_floor = self._nbytes(floor_blob)
         self.max_bytes = pages * self.page_bytes_floor
         self._recs: Dict[int, List[Dict[str, torch.Tensor]]] = {}
         self._nb: Dict[int, int] = {}
@@ -888,6 +910,17 @@ class QuantTierStore:
     def num_pages(self) -> int:
         return len(self._recs)
 
+    def _nbytes(self, blob: PageBlob) -> int:
+        """``blob``'s bytes over the whole pool (its own without a plan)."""
+        return sum(int(rec["k"].nbytes + rec["v"].nbytes) * n
+                   + int(rec["ks"].nbytes + rec["vs"].nbytes)
+                   for rec, n in zip(blob.arrays, self._shards))
+
+    def _requantize_page(self, page: int, **kw) -> Tuple[PageBlob, int]:
+        return requantize_page(self._get(), page,
+                               floor_bits=self.floor_bits, scan=self.scan,
+                               amax_reduce=self._reduce, **kw)
+
     def _device(self) -> torch.device:
         return kv_pool_groups(self._get())[0][0][0]["k_pages"].device
 
@@ -898,16 +931,14 @@ class QuantTierStore:
                    // max(self.page_bytes_step, 1))
 
     def has_room(self, blob: PageBlob) -> bool:
-        return self.nbytes + blob.nbytes <= self.max_bytes
+        return self.nbytes + self._nbytes(blob) <= self.max_bytes
 
     def requantize(self, page: int,
                    valid_len: Optional[int] = None) -> Optional[PageBlob]:
         """One-step-narrower blob of device ``page`` (None: every record is
         already at its floor)."""
         t0 = time.perf_counter()
-        blob, n = requantize_page(self._get(), page, steps=1,
-                                  floor_bits=self.floor_bits,
-                                  valid_len=valid_len, scan=self.scan)
+        blob, n = self._requantize_page(page, steps=1, valid_len=valid_len)
         self._h_requantize.observe(time.perf_counter() - t0)
         return blob if n else None
 
@@ -923,8 +954,8 @@ class QuantTierStore:
         h = self._next
         self._next += 1
         self._recs[h] = self._park(blob)     # the narrowed bytes on the card
-        self._nb[h] = blob.nbytes
-        self.nbytes += blob.nbytes
+        self._nb[h] = self._nbytes(blob)
+        self.nbytes += self._nb[h]
         self.puts += 1
         self.peak_pages = max(self.peak_pages, self.num_pages)
         self.peak_bytes = max(self.peak_bytes, self.nbytes)
@@ -951,14 +982,16 @@ class QuantTierStore:
             before = self._nb[handle]
             blob, n = requantize_blob(self._host_blob(handle), steps=1,
                                       floor_bits=self.floor_bits,
-                                      valid_len=valid_len)
-            if n == 0 or blob.nbytes >= before:
+                                      valid_len=valid_len,
+                                      amax_reduce=self._reduce)
+            after = self._nbytes(blob)
+            if n == 0 or after >= before:
                 return 0
             self._recs[handle] = self._park(blob)
-            self._nb[handle] = blob.nbytes
-            self.nbytes -= before - blob.nbytes
+            self._nb[handle] = after
+            self.nbytes -= before - after
             self.deepens += 1
-            return before - blob.nbytes
+            return before - after
         finally:
             self._h_deepen.observe(time.perf_counter() - t0)
 
@@ -990,8 +1023,9 @@ class QuantTierStore:
     def bytes_by_container(self) -> Dict[str, int]:
         out: Dict[str, int] = {}
         for recs in self._recs.values():
-            for cont, b in _records_bytes_by_container(recs).items():
-                out[cont] = out.get(cont, 0) + b
+            for rec, n in zip(recs, self._shards):
+                for cont, b in _records_bytes_by_container([rec]).items():
+                    out[cont] = out.get(cont, 0) + b * n
         return out
 
 

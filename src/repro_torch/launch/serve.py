@@ -96,10 +96,17 @@ write harmlessly (their own dense row, or the scratch page).
   scale's absmax is maxed over every rank (``parallel.hints``). A MoE
   layer's experts are split E / tp over "model": every rank routes every
   token with the global capacity, runs its own experts' rows and the
-  partial outputs are summed (``models.moe``). Dense and MoE GQA
-  decoders on paged pools only; a head count the axis does not divide,
-  another family and the quant tier raise ``NotImplementedError``
-  naming ROADMAP queue A item 13 part 4b.
+  partial outputs are summed (``models.moe``); where tp does not divide
+  the experts the stacks stay whole and only the shared expert's
+  row-parallel product is summed. Where tp does not divide the KV heads
+  the pool is replicated and every rank attends over every head
+  (``models.attention.gqa_apply``). A recurrent mixer (Jamba's Mamba,
+  xLSTM's mLSTM and sLSTM) runs whole on every rank on whole
+  activations and replicated states, only its output projection
+  row-parallel (``models.ssm``). The quant tier requantizes a page with
+  the max-abs over every rank's heads and quotes the whole pool's bytes
+  (``core.page_store.QuantTierStore``). Every family serves on paged
+  pools; an MLA model refuses pages (the reference's words).
 
   python -m repro_torch.launch.serve --arch qwen2-72b --smoke --device cpu \\
       --requests 8 --batch-size 4 --max-new 8 --page-size 16 --kv-bits 8
@@ -152,7 +159,7 @@ from ..core.prefix_cache import PrefixCache
 from ..models.attention import ATTN_IMPLS
 from ..models.common import frozen
 from ..models.transformer import Transformer, init_cache, init_model
-from ..parallel.hints import activation_hints, first_rank_value
+from ..parallel.hints import activation_hints, first_rank_value, kv_heads
 from ..parallel.sharding import (local_shard, paged_pool_specs, param_specs,
                                  plan_for_mesh)
 from ..quant.apply import (build_model_quant, kv_profile_key,
@@ -521,13 +528,12 @@ class BatchedServer:
         # ranks (see the module docstring)
         self.mesh = mesh
         self.mesh_plan = None
-        cache_cfg = cfg
         if mesh is not None:
             if not self.paged:
                 raise ValueError("mesh-sharded serving shards the paged KV "
                                  "pool; it needs --page-size > 0")
             self.mesh_plan = plan_for_mesh(mesh)
-            cache_cfg = self._mesh_checks(cfg, kv_adapt)
+            self._check_backend()
             self.model = shard_model(model, cfg, self.mesh_plan)
         self.decode = make_decode_step(cfg, quant=self.quant,
                                        attn_impl=attn_impl)
@@ -590,8 +596,9 @@ class BatchedServer:
                 # pool pressure requantizes, demotes or drops cold cached
                 # prefixes before an allocation fails
                 self.allocator.reclaim = self.prefix_cache.evict
-        self.caches = init_cache(cache_cfg, self.quant, spec, self.device,
-                                 batch=batch_size, max_len=max_len)
+        self.caches = init_cache(cfg, self.quant, spec, self.device,
+                                 batch=batch_size, max_len=max_len,
+                                 kv_heads=kv_heads(cfg, self.mesh_plan))
         if self.mesh_plan is not None:
             self._mark_pool_shards(cfg, spec, batch_size, max_len)
         # recurrent layers' per-slot states, each layer's initial row: a
@@ -608,7 +615,7 @@ class BatchedServer:
                 lambda: self.caches,
                 pages=adapt_pages or self.allocator.num_usable,
                 floor_bits=adapt_floor_bits, metrics=self.metrics,
-                scan=self.kv_scan)
+                scan=self.kv_scan, plan=self.mesh_plan)
             self.prefix_cache.tier = self.quant_tier
             self.allocator.requant_inventory = \
                 self.prefix_cache.requantizable_pages
@@ -646,34 +653,14 @@ class BatchedServer:
             reg("kv.tier_pages",
                 lambda: self.quant_tier.num_pages if self.quant_tier else 0)
 
-    def _mesh_checks(self, cfg, kv_adapt: str):
-        """The refusals of ``mesh=`` outside this slice; returns the
-        config of this rank's pools (its KV-head shard)."""
-        m = self.mesh_plan.model_size
-        if cfg.family not in ("dense", "moe") or cfg.attention_type != "gqa":
-            raise _not_ported(f"tensor-parallel serving of the "
-                              f"{cfg.family} family (mesh=)", "13 part 4b")
-        if cfg.num_heads % m or cfg.num_kv_heads % m:
-            raise _not_ported(
-                f"tensor-parallel serving with tp={m} not dividing "
-                f"{cfg.num_heads} heads and {cfg.num_kv_heads} KV heads "
-                f"(a replicated pool)", "13 part 4b")
-        if cfg.num_experts % m:
-            raise _not_ported(
-                f"tensor-parallel serving with tp={m} not dividing "
-                f"{cfg.num_experts} experts", "13 part 4b")
-        if kv_adapt == "on":
-            raise _not_ported("the quant tier (--kv-adapt on) under "
-                              "mesh=", "13 part 4b")
-        # NCCL for a card's tensors, gloo for the CPU's, never one for
-        # the other
+    def _check_backend(self):
+        """The mesh's collectives run on the server's device: NCCL for a
+        card's tensors, gloo for the CPU's, never one for the other."""
         want = "nccl" if self.device.type == "cuda" else "gloo"
         backend = dist.get_backend(self.mesh_plan.model_group())
         if backend != want:
             raise ValueError(f"a {self.device.type} server's mesh needs "
                              f"{want}; its model group runs {backend}")
-        return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                                   num_kv_heads=cfg.num_kv_heads // m)
 
     def _mark_pool_shards(self, cfg, spec, batch: int, max_len: int):
         """Check this rank's pools against the plan's layout of the whole
@@ -2003,7 +1990,9 @@ def main(argv=None):
                          "the cards), a (world // tp, tp) data x model mesh "
                          "(launch.mesh.make_serving_mesh), heads, d_ff, "
                          "vocab and the paged pool's KV heads sharded over "
-                         "'model'; needs --page-size > 0; 1 = one device")
+                         "'model' (a pool whose KV heads tp does not divide "
+                         "replicated), every family; needs --page-size > 0; "
+                         "1 = one device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain PyTorch path")
@@ -2011,8 +2000,19 @@ def main(argv=None):
     if args.trace_out or args.metrics_out:
         args.metrics = "on"
     if args.tp > 1:
+        _config(args)       # the reference's refusals before any rank starts
         return _spawn_tp(args)
     return _serve(args)
+
+
+def _config(args):
+    """The CLI's config; an encoder exits in the reference's words."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only archs have no decode path")
+    return cfg
 
 
 def _spawn_tp(args):
@@ -2056,11 +2056,7 @@ def _tp_rank(rank: int, args):
 def _serve(args, mesh=None, verbose: bool = True):
     """The CLI's run on this process (one rank of ``mesh`` when given)."""
     say = print if verbose else (lambda *a, **k: None)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.num_layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
-    if cfg.family == "encoder":
-        raise SystemExit("encoder-only archs have no decode path")
+    cfg = _config(args)
     kv_profile = None
     if args.kv_profile:
         with open(args.kv_profile) as f:

@@ -52,7 +52,7 @@ from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..optim.compress import (CompressionConfig, compress_gradients,
                               error_feedback_init)
 from ..parallel.hints import (ShardReductions, all_reduce_over, gather_param,
-                              train_step_mark)
+                              kv_heads, train_step_mark)
 from ..parallel.sharding import (_axes, gather_whole, local_shard,
                                  shard_batch, state_specs)
 
@@ -419,7 +419,10 @@ def make_prefill_step(cfg, *, max_len: int, quant=None):
 
     The whole-prompt prefill against fresh DENSE ``max_len`` caches; the
     server prefills incrementally into its caches through
-    :func:`make_chunk_prefill_step` (paged) or decode steps (dense)."""
+    :func:`make_chunk_prefill_step` (paged) or decode steps (dense). Under
+    a tensor-parallel plan (``parallel.hints.activation_hints``) the
+    caches hold this rank's KV heads (``parallel.hints.kv_heads``), as
+    the server's pools do."""
 
     @torch.no_grad()
     def step(model, tokens=None, **inputs):
@@ -429,7 +432,7 @@ def make_prefill_step(cfg, *, max_len: int, quant=None):
             return model.logits(x), None
         B = (tokens if tokens is not None else inputs["embeds"]).shape[0]
         caches = init_cache(cfg, quant, None, model.device, batch=B,
-                            max_len=max_len)
+                            max_len=max_len, kv_heads=kv_heads(cfg))
         x, caches, _ = forward_hidden(model, tokens, cfg, quant=quant,
                                       caches=caches, cache_pos=0, **inputs)
         return model.logits(x)[:, -1], caches

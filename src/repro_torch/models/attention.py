@@ -48,7 +48,8 @@ from ..core.paged_kv import (PagedKVLayout, init_paged_pool, paged_gather,
                              paged_update, per_row, pool_container)
 from ..kernels.paged_kv_attention import (paged_kv_attention_chunk,
                                           paged_kv_attention_decode)
-from ..parallel.hints import active_plan, constrain, model_shards, pool_max
+from ..parallel.hints import (constrain, gather_cols, model_shards,
+                              pool_max, replicated_heads, row_piece)
 from .common import apply_mrope, apply_rope, dense_init, frozen, rmsnorm
 
 NEG_INF = -1e30
@@ -146,11 +147,13 @@ def paged_cache_update(cache, k_new, v_new, page_table, pos,
                        quant: Optional[KVQuantSpec] = None, valid_len=None):
     """Append S new tokens through the page table (pos scalar or (B,));
     ``valid_len`` sends padded chunk tails to the scratch page. Updates
-    ``cache`` in place and returns it. Under a tensor-parallel plan the
-    cache holds this rank's KV heads, and a page scale's absmax is maxed
-    over every rank's (``parallel.hints.pool_max``)."""
+    ``cache`` in place and returns it. Under a tensor-parallel plan a
+    pool marked as a KV-head shard (``tp_dim``) holds this rank's KV
+    heads, and a page scale's absmax is maxed over every rank's
+    (``parallel.hints.pool_max``); a replicated pool holds every head and
+    computes its absmax whole, alike on every rank."""
     amax_reduce = None
-    if active_plan() is not None:
+    if getattr(cache["k_pages"], "tp_dim", None) is not None:
         amax_reduce = functools.partial(pool_max, pages=cache["k_pages"])
     return paged_update(
         cache, k_new, v_new, page_table, pos,
@@ -382,11 +385,22 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
     ``kv_valid_len`` (scalar or (B,)) marks only the first tokens of a
     padded prefill chunk as real (paged pools). Without a cache, the
     reference's ``use_chunked`` rule takes the online softmax once S^2
-    exceeds ``cfg.attn_chunk``^2, else :func:`attend_full`."""
+    exceeds ``cfg.attn_chunk``^2, else :func:`attend_full`.
+
+    Under a tensor-parallel plan a rank attends over its shard of the
+    heads; where the model axis does not divide the KV heads (the
+    reference replicates the pool) it gathers q, k and v whole (their
+    weights' column shards may cut a head), attends over every head at
+    the model's own group size, and hands ``wo`` its rows of the output
+    (``parallel.hints.row_piece``)."""
     B, S, _ = x.shape
-    # a tensor-parallel rank holds its shard of the heads (1 without a plan)
-    H = cfg.num_heads // model_shards(cfg.num_heads)
-    KV = cfg.num_kv_heads // model_shards(cfg.num_kv_heads)
+    whole = replicated_heads(cfg)
+    if whole:
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+    else:
+        # this rank's shard of the heads (all of them without a plan)
+        H = cfg.num_heads // model_shards(cfg.num_heads)
+        KV = cfg.num_kv_heads // model_shards(cfg.num_kv_heads)
     hd = cfg.head_dim
     q = x @ p.wq
     k = x @ p.wk
@@ -395,6 +409,9 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
         q = q + p.bq
         k = k + p.bk
         v = v + p.bv
+    if whole:
+        q, k, v = (gather_cols(t, w) for t, w in ((q, p.wq), (k, p.wk),
+                                                   (v, p.wv)))
     q, k = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd)
     if cfg.mrope and mrope_positions is not None:
         q = apply_mrope(q, mrope_positions, cfg.rope_theta)
@@ -403,8 +420,10 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     v = v.reshape(B, S, KV, hd)
-    q = constrain(q, "dp", None, "tp", None, full=(B, S, cfg.num_heads, hd))
-    k = constrain(k, "dp", None, "tp", None,
+    heads = None if whole else "tp"
+    q = constrain(q, "dp", None, heads, None,
+                  full=(B, S, cfg.num_heads, hd))
+    k = constrain(k, "dp", None, heads, None,
                   full=(B, S, cfg.num_kv_heads, hd))
     odt = torch.bfloat16 if cfg.attn_bf16 else torch.float32
     if cache is not None and "k_pages" in cache:
@@ -431,8 +450,10 @@ def gqa_apply(p: GQAttention, x, positions, *, cfg, cache=None,
     else:
         o = attend_full(q, k, v, positions,
                         torch.arange(S, device=x.device), causal=cfg.causal)
-    y = o.reshape(B, S, H * hd) @ p.wo
-    return y, cache
+    o = o.reshape(B, S, H * hd)
+    if whole:
+        o = row_piece(o, p.wo)
+    return o @ p.wo, cache
 
 
 # ---------------------------------------------------------------------------

@@ -308,7 +308,9 @@ def moe_apply(p: MoE, x: torch.Tensor, *, cfg, mode: Optional[str] = None):
     else:
         out = _routed_ffn(p, x2, idx2, w2, cfg, mode).reshape(B, S, D)
     if p.shared is not None and not fold:
-        out = out + swiglu_apply(p.shared, x)
+        # row-parallel under a plan whose model axis does not divide the
+        # experts (the stacks then stay whole on every rank)
+        out = out + reduce_rows(swiglu_apply(p.shared, x), p.shared.w_down)
     return out, aux
 
 

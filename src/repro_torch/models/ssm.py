@@ -24,6 +24,16 @@ Parameters live in small modules (:class:`Mamba`, :class:`MLSTM`,
 float32 leaves (decays, biases, norm scales, the sLSTM's recurrent
 weight, which it reads in float32) in float32. The reference's ``constrain``
 sharding hint is a no-op without a mesh and has no counterpart here.
+
+Under a tensor-parallel plan (``parallel.hints``) a mixer runs whole on
+every rank, on whole activations: the reference's column shards of
+``in_proj``, ``up_proj``, ``w_in`` and the mLSTM's ``wq``/``wk``/``wv``
+cut across fused outputs ([x, z, B, C, dt]; [x, z]; the i, f, z, o
+gates), not along heads, so their products are gathered whole; the
+conv, the sLSTM's ``r`` and every per-layer 1-D leaf are gathered whole;
+the recurrent states (replicated in the pool) stay whole; and the
+row-parallel output projection takes this rank's piece of the mixer's
+output, its partial product summed by the block (``reduce_rows``).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 from torch import nn
 
 from ..core.fixedpoint import format_params
+from ..parallel.hints import full, gather_cols, row_piece
 from .common import dense_init_, frozen, rmsnorm
 
 State = Dict[str, torch.Tensor]
@@ -188,14 +199,14 @@ def mamba_apply(p, u: torch.Tensor, *, cfg, state: Optional[State] = None,
     P = cfg.ssm_head_dim
     nh = di // P
     N = cfg.ssm_state_dim
-    proj = u @ p.in_proj.to(cd)
+    proj = gather_cols(u @ p.in_proj.to(cd), p.in_proj)
     x, z, Bm, Cm, dt = torch.split(proj, [di, di, N, N, nh], dim=-1)
-    x, new_conv = _causal_conv(x, p.conv_w, p.conv_b,
+    x, new_conv = _causal_conv(x, full(p.conv_w), full(p.conv_b),
                                None if state is None else state["conv"])
     x = _silu32(x)
     Bm, Cm = Bm.to(f32), Cm.to(f32)                    # (B, S, N)
-    dt = _softplus(dt.to(f32) + p.dt_bias)             # (B, S, nh)
-    A = -torch.exp(p.A_log)                            # (nh,)
+    dt = _softplus(dt.to(f32) + full(p.dt_bias))       # (B, S, nh)
+    A = -torch.exp(full(p.A_log))                      # (nh,)
     xh = x.reshape(B, S, nh, P)
     h = (state["ssm"].to(f32) if state is not None
          else u.new_zeros((B, nh, N, P), dtype=f32))
@@ -224,10 +235,11 @@ def mamba_apply(p, u: torch.Tensor, *, cfg, state: Optional[State] = None,
                               state_quant)
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, 1).reshape(B, S, nh, P)
-    y = y + xh * p.D_skip[None, None, :, None]
-    y = rmsnorm(p.norm, y.reshape(B, S, di).to(cd), cfg.norm_eps)
+    y = y + xh * full(p.D_skip)[None, None, :, None]
+    y = rmsnorm(full(p.norm), y.reshape(B, S, di).to(cd), cfg.norm_eps)
     y = y * _silu32(z).to(cd)
-    return y @ p.out_proj.to(cd), {"conv": new_conv, "ssm": h}
+    y = row_piece(y, p.out_proj) @ p.out_proj.to(cd)
+    return y, {"conv": new_conv, "ssm": h}
 
 
 def init_mamba_state(batch: int, cfg, dtype, device) -> State:
@@ -293,12 +305,12 @@ def mlstm_apply(p, u: torch.Tensor, *, cfg, state: Optional[State] = None,
     di = cfg.ssm_expand * D
     nh = cfg.num_heads
     hd = di // nh
-    x, z = torch.chunk(u @ p.up_proj.to(cd), 2, dim=-1)
-    q = (x @ p.wq.to(cd)).reshape(B, S, nh, hd)
-    k = (x @ p.wk.to(cd)).reshape(B, S, nh, hd)
-    v = (x @ p.wv.to(cd)).reshape(B, S, nh, hd)
+    x, z = torch.chunk(gather_cols(u @ p.up_proj.to(cd), p.up_proj), 2,
+                       dim=-1)
+    q, k, v = (gather_cols(x @ w.to(cd), w).reshape(B, S, nh, hd)
+               for w in (p.wq, p.wk, p.wv))
     # log-space gates: log f in (-inf, 0], log i unconstrained
-    logf = _log_sigmoid((x @ p.w_f.to(cd)).to(f32) + p.f_bias)
+    logf = _log_sigmoid((x @ p.w_f.to(cd)).to(f32) + full(p.f_bias))
     logi = (x @ p.w_i.to(cd)).to(f32)                  # (B, S, nh)
     qf = q.to(f32) / np.sqrt(hd)
     kf = k.to(f32)
@@ -338,9 +350,10 @@ def mlstm_apply(p, u: torch.Tensor, *, cfg, state: Optional[State] = None,
     y = torch.stack(ys, 1).reshape(B, S, nh, hd + 1)
     num, den = y[..., :hd], y[..., hd:]
     h = num / torch.clamp(torch.abs(den), min=1.0)
-    h = rmsnorm(p.norm, h.reshape(B, S, di).to(cd), cfg.norm_eps)
+    h = rmsnorm(full(p.norm), h.reshape(B, S, di).to(cd), cfg.norm_eps)
     h = h * _silu32(z).to(cd)
-    return h @ p.down_proj.to(cd), {"C": C, "m": m}
+    h = row_piece(h, p.down_proj) @ p.down_proj.to(cd)
+    return h, {"C": C, "m": m}
 
 
 def init_mlstm_state(batch: int, cfg, dtype, device) -> State:
@@ -396,11 +409,12 @@ def slstm_apply(p, u: torch.Tensor, *, cfg, state: Optional[State] = None,
     f32 = torch.float32
     nh = cfg.num_heads
     hd = D // nh
-    pre = ((u @ p.w_in.to(cd)).to(f32) + p.b).reshape(B, S, 4, nh, hd)
+    pre = ((gather_cols(u @ p.w_in.to(cd), p.w_in)).to(f32)
+           + full(p.b)).reshape(B, S, 4, nh, hd)
     if state is None:
         state = init_slstm_state(B, cfg, cd, u.device)
     h, c, n, m = state["h"], state["c"], state["n"], state["m"]
-    r = p.r.to(f32)
+    r = full(p.r).to(f32)
     hs = []
     for t in range(S):
         x_t = pre[:, t]
@@ -420,8 +434,9 @@ def slstm_apply(p, u: torch.Tensor, *, cfg, state: Optional[State] = None,
         m = m_new
         hs.append(h)
     y = torch.stack(hs, 1).reshape(B, S, D).to(cd)
-    y = rmsnorm(p.norm, y, cfg.norm_eps)
-    return y @ p.out_proj.to(cd), {"h": h, "c": c, "n": n, "m": m}
+    y = rmsnorm(full(p.norm), y, cfg.norm_eps)
+    y = row_piece(y, p.out_proj) @ p.out_proj.to(cd)
+    return y, {"h": h, "c": c, "n": n, "m": m}
 
 
 def init_slstm_state(batch: int, cfg, dtype, device) -> State:

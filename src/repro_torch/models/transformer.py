@@ -53,7 +53,8 @@ from .. import resolve_device
 from ..configs.counting import (layer_segments, layer_signatures,
                                 segment_layers)
 from ..core.fixedpoint import fake_quant_ste
-from ..parallel.hints import constrain, full, gather_cols, reduce_rows
+from ..parallel.hints import (constrain, full, gather_cols, kv_heads,
+                              reduce_rows, row_piece)
 from ..core.paged_kv import (PagedCacheSpec, PagedKVLayout, init_paged_pool,
                              per_row)
 from .attention import (GQAttention, KVQuantSpec, MLAttention, gqa_apply,
@@ -275,8 +276,15 @@ class Transformer(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """The LM head over ``x`` (…, D): (…, V) logits, whole on every
-        rank under a tensor-parallel plan (the vocab shards gathered)."""
-        return gather_cols(lm_head(self.head_weight(), x), self.head)
+        rank under a tensor-parallel plan (the vocab shards gathered; a
+        tied head, the table's D shards, is row-parallel: its partial
+        products are summed)."""
+        if self.head is not None:
+            return gather_cols(lm_head(self.head_weight(), x), self.head)
+        w = self.head_weight()
+        if getattr(self.embed, "tp_dim", None) == 1:
+            w.tp_dim = 0
+        return reduce_rows(lm_head(w, row_piece(x, w)), w)
 
     def head_weight(self) -> torch.Tensor:
         if self.head is None:
@@ -508,7 +516,7 @@ def params_to_numpy(model: Transformer, cfg) -> Dict[str, Any]:
 def init_block_cache(cfg, batch, max_len, dtype,
                      kv_quant: Optional[KVQuantSpec],
                      paged: Optional[PagedCacheSpec], device,
-                     kind: str = "attn"):
+                     kind: str = "attn", kv_heads: Optional[int] = None):
     """One layer's cache. An attention layer's: a paged pool when
     ``paged`` is given (``kv_quant`` picks its container), else a dense
     (batch, max_len, KV, hd) slab of :func:`models.attention.init_kv_cache`;
@@ -516,7 +524,10 @@ def init_block_cache(cfg, batch, max_len, dtype,
     (:func:`models.attention.init_mla_cache`), and a paged one raises the
     reference's NotImplementedError. A recurrent layer's (``kind``
     "mamba", "mlstm" or "slstm") is its dense ``(batch, ...)`` state at
-    its initial value (:mod:`models.ssm`), paged cache or not."""
+    its initial value (:mod:`models.ssm`), paged cache or not.
+    ``kv_heads``: the KV heads of an attention layer's pool or slab
+    (default ``cfg.num_kv_heads``; a tensor-parallel rank's shard)."""
+    KV = cfg.num_kv_heads if kv_heads is None else kv_heads
     if kind != "attn":
         return MIXERS[kind].init_state(batch, cfg, dtype, device)
     if cfg.attention_type == "mla":
@@ -528,17 +539,18 @@ def init_block_cache(cfg, batch, max_len, dtype,
     if paged is not None:
         layout = PagedKVLayout(
             num_pages=paged.num_pages, page_size=paged.page_size,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            num_kv_heads=KV, head_dim=cfg.head_dim,
             container="fp" if kv_quant is None else kv_quant.container,
             dtype=dtype)
         return init_paged_pool(layout, device)
-    return init_kv_cache(batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                         dtype, kv_quant, device)
+    return init_kv_cache(batch, max_len, KV, cfg.head_dim, dtype, kv_quant,
+                         device)
 
 
 def init_cache(cfg, quant: Optional[ModelQuant] = None,
                paged: Optional[PagedCacheSpec] = None, device="cuda", *,
-               batch: int = 0, max_len: int = 0
+               batch: int = 0, max_len: int = 0,
+               kv_heads: Optional[int] = None
                ) -> List[Dict[str, torch.Tensor]]:
     """One cache per layer: paged pools sharing one page table when
     ``paged`` is given, else dense ``(batch, max_len)`` slabs. A quantized
@@ -547,7 +559,10 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
     (``quant.kv_containers``) gives each layer a pool in its own
     container, float pages for "fp" layers; it needs a paged cache. MLA
     layers hold dense latent slabs only; recurrent layers hold dense
-    ``(batch, ...)`` states beside paged pools too."""
+    ``(batch, ...)`` states beside paged pools too. ``kv_heads``: the KV
+    heads of every attention layer's pool or slab (default
+    ``cfg.num_kv_heads``; a tensor-parallel rank's shard,
+    ``parallel.hints.kv_heads``)."""
     kinds = [sig[0] for sig in layer_signatures(cfg)]
     if paged is None and (batch <= 0 or max_len <= 0):
         raise ValueError("a dense cache needs batch and max_len")
@@ -561,7 +576,7 @@ def init_cache(cfg, quant: Optional[ModelQuant] = None,
     dev = resolve_device(device)
     return [init_block_cache(cfg, batch, max_len, cfg.torch_dtype,
                              quant.layer_kv(li) if quant is not None
-                             else None, paged, dev, kind)
+                             else None, paged, dev, kind, kv_heads)
             for li, kind in enumerate(kinds)]
 
 
@@ -583,6 +598,8 @@ def block_apply(blk: DecoderBlock, x, positions, *, cfg, cache, cache_pos,
         y, cache = MIXERS[blk.sig[0]].apply(
             _quant_weights(blk.mixer, w_fmt), h, cfg=cfg, state=cache,
             state_quant=state_quant)
+        out = getattr(blk.mixer, "out_proj", None)
+        y = reduce_rows(y, blk.mixer.down_proj if out is None else out)
     elif isinstance(blk.attn, MLAttention):
         y, cache = mla_apply(_quant_weights(blk.attn, w_fmt), h, positions,
                              cfg=cfg, cache=cache, cache_pos=cache_pos,
@@ -741,7 +758,7 @@ def prefill(model: Transformer, tokens, cfg, *,
     emb = inputs.get("embeds")
     B, S = tokens.shape if emb is None else emb.shape[:2]
     caches = init_cache(cfg, quant, None, model.device, batch=B,
-                        max_len=max_len)
+                        max_len=max_len, kv_heads=kv_heads(cfg))
     _, logits, caches, _ = forward(model, tokens, cfg, quant=quant,
                                    caches=caches, cache_pos=0, **inputs)
     return logits[:, -1], caches, S

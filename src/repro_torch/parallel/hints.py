@@ -16,14 +16,29 @@ parameter carries its sharded dim as ``tp_dim`` (set by
 * :func:`full` all-gathers a parameter the computation needs whole (a
   layer's norm scale, which the reference's generic 2-D rule shards);
 * :func:`reduce_rows` all-reduces (sum) the partial product of a
-  row-parallel weight (``wo``, ``w_down``);
+  row-parallel weight (``wo``, ``w_down``, a recurrent mixer's
+  ``out_proj`` / ``down_proj``), and :func:`row_piece` hands such a
+  weight this rank's piece of an input computed whole (a recurrent
+  mixer's output; attention over a replicated pool);
 * :func:`gather_cols` all-gathers the output of a column-parallel lookup
   or product whose weight is sharded on its last dim (the embedding's
   D shards, the LM head's vocab shards: the argmax then reads whole
   logits and breaks ties at the lowest index, as unsharded);
 * :func:`pool_max` all-reduces (max) a page-scale write's per-token
   absmax over every rank's KV heads, so the replicated scales stay equal
-  on every rank (``core.paged_kv.paged_update``'s ``amax_reduce``).
+  on every rank (``core.paged_kv.paged_update``'s ``amax_reduce``), and
+  :func:`group_max` does so for the quant tier's host-side
+  requantization of a page;
+* where the model axis does not divide the KV heads the reference
+  replicates the pool (:func:`replicated_heads`): every rank then
+  gathers q, k and v whole (``wk`` may be cut inside a head) and attends
+  over every head.
+
+The recurrent mixers run whole on every rank: their column-parallel
+products are gathered whole, their small leaves (the conv, the sLSTM's
+``r``, every per-layer 1-D leaf, which the reference's generic 2-D rule
+shards on its last dim) with :func:`full`, and the row-parallel output
+projection reads this rank's piece of the mixer's output.
 
 Every rank runs the same host scheduler, which must decide alike on
 every rank: :func:`first_rank_value` hands each rank the model group's
@@ -156,6 +171,43 @@ def reduce_rows(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_piece(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of ``y``'s last dim, the input of a product
+    with ``w``, when ``w`` is row-parallel (sharded on its contraction
+    dim 0): the rows of ``w`` this rank holds; else ``y``. The product's
+    partial sums then go through :func:`reduce_rows`."""
+    if _sharded(w) != 0:
+        return y
+    n = w.shape[0]
+    if n == y.shape[-1]:
+        return y
+    plan = _ACTIVE.get()
+    r = plan.mesh.get_local_rank(plan.model_axis)
+    return y[..., r * n:(r + 1) * n]
+
+
+def kv_heads(cfg, plan: Optional[MeshPlan] = None) -> int:
+    """The KV heads of this rank's pools and slabs under ``plan`` (the
+    active one when None): its shard where the model axis divides them,
+    else every head (a replicated pool)."""
+    plan = plan if plan is not None else _ACTIVE.get()
+    if plan is None or plan.model_axis is None:
+        return cfg.num_kv_heads
+    m = plan.model_size
+    return cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0 \
+        else cfg.num_kv_heads
+
+
+def replicated_heads(cfg) -> bool:
+    """Whether the active plan's model axis, of more than one rank, does
+    not divide ``cfg``'s KV heads: the reference then replicates the
+    paged pool (``parallel.sharding.paged_pool_specs``), and every rank
+    attends over every head."""
+    plan = _ACTIVE.get()
+    return (plan is not None and plan.model_size > 1
+            and kv_heads(cfg, plan) == cfg.num_kv_heads)
+
+
 def gather_cols(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The whole last dim of ``y``, the output of a lookup into or a
     product with ``w``, when ``w`` is sharded on its last dim, else
@@ -178,6 +230,17 @@ def pool_max(amax: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     import torch.distributed as dist
     dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=_group())
     return amax
+
+
+def group_max(a, plan: MeshPlan, device):
+    """``a`` (a float32 numpy array: a page's per-record absmax over this
+    rank's KV heads) maxed over every rank of ``plan``'s model group, on
+    ``device``'s backend; a numpy array again."""
+    import numpy as np
+    import torch.distributed as dist
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=plan.model_group())
+    return t.cpu().numpy()
 
 
 def first_rank_value(value: float, plan: MeshPlan, device) -> float:

@@ -3,7 +3,9 @@ numpy seeds and handed to both packages as numpy arrays; JAX stays on the
 CPU and runs its Pallas kernels in interpret mode."""
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +55,7 @@ def numpy_tree(tree):
 
 
 def perturbed_jax_params(arch: str = "qwen2-72b", seed: int = 0, *,
-                         jit: bool = False):
+                         jit: bool = False, over: Optional[dict] = None):
     """(jax config, torch config, jax params, numpy params) for an arch's
     smoke config. The reference initializes biases to 0, norm scales to 1
     and MoE routers at std 0.02 (near-uniform routing); all are redrawn
@@ -61,9 +63,10 @@ def perturbed_jax_params(arch: str = "qwen2-72b", seed: int = 0, *,
     the MTP module), so the parity tests exercise them and the routers
     choose decisively. ``jit`` compiles the reference's init (several
     times faster on the deeper trees; its numbers need not equal the
-    eager init's bit for bit)."""
-    jcfg = jax_smoke_config(arch)
-    tcfg = get_smoke_config(arch)
+    eager init's bit for bit). ``over``: fields replaced in both smoke
+    configs (``dataclasses.replace``)."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **(over or {}))
+    tcfg = dataclasses.replace(get_smoke_config(arch), **(over or {}))
     init = (jax.jit(jax_init_model, static_argnums=1) if jit
             else jax_init_model)
     tree = numpy_tree(init(jax.random.PRNGKey(seed), jcfg))

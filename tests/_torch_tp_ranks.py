@@ -201,3 +201,81 @@ def predictor_case(rank, mesh):
     if rank == 0:
         out["tp1"] = run(BatchedServer(cfg, model, **kw), -0.2)
     return out
+
+
+def page_scales(srv) -> list:
+    """Each paged layer's k and v page scales, one array a layer."""
+    return [np.concatenate([layer["k_scale"].numpy(),
+                            layer["v_scale"].numpy()])
+            for layer in srv.caches if "k_scale" in layer]
+
+
+def pool_layout(srv) -> list:
+    """Each cache leaf's local shape and its mark (``tp_dim``, or None),
+    one dict a layer."""
+    return [{k: (tuple(t.shape), getattr(t, "tp_dim", None))
+             for k, t in layer.items()} for layer in srv.caches]
+
+
+def serve_families(rank, tp, cases, embeds=None):
+    """Every case on a (1, ``tp``) serving mesh. ``cases``: {name: {"cfg",
+    "path" (the model's state dict), "kw", "requests", "forced", and
+    optionally "alone" (rid -> forced tokens: each request served alone
+    on a batch-1 server, as the reference's alone runs)}}. Returns each
+    case's tokens, host counters, page scales and cache layout, the step
+    logits (rank 0), and the alone runs' step logits (rank 0). With
+    ``embeds`` ({"cfg", "path", "embeds", "mrope", "steps", "max_len"}),
+    also the embeds prefill and the embed decode steps under the plan:
+    their logits and the dense caches' local shapes."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import shard_model
+    from repro_torch.launch.steps import (make_embed_decode_step,
+                                          make_prefill_step)
+    from repro_torch.parallel.hints import activation_hints
+    from repro_torch.parallel.sharding import plan_for_mesh
+    mesh = make_serving_mesh(tp, device="cpu")
+    models = {}
+
+    def model_of(c):
+        if c["path"] not in models:
+            models[c["path"]] = load_model(c["cfg"], c["path"])
+        return models[c["path"]]
+
+    out = {}
+    for name, c in cases.items():
+        cfg, model = c["cfg"], model_of(c)
+        toks, logits, counters, srv = serve_case(
+            cfg, model, c["kw"], c["requests"], c["forced"], mesh=mesh)
+        res = {"tokens": toks, "counters": counters,
+               "scales": page_scales(srv), "layout": pool_layout(srv),
+               "weights": {n: tuple(p.shape) for n, p
+                           in srv.model.named_parameters()}}
+        if rank == 0:
+            res["logits"] = logits
+        if c.get("alone"):
+            kw = dict(c["kw"], batch_size=1)
+            toks, logits, _, _ = serve_case(cfg, model, kw, c["requests"],
+                                            c["alone"], mesh=mesh)
+            res["alone_tokens"] = toks
+            if rank == 0:
+                res["alone_logits"] = logits
+        out[name] = res
+    if embeds is not None:
+        cfg, model = embeds["cfg"], model_of(embeds)
+        local = shard_model(model, cfg, plan_for_mesh(mesh))
+        prefill = make_prefill_step(cfg, max_len=embeds["max_len"])
+        dec = make_embed_decode_step(cfg)
+        emb = torch.from_numpy(embeds["embeds"])
+        S = embeds["mrope"].shape[1]
+        with activation_hints(plan_for_mesh(mesh)):
+            last, caches = prefill(local, None, embeds=emb[:, :S],
+                                   mrope_positions=torch.from_numpy(
+                                       embeds["mrope"]))
+            got = [last.numpy().copy()]
+            for i in range(embeds["steps"]):
+                _, lg, caches = dec(local, emb[:, S + i:S + i + 1], S + i,
+                                    caches)
+                got.append(lg.numpy().copy())
+        out["embeds"] = {"logits": got,
+                         "caches": [tuple(c["k"].shape) for c in caches]}
+    return out

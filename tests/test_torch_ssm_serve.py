@@ -5,7 +5,8 @@ to the port —
 
 * on a shared request list the port's ``BatchedServer`` counts what the
   reference's counts (prefill is stepwise for both archs in both
-  packages): xlstm on dense states at kv-bits 0 and 8, jamba on a dense
+  packages): xlstm on dense states at kv-bits 0 and 8 and on pages
+  (states only, no pool) at kv-bits 8, jamba on a dense
   cache at int8 and on paged int8 and int4 pools through both attention
   routes;
 * tokens are held against the reference only where the reference is
@@ -85,6 +86,8 @@ def _alone(make, cls, vocab, **kw):
 _CASES = {
     "xlstm-dense-fp": (XLSTM, dict(kv_bits=0), ("gather",)),
     "xlstm-dense-int8": (XLSTM, dict(kv_bits=8), ("gather",)),
+    # pages without a pool: the states only, as the mesh server needs
+    "xlstm-paged-int8": (XLSTM, dict(kv_bits=8, page_size=8), ("gather",)),
     "jamba-dense-int8": (JAMBA, dict(kv_bits=8), ("gather",)),
     "jamba-paged-int8": (JAMBA, dict(kv_bits=8, page_size=8),
                          ("gather", "kernel")),

@@ -5,9 +5,12 @@ reference.
 * Placements: every port parameter's and every paged-pool leaf's
   placement equals the reference's PartitionSpec of the same leaf
   (matched through ``reference_layout``: a layer leaf's period axis
-  dropped), for qwen2-72b's smoke and published configs on meshes
-  (1, 2), (2, 2) and (16, 16) (the reference's rules on an
-  ``AbstractMesh``, the port's on its own).
+  dropped), for the dense, hybrid, recurrent, VLM and MoE families
+  (qwen2-72b, jamba-v0.1-52b, xlstm-350m, qwen2-vl-2b,
+  llama4-maverick), smoke and published, on meshes (1, 2), (2, 2) and
+  (16, 16), the pools also on (1, 4), where the smoke configs' 2 KV
+  heads stay whole (the reference's rules on an ``AbstractMesh``, the
+  port's on its own).
 * The parity traps, on 2 gloo ranks: a page-scale write over each rank's
   KV-head shard keeps the replicated scales equal to the whole write's,
   bit for bit (and a shard alone would not); the argmax over vocab
@@ -24,8 +27,14 @@ reference.
   clock on every rank, so the ranks' schedulers admit alike.
 * ``make_host_mesh`` and ``make_test_mesh`` over a running group and
   alone.
-* The refusals in the reference's words, and the CLI's ``--tp 2``.
+* The refusals that remain are the reference's, in its words (an MLA
+  model's pages, the encoder at the CLI); the CLI's ``--tp 2`` on the
+  dense and the recurrent families. (The other families, a pool tp does
+  not divide, a MoE whose experts it does not divide and the quant tier
+  serve at tp = 2 and 4: ``tests/test_torch_tp_families.py``,
+  ``tests/test_torch_tp4.py``.)
 """
+import itertools
 import os
 import pathlib
 import subprocess
@@ -44,6 +53,7 @@ import _torch_tp_ranks as ranks  # noqa: E402
 from _torch_bench import GATE, reference_model  # noqa: E402
 from _torch_bench import reference_params  # noqa: E402
 from repro.configs.registry import get_config as jget_config  # noqa: E402
+from repro.configs.registry import get_smoke_config as jsmoke  # noqa: E402
 from repro.core.paged_kv import PagedCacheSpec as JPagedSpec  # noqa: E402
 from repro.launch.mesh import make_serving_mesh as jmesh  # noqa: E402
 from repro.launch.serve import BatchedServer as JServer  # noqa: E402
@@ -57,6 +67,8 @@ from repro.quant.apply import build_model_quant as jbuild  # noqa: E402
 from repro.quant.apply import transformer_layer_names as jnames  # noqa: E402
 from repro_torch import parallel  # noqa: E402
 from repro_torch.benchmarks.lm_precision import accuracy_gate  # noqa: E402
+from repro_torch.configs.counting import (layer_signatures,  # noqa: E402
+                                          segment_layers)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.fixedpoint import FixedPointFormat  # noqa: E402
 from repro_torch.core.paged_kv import PagedCacheSpec  # noqa: E402
@@ -85,22 +97,49 @@ def _ref_leaf(tree, path):
     return tree
 
 
-def _configs(name):
-    from repro.configs.registry import get_smoke_config as jsmoke
+ARCHS = ["qwen2-72b", "jamba-v0.1-52b", "xlstm-350m", "qwen2-vl-2b",
+         "llama4-maverick-400b-a17b"]
+
+
+def _configs(arch, which):
     from repro_torch.configs.registry import get_smoke_config as tsmoke
-    if name == "smoke":
-        return jsmoke("qwen2-72b"), tsmoke("qwen2-72b")
-    return jget_config("qwen2-72b"), get_config("qwen2-72b")
+    if which == "smoke":
+        return jsmoke(arch), tsmoke(arch)
+    return jget_config(arch), get_config(arch)
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("which", ["smoke", "published"])
-def test_param_placements_equal_the_references(which, shape):
-    jcfg, tcfg = _configs(which)
+def _family_cases(*axes):
+    """Every family x the product of ``axes`` (lists of (id, value)),
+    qwen2-72b's cases under their ids without the arch (the dense
+    decoder's cases from before the other families)."""
+    out = []
+    for arch in ARCHS:
+        for combo in itertools.product(*axes):
+            ids = "-".join(i for i, _ in combo)
+            out.append(pytest.param(
+                arch, *(v for _, v in combo),
+                id=ids if arch == "qwen2-72b" else f"{arch}-{ids}"))
+    return out
+
+
+def _mesh_axis(meshes):
+    return [(f"{a}x{b}", (a, b)) for a, b in meshes]
+
+
+@pytest.mark.parametrize("arch,which,shape", _family_cases(
+    [("smoke", "smoke"), ("published", "published")], _mesh_axis(MESHES)))
+def test_param_placements_equal_the_references(arch, which, shape):
+    """Every family's inference placements (the hybrid's and the
+    recurrent mixers' per-layer 1-D leaves on their last dim, the
+    generic 2-D rule of the stacked reference leaf), and the training
+    placements but for the stacked period axis of a per-layer 1-D leaf
+    (replicated over "data" in the port)."""
+    jcfg, tcfg = _configs(arch, which)
     jplan = jsharding.plan_for_mesh(JAbstractMesh(shape, ("data", "model")))
     plan = plan_for_mesh(AbstractMesh(shape, ("data", "model")))
     shapes = jax.eval_shape(lambda: jinit_model(jax.random.PRNGKey(0), jcfg))
     model = Transformer(tcfg, device="meta")
+    params = dict(model.named_parameters())
     ref = jsharding.param_shardings(shapes, jplan, inference=True)
     got = param_specs(model, tcfg, plan, inference=True)
     placed = param_shardings(model, tcfg, plan, inference=True)
@@ -118,10 +157,13 @@ def test_param_placements_equal_the_references(which, shape):
             dims = [d for d, a in enumerate(want) if a == ax]
             assert (pl.is_shard(dims[0]) if dims
                     else pl.is_replicate()), (name, ax, pl)
-    assert sharded == len(got) - 1     # all but the final norm
+    if arch == "qwen2-72b":
+        assert sharded == len(got) - 1     # all but the final norm
+    assert sharded >= len(got) // 2
     # the training placements: the reference's spec with its FSDP axis,
-    # a layer's norm scales replicated over "data" (their stacked
-    # period axis, which the reference shards there, is the one exception)
+    # a per-layer 1-D leaf (a norm scale, a mixer's bias or decay)
+    # replicated over "data" (its stacked period axis, which the
+    # reference shards there, is the one exception)
     train = jsharding.param_shardings(shapes, jplan)
     got = param_specs(model, tcfg, plan)
     for name, path, period in reference_layout(model, tcfg):
@@ -129,15 +171,19 @@ def test_param_placements_equal_the_references(which, shape):
         want = want + (None,) * (len(_ref_leaf(shapes, path).shape)
                                  - len(want))
         if period is not None:
-            assert want[0] is None or name.endswith(("norm1", "norm2"))
+            assert want[0] is None or params[name].dim() == 1, name
             want = want[1:]
         assert got[name] == want, (name, got[name], want)
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("kv_bits", [8, 4])
-def test_pool_placements_equal_the_references(shape, kv_bits):
-    jcfg, tcfg = _configs("smoke")
+@pytest.mark.parametrize("arch,kv_bits,shape", _family_cases(
+    [("8", 8), ("4", 4)], _mesh_axis(MESHES + [(1, 4)])))
+def test_pool_placements_equal_the_references(arch, kv_bits, shape):
+    """Each layer's paged pool (KV heads over "model" where the axis
+    divides them, else whole: (1, 4) on the smoke configs' 2 KV heads),
+    its replicated page scales and a recurrent layer's replicated
+    states, against the reference's stacked leaf of the same layer."""
+    jcfg, tcfg = _configs(arch, "smoke")
     jplan = jsharding.plan_for_mesh(JAbstractMesh(shape, ("data", "model")))
     plan = plan_for_mesh(AbstractMesh(shape, ("data", "model")))
     names = jnames(jcfg)
@@ -153,31 +199,28 @@ def test_pool_placements_equal_the_references(shape, kv_bits):
         tcfg, quantize_kv=True, quantize_activations=False,
         kv_container="int4" if kv_bits == 4 else "int8")
     caches = init_cache(tcfg, tquant, PagedCacheSpec(page_size=8,
-                                                     num_pages=9), "meta")
+                                                     num_pages=9), "meta",
+                        batch=2)
     got = paged_pool_specs(caches, plan)
     placed = paged_pool_shardings(caches, plan)
+    model_ax = plan.mesh.mesh_dim_names.index("model")
+    pools = 0
     # the reference stacks each segment's layers on a leading axis
-    flat = jax.tree_util.tree_leaves_with_path(ref)
-    want = {}
-    for path, sh in flat:
-        key = path[-1].key
-        spec = tuple(sh.spec)
-        ndim = len(_leaf_by_path(jcaches, path).shape)
-        spec = spec + (None,) * (ndim - len(spec))
-        want.setdefault(key, set()).add(spec[1:] if ndim == 5 or
-                                        key.endswith("scale") and ndim == 2
-                                        else spec)
-    for layer, pl in zip(got, placed):
-        for key, spec in layer.items():
-            assert want[key] == {spec}, (key, spec, want[key])
-            model_ax = plan.mesh.mesh_dim_names.index("model")
-            assert pl[key][model_ax].is_shard(2) == (spec[2:3] == ("model",))
-
-
-def _leaf_by_path(tree, path):
-    for p in path:
-        tree = tree[p.key if hasattr(p, "key") else p.idx]
-    return tree
+    for li, si, j, _ in segment_layers(tcfg):
+        for key, spec in got[li].items():
+            ndim = len(jcaches[si][j][key].shape)
+            want = tuple(ref[si][j][key].spec)
+            want = want + (None,) * (ndim - len(want))
+            assert want[0] is None, (li, key, want)
+            assert spec == want[1:], (li, key, spec, want)
+            sharded = "model" in spec
+            assert placed[li][key][model_ax].is_shard(2) == sharded
+            if key in ("k_pages", "v_pages"):
+                pools += key == "k_pages"
+                assert sharded == (tcfg.num_kv_heads % shape[1] == 0)
+            else:
+                assert not sharded, (li, key)
+    assert pools == sum(k == "attn" for k, _ in layer_signatures(tcfg))
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +435,7 @@ def test_serving_mesh_refusals_in_the_references_words():
     k_data, k_model = parallel.cache_shardings(cache, plan)[0]["k"]
     assert k_data.is_shard(0) and k_model.is_shard(2)
     from repro_torch.launch.steps import _meta_state
-    tcfg = _configs("smoke")[1]
+    tcfg = _configs("qwen2-72b", "smoke")[1]
     state = _meta_state(tcfg, int8=True, residual=True)
     placed = parallel.sharding.state_shardings(state, tcfg, plan)
     assert placed["opt"]["m"]["embed"]["q"] == placed["params"]["embed"]
@@ -400,42 +443,37 @@ def test_serving_mesh_refusals_in_the_references_words():
     assert parallel.__all__ == repro.parallel.__all__
 
 
-@pytest.mark.parametrize("arch,kw,words", [
-    ("qwen2-72b", dict(kv_adapt="on"), "quant tier"),
-    ("qwen2-72b", dict(), "not dividing 8 heads and 2 KV heads"),
-    ("jamba-v0.1-52b", dict(), "hybrid family"),
-    ("qwen2-vl-2b", dict(), "vlm family"),
-])
-def test_mesh_outside_the_slice_raises_item_13(arch, kw, words):
+def test_mesh_keeps_the_references_refusals():
+    """What ``mesh=`` still refuses is what the reference refuses, in its
+    words: an MLA model's paged pool, and an encoder at the CLI, ``--tp``
+    included (before any rank starts)."""
+    from repro.launch import serve as jserve
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.transformer import init_model
+    arch = "deepseek-v3-671b"
+    with pytest.raises(NotImplementedError) as want:
+        JServer(jsmoke(arch), None, batch_size=2, max_len=32, page_size=8)
     cfg = get_smoke_config(arch)
     model = init_model(cfg, seed=0, device=CPU)
-    shape = (1, 4) if "dividing" in words else (1, 2)
-    mesh = AbstractMesh(shape, ("data", "model"))
-    base = dict(batch_size=2, max_len=32, page_size=8, kv_bits=8,
-                device=CPU)
-    if kw.get("kv_adapt"):
-        base["prefix_cache"] = "on"
-    with pytest.raises(NotImplementedError,
-                       match=f"{words}.*queue A item 13 part 4b"):
-        tserve.BatchedServer(cfg, model, mesh=mesh, **base, **kw)
-
-
-def test_mesh_refuses_tp_not_dividing_the_experts():
-    # the expert stacks would stay whole while the shared expert's w_down
-    # is row-parallel: its partial product would never be summed
-    import dataclasses
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.models.transformer import init_model
-    cfg = dataclasses.replace(get_smoke_config("llama4-maverick-400b-a17b"),
-                              num_experts=3)
-    model = init_model(cfg, seed=0, device=CPU)
-    mesh = AbstractMesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError,
-                       match="not dividing 3 experts.*queue A item 13 part 4b"):
-        tserve.BatchedServer(cfg, model, mesh=mesh, batch_size=2, max_len=32,
-                             page_size=8, kv_bits=8, device=CPU)
+    with pytest.raises(NotImplementedError) as got:
+        tserve.BatchedServer(cfg, model, batch_size=2, max_len=32,
+                             page_size=8, kv_bits=8, device=CPU,
+                             mesh=AbstractMesh((1, 2), ("data", "model")))
+    assert str(got.value) == str(want.value) \
+        == "paged KV serving supports GQA archs"
+    argv = ["--arch", "hubert-xlarge", "--smoke", "--page-size", "8"]
+    with pytest.raises(SystemExit) as want:
+        jserve.main(argv + ["--tp", "2"])
+    for extra in ([], ["--tp", "2"]):
+        with pytest.raises(SystemExit) as got:
+            tserve.main(argv + ["--device", "cpu"] + extra)
+        assert str(got.value) == str(want.value) \
+            == "encoder-only archs have no decode path"
+    # no refusal names part 4b: the other families serve under mesh=
+    import repro_torch
+    root = pathlib.Path(repro_torch.__file__).parent
+    assert not [f for f in root.rglob("*.py")
+                if "13 part 4b" in f.read_text()]
 
 
 def test_cli_tp2_on_gloo(capsys):
@@ -443,6 +481,22 @@ def test_cli_tp2_on_gloo(capsys):
             "--requests", "4", "--batch-size", "2", "--max-new", "5",
             "--max-len", "48", "--page-size", "8", "--kv-bits", "8",
             "--prefix-cache", "on"]
+    one = tserve.main(argv)
+    two = tserve.main(argv + ["--tp", "2"])
+    assert [r.rid for r in two] == [r.rid for r in one]
+    assert all(r.done for r in two)
+    gate = accuracy_gate([r.out for r in one], [r.out for r in two], **GATE)
+    assert gate["passed"], gate
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m"])
+def test_cli_tp2_serves_the_recurrent_families_on_gloo(arch):
+    """``--tp 2`` on the recurrent families (their mixers whole on each
+    rank, the output projection row-parallel): every request finishes,
+    and the tokens pass the gate against ``--tp 1``'s."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+            "--batch-size", "2", "--max-new", "4", "--max-len", "32",
+            "--prompt-len", "6", "--page-size", "8", "--kv-bits", "8"]
     one = tserve.main(argv)
     two = tserve.main(argv + ["--tp", "2"])
     assert [r.rid for r in two] == [r.rid for r in one]
