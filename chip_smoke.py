@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phase train2 # the build and [train2] alone
     python3 chip_smoke.py --phase dist   # [dist] alone, no kernel build
     python3 chip_smoke.py --phase ep     # [ep] alone, no kernel build
+    python3 chip_smoke.py --phase dryrun # [dryrun] alone, no kernel build
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -244,7 +245,18 @@ Phases, each of which raises on failure (no phase is caught):
    step (bit for bit: losses, grad norms, a checksum of every state
    leaf) and the mesh step on the 8-bit wire (finite losses, every
    expert reached by step 1's gradient); step ms, peak memory, the
-   phase time against its 45 s budget;
+   phase time against its 45 s budget; then ``[dryrun]``, the dry run's
+   prediction against a real run at world size 1: (a) ``[train]``'s
+   arm 1 (deepseek-7b x 8 layers, 4 x 512 tokens, fp32 moments) laid out
+   on fake tensors at a one-rank mesh over the fake group
+   (``launch.dryrun``, counted by the op-cost recorder), then 3 real
+   steps; (b) qwen2-72b x 8 layers, one decode step at batch 8 on dense
+   int8 slabs of 4096 tokens, laid out, then 16 real steps timed: for
+   each, counted FLOPs fake against real (``FlopCounterMode``; equal),
+   the predicted peak against ``max_memory_allocated`` (within 10%), and
+   the roofline bound at the card's data-sheet peaks against the
+   CUDA-event step time (the roofline fraction on the card); the phase
+   time against its 45 s budget;
 4. ``[cnn]``, the paper's own experiment (no kernel: torch ops, as the
    reference runs jnp there): LeNet, Convnet and AlexNet-small at the
    paper's widths trained with the reference's recipe from a seeded
@@ -5820,6 +5832,224 @@ def ep_phase(seed: int) -> dict:
             "phase_s": wall, "part_s": part_s, "budget_s": EP_BUDGET_S}
 
 
+# [dryrun]: the dry run's prediction (``launch.dryrun``: a cell laid out
+# on fake tensors at a one-rank mesh and counted by the op-cost recorder)
+# held against the same work run for real on the card
+DRYRUN_BUDGET_S = 45
+DRYRUN_TRAIN_STEPS = 3             # step 1 counted by FlopCounterMode
+DRYRUN_DECODE = dict(arch="qwen2-72b", layers=8, batch=8, seq=4096,
+                     kv_bits=8, steps=16)
+DRYRUN_PEAK_TOL = 0.10             # predicted peak against the measured
+
+
+def dryrun_predict(cfg, shape, *, hp=None, kv_bits: int = 0):
+    """The dry run's recorder of one cell on a one-rank ("data", "model")
+    mesh over the fake group, fake tensors on the card's device type,
+    and its lay-out seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_group, make_test_mesh
+    t0 = time.perf_counter()
+    with fake_group(1):
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+        rec = dryrun.lower_cell(cfg, shape, mesh, kv_bits=kv_bits, hp=hp)
+    return rec, time.perf_counter() - t0
+
+
+def dryrun_compare(tag: str, rec, lay_s: float, *, flops: float,
+                   peak: int, step_ms: float, what: str) -> dict:
+    """Print and gate one arm's three comparisons: counted FLOPs fake
+    against real (equal), the predicted peak against
+    ``max_memory_allocated`` (within ``DRYRUN_PEAK_TOL``), and the
+    roofline bound at the card's data-sheet peaks against the measured
+    step (the roofline fraction on the card)."""
+    from repro_torch.benchmarks.roofline import HBM_BW, PEAK_FLOPS
+    pred_peak = rec.memory["peak"]
+    compute_ms = rec.total.flops / PEAK_FLOPS * 1e3
+    memory_ms = rec.total.hbm_bytes / HBM_BW * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    by = "operations" if compute_ms >= memory_ms else "bytes"
+    ratio = pred_peak / peak
+    print(f"{tag} {what}: laid out in {lay_s:.1f} s, "
+          f"{sum(r['count'] for r in rec.by_op.values())} ops counted",
+          flush=True)
+    print(f"{tag} FLOPs fake {rec.total.flops:.6e} real {flops:.6e} "
+          f"equal {rec.total.flops == flops}", flush=True)
+    print(f"{tag} peak predicted {pred_peak / 2 ** 30:.3f} GiB measured "
+          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated), ratio "
+          f"{ratio:.4f}", flush=True)
+    print(f"{tag} roofline bound {bound_ms:.3f} ms (compute "
+          f"{compute_ms:.3f}, memory {memory_ms:.3f} ms of "
+          f"{rec.total.hbm_bytes / 1e9:.2f} GB: {by}) against a measured "
+          f"{step_ms:.3f} ms step: fraction {bound_ms / step_ms:.4f}",
+          flush=True)
+    if rec.total.flops != flops:
+        raise RuntimeError(f"{tag} the dry run's FLOPs are not the real "
+                           f"step's")
+    if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+        raise RuntimeError(f"{tag} the predicted peak misses the measured "
+                           f"by {ratio - 1.0:+.1%}")
+    return {"flops": flops, "pred_peak": pred_peak, "peak": peak,
+            "peak_ratio": ratio, "hbm_bytes": rec.total.hbm_bytes,
+            "compute_ms": compute_ms, "memory_ms": memory_ms,
+            "bound_ms": bound_ms, "bound_by": by, "step_ms": step_ms,
+            "roofline_fraction": bound_ms / step_ms, "lay_out_s": lay_s}
+
+
+def dryrun_train(seed: int) -> dict:
+    """(a) ``[train]``'s arm 1 (deepseek-7b at published widths cut to
+    ``TRAIN_LAYERS`` layers, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens,
+    ``TRAIN_LR``, fp32 moments): laid out, then ``DRYRUN_TRAIN_STEPS``
+    real plain steps from a seeded model on ``lm_batch`` tokens, the
+    peak read from a reset after the state and batches exist, step 1
+    under ``FlopCounterMode``, the others timed by CUDA events after a
+    device sync each."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dc.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    hp = steps_mod.TrainHParams(lr=TRAIN_LR,
+                                adamw=AdamWConfig(quantize_moments=False))
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec, lay_s = dryrun_predict(cfg, shape, hp=hp)
+    dcfg = train_data(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed)
+    model = init_model(cfg, seed=seed, device="cuda", trainable=True)
+    state = steps_mod.init_train_state(cfg, hp, model=model)
+    step = steps_mod.make_train_step(cfg, hp)
+    batches = [{k: v.to("cuda") for k, v in lm_batch(dcfg, i).items()}
+               for i in range(DRYRUN_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(state, batches[0])
+    times = []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        _, m = step(state, b)
+        e.record()
+        times.append((s, e))
+    torch.cuda.synchronize()
+    step_ms = float(np.mean([a.elapsed_time(b) for a, b in times]))
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError("[dryrun] (a) the real step's loss is not finite")
+    del state, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dryrun_compare(
+        "[dryrun] (a)", rec, lay_s, flops=fc.get_total_flops(), peak=peak,
+        step_ms=step_ms,
+        what=f"{TRAIN_ARCH} x {TRAIN_LAYERS} layers train step at "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ} (fp32 moments; step 3 loss "
+             f"{loss:.4f})")
+    return out
+
+
+def dryrun_decode(seed: int) -> dict:
+    """(b) qwen2-72b at published widths cut to 8 layers, one decode step
+    at batch 8 on dense int8 slabs of 4096 tokens (the last slot of a
+    full cache): laid out, then the real plain step from a seeded model,
+    the first call under ``FlopCounterMode``, then 16 timed together by a
+    CUDA event pair after a device sync; the peak read from a reset
+    after the model and caches exist."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.dryrun import make_quant
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.transformer import init_cache, init_model
+
+    d = DRYRUN_DECODE
+    cfg = dc.replace(get_config(d["arch"]), num_layers=d["layers"])
+    shape = ShapeConfig("decode", d["seq"], d["batch"], "decode")
+    rec, lay_s = dryrun_predict(cfg, shape, kv_bits=d["kv_bits"])
+    quant = make_quant(cfg, d["kv_bits"])
+    model = init_model(cfg, seed=seed, device="cuda")
+    caches = init_cache(cfg, quant, None, "cuda", batch=d["batch"],
+                        max_len=d["seq"])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (d["batch"],), generator=g,
+                           device="cuda", dtype=torch.int32)
+    step = make_decode_step(cfg, quant=quant)
+    pos = d["seq"] - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(model, tokens, pos, caches, None)
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(d["steps"]):
+        nxt, logits, caches = step(model, tokens, pos, caches, None)
+    e.record()
+    torch.cuda.synchronize()
+    step_ms = s.elapsed_time(e) / d["steps"]
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("[dryrun] (b) the real step's logits are not "
+                           "finite")
+    del model, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dryrun_compare(
+        "[dryrun] (b)", rec, lay_s, flops=fc.get_total_flops(), peak=peak,
+        step_ms=step_ms,
+        what=f"{d['arch']} x {d['layers']} layers decode step at batch "
+             f"{d['batch']} on dense int{d['kv_bits']} slabs of {d['seq']} "
+             f"tokens ({d['steps']} steps timed)")
+
+
+def dryrun_phase(seed: int) -> dict:
+    """``[dryrun]``: the dry run's prediction against a real run at world
+    size 1, (a) :func:`dryrun_train`, (b) :func:`dryrun_decode`, after a
+    device sync with the peak reset per arm. No kernel of the port is on
+    these paths (dense caches; a fake tensor reaching a kernel raises),
+    and B1's count does not move. The phase's seconds against
+    ``DRYRUN_BUDGET_S``. Returns the record."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.paged_kv_attention import \
+        paged_kv_attention_chunk as b1
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    before = b1.launches
+    part_s = {}
+    t0 = time.perf_counter()
+    train = dryrun_train(seed)
+    part_s["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode = dryrun_decode(seed)
+    part_s["b"] = time.perf_counter() - t0
+    if b1.launches != before:
+        raise RuntimeError("[dryrun] a kernel launched on the dry run's "
+                           "paths")
+    wall = time.perf_counter() - t_phase
+    print(f"[dryrun] phase {wall:.1f} s against a {DRYRUN_BUDGET_S} s "
+          f"budget ((a) {part_s['a']:.1f}, (b) {part_s['b']:.1f} s)",
+          flush=True)
+    return {"phase": "dryrun", "train": train, "decode": decode,
+            "phase_s": wall, "part_s": part_s, "budget_s": DRYRUN_BUDGET_S}
+
+
 def dense_trace(cfg, seed: int):
     """8 requests of 16-48 prompt tokens and 16 new tokens: stepwise
     prefill through the decode step stays short at full width."""
@@ -6197,7 +6427,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phase",
                     choices=["all", "kernels", "cnn", "tier", "moe",
                              "ssm", "frontend", "bench", "replicas",
-                             "train", "train2", "dist", "ep"],
+                             "train", "train2", "dist", "ep", "dryrun"],
                     default="all")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
@@ -6231,6 +6461,9 @@ def main(argv=None) -> int:
         return 0
     if args.phase == "ep":
         ep_phase(SEED)
+        return 0
+    if args.phase == "dryrun":
+        dryrun_phase(SEED)
         return 0
     if args.phase == "cnn":
         cnn_phase()
@@ -6290,11 +6523,13 @@ def main(argv=None) -> int:
         train2_launches, train2_runs = train2_phase(SEED)
         dist_record = dist_phase(SEED)
         ep_record = ep_phase(SEED)
+        dryrun_record = dryrun_phase(SEED)
         launches += (moe_launches + ssm_launches + fe_launches
                      + bench_launches + rep_launches + train_launches
                      + train2_launches)
         runs += (moe_runs + ssm_runs + fe_runs + bench_runs + rep_runs
-                 + train_runs + train2_runs + [dist_record, ep_record])
+                 + train_runs + train2_runs
+                 + [dist_record, ep_record, dryrun_record])
         cnn_record = cnn_phase()
     main_case = next(c for c in cases if c["bits"] == 8 and c["S"] == 1)
     entries = [kernel_entry("paged_kv_attention", SOURCE, REPLACES, cases,

@@ -1,22 +1,31 @@
-"""The paper tables (§Repro) rendered from the port's result files
-(``results/torch_{uniform_sweep,perlayer_sweep,traffic,pareto_search,
-lm_precision}.json``),
-as the reference's ``benchmarks/report.py::repro_section`` renders its own,
-and (``--serve``) the serving trajectory's latest point against its first
-per workload, from ``results/torch_BENCH_serve.json`` as the reference's
-``serve_section`` reads its own record. The dry-run, roofline and perf
-sections analyze XLA programs and wait for ROADMAP queue A item 13 part
-5.
+"""EXPERIMENTS from the port's result files, the reference's
+``benchmarks/report.py``: §Repro, the paper tables (``results/torch_{
+uniform_sweep,perlayer_sweep,traffic,pareto_search,lm_precision}.json``);
+§Dry-run and §Roofline, the dry run's per-rank counts and their roofline
+bounds at the H100's data-sheet peaks (``results/torch_dryrun/<tag>/``,
+``benchmarks.roofline``); §Perf, the perf loop's log
+(``results/torch_perf_log.json``, ``benchmarks.perf``); and with
+``--serve`` the serving trajectory's latest point against its first per
+workload, from ``results/torch_BENCH_serve.json`` as the reference's
+``serve_section`` reads its own record.
 
-    python -m repro_torch.benchmarks.report [--serve]
+    python -m repro_torch.benchmarks.report [--write] [--serve]
+
+``--write`` writes ``results/torch_EXPERIMENTS.md``.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 
+from ..configs.registry import ARCH_IDS, get_config
+from ..configs.shapes import SHAPES, applicable
 from . import common
 from .pareto_search import PAPER_TR_1PCT
+from .roofline import (CARD, HBM_BW, LINK_BW, PEAK_FLOPS, load_all,
+                       records_dir, table)
 
 
 def _load(name, default=None):
@@ -89,6 +98,92 @@ def repro_section() -> str:
             out.append(f"- tol {tol}: TR={t['traffic_ratio']:.3f} "
                        f"acc={t['accuracy']:.4f}")
         out += [""]
+    return "\n".join(out)
+
+
+def dryrun_section(tag="baseline") -> str:
+    rows = ["## §Dry-run — 512-rank multi-pod lay-out matrix", "",
+            "Meshes: single pod (16,16) data x model = 256 ranks; "
+            "multi-pod (2,16,16) pod x data x model = 512 ranks. Every "
+            "applicable (arch x shape) cell lays out AND counts on both "
+            "(`python -m repro_torch.launch.dryrun --arch all --shape all "
+            "--mesh both`).", "",
+            "| arch | shape | mesh | lay-out s | op flops/rank | HBM "
+            "bytes/rank | wire bytes/rank | rank peak GiB |",
+            "|---|---|---|---|---|---|---|---|"]
+    n_ok = 0
+    for path in sorted(glob.glob(os.path.join(records_dir(tag),
+                                              "*.json"))):
+        with open(path) as f:
+            rec = json.load(f)
+        if rec.get("skipped"):
+            continue
+        n_ok += 1
+        lc = rec["loop_cost"]
+        gib = rec.get("memory", {}).get("peak_memory_in_bytes", 0) / 2**30
+        rows.append(
+            f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | "
+            f"{rec['lower_s']} | {lc['flops']:.2e} | "
+            f"{lc['hbm_bytes']:.2e} | {lc['wire_bytes']:.2e} | {gib:.1f} |")
+    cells = [applicable(get_config(a), s) for a in ARCH_IDS
+             for s in SHAPES.values()]
+    rows.insert(2, f"**{n_ok} cells laid out OK** ({sum(cells)} "
+                   f"applicable cells x 2 meshes; {cells.count(False)} "
+                   f"skips are principled — see configs.shapes."
+                   f"applicable).")
+    rows += ["", "Costs are per-rank-per-step from the op-level cost "
+             "recorder (launch.hlo_cost), counted on fake tensors on the "
+             "CPU: every op an eager step dispatches, each op's input and "
+             "output bytes (an eager op is one launch), ring-model "
+             "collective wire bytes. The recorder tracks live storages "
+             "with in-place updates, so the peak is the per-rank fit the "
+             "roofline reads.", ""]
+    return "\n".join(rows)
+
+
+def roofline_section(tag="baseline") -> str:
+    recs = load_all(tag)
+    out = ["## §Roofline — per (arch x shape), single pod (H100 "
+           "constants)", "",
+           f"compute = FLOPs/rank / {PEAK_FLOPS:.0e}; memory = HBM "
+           f"bytes/rank / {HBM_BW:.0e}; collective = ring wire bytes/rank "
+           f"/ {LINK_BW:.0e} (seconds/step): bounds at the {CARD} data "
+           f"sheet's peaks, counted on the CPU, not measured.",
+           "roofline frac = (MODEL_FLOPS/rank / peak) / max(term) — the "
+           "fraction of peak the step-time lower bound achieves; "
+           "useful/HLO = MODEL_FLOPS / counted FLOPs (recompute and "
+           "redundant-rows overhead).", "",
+           table(recs, mesh="single"), ""]
+    sug = {}
+    for r in recs:
+        if r["mesh"] == "single":
+            sug.setdefault(r["dominant"], []).append(
+                f"{r['arch']}/{r['shape']}")
+    out += ["### Dominant bottleneck per cell", ""]
+    for dom, cells in sug.items():
+        out.append(f"- **{dom}-bound**: {', '.join(cells)}")
+    out += [""]
+    return "\n".join(out)
+
+
+def perf_section() -> str:
+    log = _load("perf_log.json", [])
+    out = ["## §Perf — hillclimb log (hypothesis -> change -> measure)", ""]
+    if not log:
+        out.append("(no perf iterations recorded yet)")
+        return "\n".join(out)
+    cur = None
+    for e in log:
+        cell = f"{e['arch']}/{e['shape']}"
+        if cell != cur:
+            out += [f"### {cell} ({e.get('why', '')})", ""]
+            cur = cell
+        out += [f"**[{e['iter']}] {e['title']}**",
+                f"- hypothesis: {e['hypothesis']}",
+                f"- change: {e['change']}",
+                f"- before: {e['before']}",
+                f"- after: {e['after']}",
+                f"- verdict: {e['verdict']}", ""]
     return "\n".join(out)
 
 
@@ -184,13 +279,47 @@ def serve_section() -> str:
     return "\n".join(out)
 
 
+HEADER = """# EXPERIMENTS (the PyTorch port)
+
+Reproduction of *Reduced-Precision Strategies for Bounded Memory in Deep
+Neural Nets* (Judd et al., 2015) in the PyTorch port, and the port's
+pod-scale dry run. The numbers regenerate via:
+
+```
+PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
+PYTHONPATH=src python -m repro_torch.benchmarks.run --device cpu
+PYTHONPATH=src python -m repro_torch.benchmarks.report --write
+```
+
+The dry run's figures are counts on fake tensors on the CPU; its
+roofline terms are bounds at the H100's data-sheet peaks, not times.
+"""
+
+
+def build(tag="baseline") -> str:
+    return "\n".join([HEADER, repro_section(), dryrun_section(tag),
+                      roofline_section(tag), perf_section()])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--write", action="store_true",
+                    help="write results/torch_EXPERIMENTS.md")
     ap.add_argument("--serve", action="store_true",
                     help="print the serving trajectory's per-workload "
                          "latest-vs-first summary")
     args = ap.parse_args(argv)
-    print(serve_section() if args.serve else repro_section())
+    if args.serve:
+        print(serve_section())
+        return
+    doc = build()
+    if args.write:
+        path = common.RESULTS / "torch_EXPERIMENTS.md"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(doc)
+        print(f"wrote {path}")
+    else:
+        print(doc)
 
 
 if __name__ == "__main__":

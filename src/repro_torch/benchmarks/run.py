@@ -13,10 +13,11 @@ the kernel bench and the serving benches.
   paged_serve      — paged vs dense KV serving, the mixed workload
   prefix_serve     — the shared-prefix workload
   overcommit_serve — the overcommitted workload through the host tier
+  roofline         — the §Roofline terms from the dry run's records
+                     (``launch.dryrun``; bounds at the H100's peaks)
 
 The serving stages serve the reference's qwen2-72b smoke config, randomly
-initialized from seed 0. The reference's ``roofline`` stage waits for
-ROADMAP queue A item 13 part 5.
+initialized from seed 0.
 
     python -m repro_torch.benchmarks.run [--only a,b] [--fast] [--device D]
 
@@ -36,7 +37,8 @@ from .. import resolve_device
 from ..configs.registry import get_smoke_config
 from ..models.transformer import init_model
 from . import (common, kernel_bench, lm_precision, paged_serve,
-               pareto_search, perlayer_sweep, traffic, uniform_sweep)
+               pareto_search, perlayer_sweep, roofline, traffic,
+               uniform_sweep)
 
 # expensive searches reuse their saved results unless named in --only
 _CACHED = {"uniform_sweep": "uniform_sweep.json",
@@ -78,6 +80,7 @@ def main(argv=None):
         "paged_serve": serve("mixed"),
         "prefix_serve": serve("prefix"),
         "overcommit_serve": serve("overcommit"),
+        "roofline": roofline.run,
     }
     only = [s for s in args.only.split(",") if s]
     unknown = set(only) - set(stages)

@@ -15,9 +15,10 @@ Four shapes per LM arch:
 
 A frontend arch (hubert-xlarge's audio, qwen2-vl-2b's vision) takes a stub
 frontend's precomputed embeddings in place of token ids; an M-RoPE arch
-also takes (B, S, 3) temporal / height / width position ids. The decode
-shapes' cache specs go with the dry run (ROADMAP queue A item 13 part
-5).
+also takes (B, S, 3) temporal / height / width position ids. A decode
+shape's inputs are one new token a row and the caches preallocated at
+its seq_len (:func:`decode_specs`); :func:`input_specs` picks by the
+shape's kind, the inputs the dry run (``launch.dryrun``) lays out.
 """
 from __future__ import annotations
 
@@ -123,3 +124,40 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, *,
                                      generator=generator, device=device,
                                      dtype=dt)
     return out
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                 batch_override: Optional[int] = None, quant=None) -> Dict:
+    """The inputs of a decode step, key -> (shape, dtype): one new token
+    a row, ``tokens`` (B,) int32, or for a frontend arch ``embeds`` (B,
+    1, d_model) in the compute dtype; ``pos`` () int32; and ``caches``,
+    one dict a layer of each leaf's (shape, dtype), as
+    ``models.transformer.init_cache(cfg, quant, None, device, batch=B,
+    max_len=seq_len)`` lays them out (on the meta device: nothing is
+    allocated). The reference stacks each segment's caches on a leading
+    period axis; the port's are per layer
+    (``configs.counting.segment_layers``)."""
+    from ..models.transformer import init_cache
+    B = batch_override if batch_override is not None else shape.global_batch
+    caches = init_cache(cfg, quant, None, "meta", batch=B,
+                        max_len=shape.seq_len)
+    specs: Dict = {}
+    if cfg.frontend is not None:
+        specs["embeds"] = ((B, 1, cfg.d_model), cfg.torch_dtype)
+    else:
+        specs["tokens"] = ((B,), torch.int32)
+    specs["pos"] = ((), torch.int32)
+    specs["caches"] = [{k: (tuple(t.shape), t.dtype) for k, t in c.items()}
+                       for c in caches]
+    return specs
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *, quant=None,
+                batch_override: Optional[int] = None) -> Dict:
+    """The inputs a step of ``shape``'s kind takes: :func:`batch_specs`
+    for a train or prefill shape, :func:`decode_specs` for a decode
+    shape."""
+    if shape.kind in ("train", "prefill"):
+        return batch_specs(cfg, shape, batch_override=batch_override)
+    return decode_specs(cfg, shape, batch_override=batch_override,
+                        quant=quant)

@@ -128,3 +128,14 @@ def num_sms(index: int) -> int:
     kernels launch a few blocks per SM)."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def refuse_fake(*tensors) -> None:
+    """Raise when a fake tensor (the dry run's, ``launch.dryrun``)
+    reaches a kernel wrapper: the ``ctypes`` launch is invisible to the
+    op-cost recorder and cannot run on fake data, and the plain version
+    would hide the kernel from the count."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError("a fake tensor reached a CUDA kernel's wrapper: "
+                           "the dry run's cells must not reach a kernel")

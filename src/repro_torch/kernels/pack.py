@@ -89,6 +89,7 @@ def pack_2d(q: torch.Tensor, *, bits: int) -> torch.Tensor:
     """q: (M, N) int32 grid values in [-2^(bits-1), 2^(bits-1)-1],
     N % (32/bits) == 0. Returns (M, N/vpw) int32 words."""
     vpw = values_per_word(bits)
+    build.refuse_fake(q)
     _check_2d(q, "q")
     M, N = q.shape
     if N % vpw:
@@ -106,6 +107,7 @@ def pack_2d(q: torch.Tensor, *, bits: int) -> torch.Tensor:
 def unpack_2d(w: torch.Tensor, *, bits: int) -> torch.Tensor:
     """w: (M, W) int32 packed words -> (M, W * 32/bits) int32 values."""
     vpw = values_per_word(bits)
+    build.refuse_fake(w)
     _check_2d(w, "w")
     if w.device.type == "cpu":
         return unpack_plain(w, bits)

@@ -404,6 +404,7 @@ def paged_kv_attention_chunk(q, k_pages, v_pages, k_scale, v_scale,
     values no caller reads.
     """
     _check(q, k_pages, v_pages, k_scale, v_scale, page_table, bits)
+    build.refuse_fake(q, k_pages, v_pages)
     B = q.shape[0]
     if q.device.type == "cuda":
         return _launch(q, k_pages, v_pages, k_scale, v_scale, page_table,

@@ -51,6 +51,7 @@ def quant_cast(x: torch.Tensor, int_bits: int,
     """Fake-quant Q(I,F) of ``x`` (any rank, float32 or bfloat16 on the
     card); returns a tensor of x's shape and dtype on the grid."""
     scale, qmin, qmax = format_params(int_bits, frac_bits)
+    build.refuse_fake(x)
     if x.device.type == "cpu":
         return quant_cast_plain(x, int_bits, frac_bits)
     if x.device.type != "cuda":

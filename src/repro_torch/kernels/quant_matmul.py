@@ -184,6 +184,7 @@ def quant_matmul(a: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"scales must be ({N},), got {tuple(scales.shape)}")
     if len({a.device, wq.device, scales.device}) != 1:
         raise ValueError("a, wq and scales lie on different devices")
+    build.refuse_fake(a, wq, scales)
     if a.device.type == "cpu":
         return quant_matmul_plain(a, wq, scales)
     if a.device.type != "cuda":

@@ -11,6 +11,7 @@ module constants: importing this module touches no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import pickle
@@ -146,12 +147,49 @@ def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device):
                             mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's (16, 16) / (2, 16, 16) TPU pod layouts exist only
-    in its dry run, which comes with ROADMAP queue A item 13 part 5."""
-    raise NotImplementedError(
-        "the production mesh (the dry run's 256 / 512-device layouts) is "
-        "not ported yet: ROADMAP queue A item 13 part 5")
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cpu"):
+    """The reference's TPU pod layouts over the running group: (16, 16)
+    ("data", "model") = 256 ranks, or with ``multi_pod`` (2, 16, 16)
+    ("pod", "data", "model") = 512. The group must hold exactly that many
+    ranks: a real pod under ``python -m torch.distributed.run``, or the
+    dry run's fake group (:func:`fake_group`). It never opens a group of
+    its own and falls back to no smaller mesh: any other group, or none,
+    raises ``ValueError``. ``device``: the ranks' device type."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    want = math.prod(shape)
+    n = dist.get_world_size() if dist.is_initialized() else 0
+    if n != want:
+        raise ValueError(
+            f"the production mesh {shape} {axes} needs a running group of "
+            f"exactly {want} ranks (256 single-pod, 512 multi-pod); "
+            + (f"the running group has {n}" if n else "no group is running")
+            + ": launch the pod under torch.distributed.run, or open the "
+              "dry run's fake group (launch.mesh.fake_group)")
+    return _mesh(shape, axes, device)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """Open the dry run's process group for the block: the ``"fake"``
+    backend over a ``FakeStore``, ``world_size`` ranks of which this
+    process is rank 0. Its collectives move nothing (they run only on
+    fake tensors, under ``FakeTensorMode``). The group is torn down on
+    leaving, so the process is left with none; one already running
+    raises."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is running already; the dry "
+                           "run opens its fake group in a process of none")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(device="cuda"):

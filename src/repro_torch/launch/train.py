@@ -27,9 +27,11 @@ checkpoint is the global one) and writes ``--metrics-out``. A MoE arch
 trains there too: the host mesh has no model axis, so a ``scatter`` MoE
 dispatches the global batch, as the reference's does on that mesh, and
 its load-balance loss is the global batch's.
-``--mesh single|multi`` name the reference's 256- and 512-device pods,
-which exist here only in the dry run (ROADMAP queue A item 13 part 5):
-they raise.
+``--mesh single|multi`` train over the reference's 256- and 512-rank
+pods (``launch.mesh.make_production_mesh``): the group of
+``torch.distributed.run`` must hold exactly that many ranks, else the
+mesh raises its ValueError (the pods are laid out on one host only by the
+dry run, ``launch.dryrun``).
 
 Usage (CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
@@ -60,8 +62,8 @@ from ..optim.schedule import cosine_warmup
 from ..parallel.sharding import plan_for_mesh
 from ..quant.apply import build_model_quant, transformer_layer_names
 from ..runtime.fault import StragglerMonitor, TrainSupervisor
-from .mesh import close_process_group, make_host_mesh
-from .serve import _not_ported
+from .mesh import (_join_launcher, _launched, close_process_group,
+                   make_host_mesh, make_production_mesh)
 from .steps import (TrainHParams, init_train_state, load_train_state,
                     make_train_step, shard_train_state, train_state_tree)
 
@@ -121,17 +123,22 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.mesh != "host":
-        raise _not_ported(f"--mesh {args.mesh} (the dry run's 256 / "
-                          f"512-device pods)", "13 part 5")
+    import torch
     import torch.distributed as dist
     resolve_device(args.device)         # no card: raise, never fall back
     opened = not dist.is_initialized()
-    mesh = make_host_mesh(args.device)
     try:
+        if args.mesh == "host":
+            mesh = make_host_mesh(args.device)
+        else:
+            if opened and _launched():
+                _join_launcher(args.device)
+            mesh = make_production_mesh(
+                multi_pod=args.mesh == "multi",
+                device=torch.device(args.device).type)
         return _train(args, cfg, mesh)
     finally:
-        if opened:
+        if opened and dist.is_initialized():
             close_process_group()
 
 

@@ -7,12 +7,14 @@ product on both sides.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch._guards import detect_fake_mode
 from torch.utils.checkpoint import checkpoint
 
 
@@ -105,7 +107,21 @@ def rope_angles(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+def _device_cached(fn):
+    """``fn`` (a tensor made on its ``device`` argument) cached per
+    arguments, but made afresh under a fake-tensor mode (the dry run's,
+    ``launch.dryrun``): a fake tensor kept in the cache would reach a
+    later real run."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def get(*args):
+        return fn(*args) if detect_fake_mode() is not None else cached(*args)
+
+    return get
+
+
+@_device_cached
 def _device_rope_angles(head_dim: int, theta: float,
                         device: torch.device) -> torch.Tensor:
     """:func:`rope_angles` copied to ``device`` once: a copy from host
@@ -135,7 +151,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 MROPE_SECTIONS = (0.25, 0.375, 0.375)   # temporal / height / width bands
 
 
-@functools.lru_cache(maxsize=None)
+@_device_cached
 def _mrope_bands(half: int, device: torch.device) -> torch.Tensor:
     """(half,) id stream of each frequency: 0 below ``b0``, 1 up to
     ``b1``, 2 above, with the reference's truncating band bounds
@@ -228,3 +244,20 @@ def chunked_ce_loss(hidden, head_w, labels, *, chunk: int, mask=None):
         nll_sum = nll_sum + a
         n_valid = n_valid + n
     return nll_sum / torch.clamp(n_valid, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Layer scopes of the op-cost recorder (``launch.hlo_cost``)
+# ---------------------------------------------------------------------------
+LAYER_LISTENER: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_layer_listener", default=None)
+
+
+def enter_layer(x: torch.Tensor, li: Optional[int]) -> torch.Tensor:
+    """Announce that layer ``li`` (None: past the last layer) reads the
+    residual stream ``x`` next, to the op-cost recorder listening
+    (``launch.hlo_cost.OpCostRecorder``, which attributes the ops of each
+    layer, its backward included, to the layer's segment). Returns ``x``
+    unchanged."""
+    listen = LAYER_LISTENER.get()
+    return x if listen is None else listen(x, li)

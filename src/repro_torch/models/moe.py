@@ -230,13 +230,26 @@ def _send(t: torch.Tensor, group, bits: int) -> torch.Tensor:
 def _ep_dispatch_ffn(p: MoE, x, idx, w, cfg, mark) -> torch.Tensor:
     """The reference's ``_sharded_dispatch`` on this rank's rows x (B, S,
     D) (idx / w (B, S, k)), the same on every rank of the model axis;
-    ``p``'s expert stacks are this rank's E / tp experts, whole in F."""
+    ``p``'s expert stacks are this rank's E / tp experts, whole in F.
+    Rows split over only some of the batch axes (a pod mesh whose batch
+    "pod" x "data" does not divide) are replicated over every batch axis
+    in the reference's dispatch (its row spec is None), so each rank
+    gathers the other rows, dispatches the global batch with its
+    capacity and keeps its own rows' output (a plain slice: the other
+    rows' gradient is zero here)."""
     plan = mark.plan
-    if mark.row_axes not in ((), tuple(plan.batch_axes)):
-        raise NotImplementedError(
-            "expert-parallel dispatch of rows split over only some of the "
-            "batch axes (a pod mesh) is not ported yet: ROADMAP queue A "
-            "item 13 part 5")
+    ax = mark.row_axes
+    if ax in ((), tuple(plan.batch_axes)):
+        return _ep_rows_ffn(p, x, idx, w, cfg, plan)
+    xs, ids, ws = (gather_rows(t, 0, ax, plan) for t in (x, idx, w))
+    out = _ep_rows_ffn(p, xs, ids, ws, cfg, plan)
+    return local_shard(out, (ax if len(ax) > 1 else ax[0], None, None),
+                       plan)
+
+
+def _ep_rows_ffn(p: MoE, x, idx, w, cfg, plan) -> torch.Tensor:
+    """:func:`_ep_dispatch_ffn` of the rows x (B, S, D) this rank
+    dispatches as one token shard."""
     model, tp = plan.model_axis, plan.model_size
     group = axis_group(plan, model)
     bits = cfg.moe_a2a_bits

@@ -61,7 +61,7 @@ from .attention import (GQAttention, KVQuantSpec, MLAttention, gqa_apply,
                         init_gqa, init_kv_cache, init_mla, init_mla_cache,
                         mla_apply)
 from .common import (chunked_ce_loss, cross_entropy, dense_init, embed_init,
-                     embed_tokens, frozen, lm_head, rmsnorm)
+                     embed_tokens, enter_layer, frozen, lm_head, rmsnorm)
 from .mlp import (GeluMLP, SwiGLU, gelu_mlp_apply, init_gelu_mlp,
                   init_swiglu, swiglu_apply)
 from .moe import MoE, init_moe, moe_apply
@@ -671,6 +671,7 @@ def forward_hidden(model: Transformer, tokens, cfg, *, embeds=None,
         x = fake_quant_ste(x, *quant.layer_data(0))  # the embedding output
     lb = None
     for li, blk in enumerate(model.layers):
+        x = enter_layer(x, li)
         kvq = wf = af = sq = None
         if quant is not None:
             kvq, wf, af, sq = (quant.layer_kv(li), quant.layer_weight(li),
@@ -686,7 +687,7 @@ def forward_hidden(model: Transformer, tokens, cfg, *, embeds=None,
             caches[li] = cache
         if "moe_lb_loss" in aux:
             lb = aux["moe_lb_loss"] if lb is None else lb + aux["moe_lb_loss"]
-    x = rmsnorm(model.final_norm, x, cfg.norm_eps)
+    x = rmsnorm(model.final_norm, enter_layer(x, None), cfg.norm_eps)
     if lb is None:
         lb = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, caches, {"moe_lb_loss": lb}

@@ -26,7 +26,8 @@ def _expert_specs(cfg, plan) -> dict:
 
 def _rows(plan, B: int) -> tuple:
     """The axes that split a batch of ``B`` rows (``shard_batch``'s)."""
-    return ("data",) if B % plan.shape["data"] == 0 else ()
+    from repro_torch.parallel.sharding import _axes, _batch_axes_for
+    return _axes(_batch_axes_for(plan, B))
 
 
 def _leaf(a) -> torch.Tensor:
@@ -76,7 +77,8 @@ def dispatch_cases(plan, base, params, cases, bits_list) -> dict:
             cfg = dataclasses.replace(base, moe_mode="scatter",
                                       moe_a2a_bits=bits, **over)
             axes = _rows(plan, x.shape[0])
-            rspec = (axes[0] if axes else None, None, None)
+            rspec = (axes if len(axes) > 1 else axes[0] if axes else None,
+                     None, None)
             xr = local_shard(torch.from_numpy(x), rspec, plan).clone() \
                 .requires_grad_(True)
             cr = local_shard(torch.from_numpy(cot), rspec, plan)
@@ -204,7 +206,9 @@ def ep_ranks(rank, meshes, jobs, inputs) -> dict:
     serving mesh)."""
     out = {}
     for shape in meshes:
-        plan = dist_ranks._plan(shape, ("data", "model")[:len(shape)])
+        plan = dist_ranks._plan(shape, ("pod", "data", "model")
+                                if len(shape) == 3
+                                else ("data", "model")[:len(shape)])
         res = {}
         todo = jobs.get(tuple(shape), {})
         if "dispatch" in todo:

@@ -51,7 +51,8 @@ from repro.parallel.sharding import plan_for_mesh  # noqa: E402
 
 def make_plan(shape):
     devs = np.array(jax.devices()[:math.prod(shape)]).reshape(shape)
-    return plan_for_mesh(Mesh(devs, ("data", "model")))
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return plan_for_mesh(Mesh(devs, axes))
 
 
 def flat(tree):

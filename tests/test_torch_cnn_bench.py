@@ -146,7 +146,7 @@ def test_run_prints_cached_stages_and_raises_on_a_failure(tmp_path,
     with pytest.raises(ValueError, match="stage failed"):
         trun.main(["--only", "traffic"])
     with pytest.raises(SystemExit):
-        trun.main(["--only", "roofline"])
+        trun.main(["--only", "no_such_stage"])
 
 
 def test_entry_points_default_to_the_card():

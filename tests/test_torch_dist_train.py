@@ -537,8 +537,8 @@ def test_cli_on_two_ranks_resumes_on_one(tmp_path):
     steps (a checkpoint every 2) against one rank: losses and grad norms
     within rtol 1e-4; rank 0 alone prints and writes the metrics and the
     checkpoints. Its step-4 checkpoint resumed on one rank equals the
-    one-rank run's steps 5 and 6 at rtol 1e-4. ``--mesh single`` raises,
-    naming part 5."""
+    one-rank run's steps 5 and 6 at rtol 1e-4. ``--mesh single`` without
+    a 256-rank group raises the production mesh's ValueError."""
     base = ["--arch", "yi-34b", "--smoke", "--device", "cpu", "--steps", "6",
             "--batch-size", "4", "--seq-len", "32", "--lr", "1e-3",
             "--warmup", "2", "--log-every", "1"]
@@ -570,5 +570,24 @@ def test_cli_on_two_ranks_resumes_on_one(tmp_path):
     for a, b in zip(resumed, one[4:]):
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
         assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-4)
-    with pytest.raises(NotImplementedError, match="item 13 part 5"):
+    with pytest.raises(ValueError, match="exactly 256 ranks"):
         train_mod.main(base + ["--mesh", "single"])
+
+
+def test_cli_mesh_single_refuses_a_group_of_the_wrong_size():
+    """``--mesh single`` / ``multi`` train over the reference's 256- and
+    512-rank pods (``make_production_mesh``): a running group of another
+    size (the dry run's fake group of 8 here) is refused with the mesh's
+    ValueError, naming both sizes, and the trainer leaves the group it
+    did not open running."""
+    import torch.distributed as dist
+    base = ["--arch", "yi-34b", "--smoke", "--device", "cpu", "--steps", "1",
+            "--batch-size", "2", "--seq-len", "16"]
+    with tmesh.fake_group(8):
+        for mesh, n in (("single", 256), ("multi", 512)):
+            with pytest.raises(ValueError, match=f"exactly {n} ranks "
+                               r"\(256 single-pod, 512 multi-pod\); the "
+                               "running group has 8"):
+                train_mod.main(base + ["--mesh", mesh])
+        assert dist.is_initialized() and dist.get_world_size() == 8
+    assert not dist.is_initialized()

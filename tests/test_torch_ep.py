@@ -85,7 +85,9 @@ LLAMA, DSV3, JAMBA = ("llama4-maverick-400b-a17b", "deepseek-v3-671b",
 ARCHS = (LLAMA, DSV3, JAMBA)
 OVER = {LLAMA: {}, DSV3: dict(moe_mode="scatter"), JAMBA: {}}
 MESHES = [(2, 1), (1, 2), (2, 2)]
-DISPATCH_MESHES = [(2, 2), (1, 2)]
+# (2, 1, 2) is a pod mesh: a batch that "pod" x "data" does not divide
+# splits its rows over "data" alone
+DISPATCH_MESHES = [(2, 2), (1, 2), (2, 1, 2)]
 BITS = (0, 8, 16)
 
 
@@ -244,14 +246,15 @@ def two(inputs, ref_proc, served):
 @pytest.fixture(scope="module")
 def four(inputs, ref_proc):
     return tmesh.spawn_ranks(
-        ranks.ep_ranks, 4, [(2, 2)],
+        ranks.ep_ranks, 4, [(2, 2), (2, 1, 2)],
         {(2, 2): {"dispatch": 1, "lb": 1,
-                  "train": dict(TRAIN, shared=DSV3)}},
+                  "train": dict(TRAIN, shared=DSV3)},
+         (2, 1, 2): {"dispatch": 1}},
         _rank_inputs(inputs), device="cpu")
 
 
 def _runs(shape, two, four):
-    return [r[shape] for r in (four if shape == (2, 2) else two)]
+    return [r[shape] for r in (four if np.prod(shape) == 4 else two)]
 
 
 def _close_to_max(got, want, tol=1e-4):
@@ -261,12 +264,19 @@ def _close_to_max(got, want, tol=1e-4):
 
 
 def _row_slice(rank_res, shape, rank, B):
-    """This rank's rows of a global batch of B rows."""
-    if not rank_res["row_axes"]:
-        return slice(None)
-    data = rank // shape[1]
-    n = B // shape[0]
-    return slice(data * n, (data + 1) * n)
+    """This rank's rows of a global batch of B rows: its block over the
+    axes that split them, major first (mesh axes ("data", "model") or
+    ("pod", "data", "model"))."""
+    names = ("pod", "data", "model")[-len(shape):]
+    size = dict(zip(names, shape))
+    coord, r = {}, rank
+    for ax in reversed(names):
+        coord[ax], r = r % size[ax], r // size[ax]
+    idx, parts = 0, 1
+    for ax in rank_res["row_axes"]:
+        idx, parts = idx * size[ax] + coord[ax], parts * size[ax]
+    n = B // parts
+    return slice(idx * n, (idx + 1) * n)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +284,7 @@ def _row_slice(rank_res, shape, rank, B):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("shape", DISPATCH_MESHES,
-                         ids=lambda s: f"{s[0]}x{s[1]}")
+                         ids=lambda s: "x".join(map(str, s)))
 def test_ep_dispatch_matches_the_references(shape, bits, inputs, two, four,
                                             ref):
     want_all = ref["dispatch"][shape]
@@ -304,7 +314,7 @@ def test_ep_dispatch_matches_the_references(shape, bits, inputs, two, four,
                 _close_to_max(got["grads"][leaf], g)
             _close_to_max(got["x_grad"], want[key + "x_grad"][rows])
             # E / tp experts a rank, whole in F
-            assert got["local_experts"] == (4 // shape[1], 64, 48)
+            assert got["local_experts"] == (4 // shape[-1], 64, 48)
     if bits == 16:
         print(f"[ep] {shape} 16 bits: {flips} output values one grid step "
               f"apart")

@@ -423,8 +423,7 @@ def test_serving_mesh_refusals_in_the_references_words():
         with pytest.raises(ValueError) as got:
             tmesh.make_serving_mesh(tp, device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError,
-                       match="queue A item 13 part 5"):
+    with pytest.raises(ValueError, match="no group is running"):
         tmesh.make_production_mesh()
     # the training half's placements are ported (part 3): they lay out a
     # batch, a dense cache and a train state on a 2 x 2 mesh
